@@ -1,0 +1,208 @@
+"""DCL-Net stage-1 network, inference (PyTorch).
+
+Counterpart of dcl_net_tpu/models/dcl_net.py, split the same way:
+  encode_observed / encode_template: voxelize (kernel K1) -> backbone ->
+    multi-scale 3-NN interpolation (kernels K2, K3) -> the four disengage
+    heads of that branch;
+  fuse: bidirectional attention + confidence + pose heads + SVD pose.
+forward = fuse(encode_observed(batch), encode_template(batch)). The template
+branch depends only on the class's CAD cloud, so the evaluator encodes it
+once per class (eval/evaluator.py).
+
+Batch contract (channel-last, fixed shapes, as the JAX package's):
+  {"inp": {"feats": [B,N,7] f32, "voxel_idx": [B,N,3] int32},
+   "tmp": {"feats": [B,M,7] f32, "voxel_idx": [B,M,3] int32}, ...}
+with features [1, rgb, xyz].
+
+Parameter names follow the JAX tree (backbone_inp.conv0, disengage_Xc_p1.
+Dense_0, ...) so weights.py maps one to the other by layout alone.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping, Sequence
+
+import torch
+from torch import nn
+
+from dcl_net_tpu_torch import resolve_device
+from dcl_net_tpu_torch.geometry.rotation import ortho9d_to_matrix
+from dcl_net_tpu_torch.models.backbone import MultiScalePointFeatures, SparseBackbone
+from dcl_net_tpu_torch.models.blocks import PointMLP
+from dcl_net_tpu_torch.ops.cuda_voxelize import voxelize_cuda
+from dcl_net_tpu_torch.ops.voxelize import MODE_MEAN, MODE_SUM
+
+_POINT_FEATS = 480  # 32 + 64 + 128 + 256
+
+
+def _disengager(out_dim: int) -> PointMLP:
+    # two 1x1 conv blocks 480 -> 256 -> out, BN before act, no bias
+    return PointMLP(_POINT_FEATS, (256, out_dim), ("relu", "relu"),
+                    (True, True), bn_before_act=True, use_bias=False)
+
+
+def _head(in_dim: int, dims, acts, bns) -> PointMLP:
+    # Conv1d stacks with bias, BN after act
+    return PointMLP(in_dim, dims, acts, bns, bn_before_act=False, use_bias=True)
+
+
+def aligner(ri_1: torch.Tensor, ri_2: torch.Tensor, re_2: torch.Tensor):
+    """Cross-attention aligner.
+
+    ri_1 [B, N1, C], ri_2 [B, N2, C], re_2 [B, N2, E] ->
+    (re_embed [B, N1, E], attention [B, N2, N1], softmax over N2)."""
+    att = torch.softmax(ri_2 @ ri_1.transpose(1, 2), dim=1)
+    return att.transpose(1, 2) @ re_2, att
+
+
+class DCLNet(nn.Module):
+    """The stage-1 DCL-Net.
+
+    device: where the module lives, CUDA unless the caller names another.
+    seed: the weights are drawn from a torch.Generator with this seed
+    (lecun-normal kernels, zero biases, identity BN statistics), on the CPU
+    and then moved, so the same seed gives the same weights everywhere."""
+
+    def __init__(
+        self,
+        voxelization_mode: int = MODE_MEAN,
+        unit_voxel_extent: Sequence[float] = (0.006, 0.006, 0.006),
+        voxel_num_limit: Sequence[int] = (64, 64, 64),
+        kernel_size: int = 3,
+        capacities: Sequence[int] = (2048, 1024, 512, 64),
+        device=None,
+        seed: int = 0,
+    ):
+        super().__init__()
+        if voxelization_mode not in (MODE_SUM, MODE_MEAN):
+            raise NotImplementedError(
+                f"voxelization mode {voxelization_mode}: the port runs 3 (sum) "
+                "and 4 (mean)")
+        self.voxelization_mode = int(voxelization_mode)
+        self.grid_shape = tuple(int(d) for d in voxel_num_limit)
+        self.backbone_inp = SparseBackbone(kernel_size=kernel_size)
+        self.backbone_tmp = SparseBackbone(kernel_size=kernel_size)
+        pf_kw = dict(unit_voxel_extent=tuple(unit_voxel_extent),
+                     voxel_num_limit=self.grid_shape, capacities=tuple(capacities))
+        self.point_feats_inp = MultiScalePointFeatures(**pf_kw)
+        self.point_feats_tmp = MultiScalePointFeatures(**pf_kw)
+
+        for side in ("Xc", "Yo"):
+            for name, dim in (("p1", 256), ("m1", 64), ("p2", 256), ("m2", 64)):
+                self.add_module(f"disengage_{side}_{name}", _disengager(dim))
+        no_bn = (False,) * 3
+        last_none = ("relu", "relu", "none")
+        self.regressor_Xo = _head(256, (256, 128, 3), last_none, no_bn)
+        self.regressor_Yc = _head(256, (256, 128, 3), last_none, no_bn)
+        self.regressor_conf = _head(128, (128, 128, 1), last_none, no_bn)
+        self.regressor_conf_bi = _head(128, (128, 128, 1), last_none, no_bn)
+        self.neck_fuser = _head(512, (512, 512, 1024), ("relu",) * 3, (True,) * 3)
+        self.neck_fuser_bi = _head(512, (512, 512, 1024), ("relu",) * 3, (True,) * 3)
+        self.regressor_rot = _head(1024, (512, 128, 9), last_none, no_bn)
+        self.regressor_trans = _head(1024, (512, 128, 3), last_none, no_bn)
+
+        self.reset_parameters(seed)
+        self.to(resolve_device(device))
+        self.eval()
+
+    @classmethod
+    def from_config(cls, model_cfg: Mapping[str, Any], **kw) -> "DCLNet":
+        """Build from a config's `model` block (configs/config_YCBV_bs32.yaml)."""
+        args = dict(
+            voxelization_mode=int(model_cfg.get("voxelization_mode", MODE_MEAN)),
+            unit_voxel_extent=tuple(model_cfg["unit_voxel_extent"]),
+            voxel_num_limit=tuple(model_cfg["voxel_num_limit"]),
+            kernel_size=int(model_cfg.get("backbone", {}).get("kernel_size", 3)),
+        )
+        if "capacities" in model_cfg:
+            args["capacities"] = tuple(model_cfg["capacities"])
+        args.update(kw)
+        return cls(**args)
+
+    @torch.no_grad()
+    def reset_parameters(self, seed: int = 0) -> None:
+        gen = torch.Generator().manual_seed(int(seed))
+        for mod in self.modules():
+            if isinstance(mod, (nn.Conv3d, nn.Linear)):
+                w = mod.weight
+                fan_in = w[0].numel()
+                w.copy_(torch.randn(w.shape, generator=gen) / fan_in ** 0.5)
+                if mod.bias is not None:
+                    mod.bias.zero_()
+            elif isinstance(mod, nn.BatchNorm1d):
+                mod.reset_parameters()
+
+    # ------------------------------------------------------------------
+    # Branch encoders
+    # ------------------------------------------------------------------
+    def _encode(self, backbone, point_feats, feats, voxel_idx):
+        grid, count = voxelize_cuda(feats, voxel_idx, self.grid_shape,
+                                    mode=self.voxelization_mode)
+        mask = (count > 0).to(feats.dtype)
+        pyramid = backbone(grid, mask)
+        points = feats[..., 4:7].contiguous()
+        interp, overflow = point_feats(points, pyramid)
+        return points, interp, overflow
+
+    def _heads(self, side: str, points, f, overflow) -> Dict[str, torch.Tensor]:
+        out = {"points": points, "overflow": overflow}
+        for name in ("p1", "m1", "p2", "m2"):
+            out[name] = getattr(self, f"disengage_{side}_{name}")(f)
+        return out
+
+    def encode_observed(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """Observed branch: backbone + interp + the four Xc disengage heads."""
+        points, f, overflow = self._encode(
+            self.backbone_inp, self.point_feats_inp,
+            batch["inp"]["feats"], batch["inp"]["voxel_idx"])
+        return self._heads("Xc", points, f, overflow)
+
+    def encode_template(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """Template branch: backbone + interp + the four Yo disengage heads.
+        Depends only on the CAD cloud, so eval caches it per class."""
+        points, f, overflow = self._encode(
+            self.backbone_tmp, self.point_feats_tmp,
+            batch["tmp"]["feats"], batch["tmp"]["voxel_idx"])
+        return self._heads("Yo", points, f, overflow)
+
+    # ------------------------------------------------------------------
+    # Fusion: attention + confidence + pose heads
+    # ------------------------------------------------------------------
+    def fuse(self, obs: Dict[str, torch.Tensor], tmp: Dict[str, torch.Tensor]
+             ) -> Dict[str, torch.Tensor]:
+        f_xo_p, att = aligner(obs["m1"], tmp["m1"], tmp["p1"])     # [B, N, 256]
+        xo_pred = self.regressor_Xo(f_xo_p)
+        f_yc_p, att_bi = aligner(tmp["m2"], obs["m2"], obs["p2"])  # [B, M, 256]
+        yc_pred = self.regressor_Yc(f_yc_p)
+
+        f_xo_m = att.transpose(1, 2) @ tmp["m1"]                   # [B, N, 64]
+        f_m1 = torch.cat([obs["m1"], f_xo_m], dim=-1)              # [B, N, 128]
+        f_yc_m = att_bi.transpose(1, 2) @ obs["m2"]                # [B, M, 64]
+        f_m2 = torch.cat([f_yc_m, tmp["m2"]], dim=-1)              # [B, M, 128]
+        conf = torch.sigmoid(torch.cat(
+            [self.regressor_conf(f_m1), self.regressor_conf_bi(f_m2)], dim=1))
+        conf_softmax = torch.softmax(conf, dim=1)
+
+        f_p1 = self.neck_fuser(torch.cat([obs["p1"], f_xo_p], dim=-1))
+        f_p2 = self.neck_fuser_bi(torch.cat([f_yc_p, tmp["p2"]], dim=-1))
+        f_p = torch.cat([f_p1, f_p2], dim=1)                       # [B, N+M, 1024]
+        f_p_wei = torch.sum(f_p * conf_softmax, dim=1)             # [B, 1024]
+
+        ortho9d = self.regressor_rot(f_p_wei[:, None, :])[:, 0, :]
+        rot_pred = ortho9d_to_matrix(ortho9d[:, :3], ortho9d[:, 3:6],
+                                     ortho9d[:, 6:])
+        trans_pred = self.regressor_trans(f_p_wei[:, None, :])[:, 0, :]
+        return {
+            "trans_pred": trans_pred,                    # [B, 3]
+            "rot_pred": rot_pred,                        # [B, 3, 3]
+            "conf": conf[..., 0],                        # [B, N+M]
+            "overflow": obs["overflow"] | tmp["overflow"],  # [B] bool
+            "F_Xo_p": f_xo_p,                            # [B, N, 256]
+            "Xo_pred": xo_pred,                          # [B, N, 3]
+            "Yc_pred": yc_pred,                          # [B, M, 3]
+            "points_inp": obs["points"],                 # [B, N, 3]
+            "points_tmp": tmp["points"],                 # [B, M, 3]
+        }
+
+    def forward(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        return self.fuse(self.encode_observed(batch), self.encode_template(batch))

@@ -1,0 +1,70 @@
+"""K1: point -> voxel scatter, hand-written CUDA kernel (csrc/voxelize.cu).
+
+Replaces the Pallas kernel of dcl_net_tpu/ops/pallas_voxelize.py. A CUDA
+tensor goes through the kernel; a CPU tensor goes through the plain version
+(ops/voxelize.voxelize_dense). There is no fallback: a CUDA tensor that
+cannot reach the kernel raises.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from dcl_net_tpu_torch.ops import cuda_build
+from dcl_net_tpu_torch.ops.voxelize import MODE_MEAN, MODE_SUM, voxelize_dense
+
+# Launches of the kernel since the last reset (set to 0 to reset).
+launches = 0
+
+# The plain version: same function, plain PyTorch.
+voxelize_reference = voxelize_dense
+
+
+def voxelize_cuda(
+    feats: torch.Tensor,
+    voxel_idx: torch.Tensor,
+    grid_size: Tuple[int, int, int],
+    mode: int = MODE_MEAN,
+    point_mask: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sum (mode 3) or mean (mode 4) scatter of [B, N, C] point features into
+    a [B, D0, D1, D2, C] grid, with exact f32 counts [B, D0, D1, D2].
+
+    feats f32 and voxel_idx int32 [B, N, 3], both contiguous; point_mask
+    optional f32 [B, N]. Points outside the grid are dropped."""
+    global launches
+    if feats.device.type == "cpu":
+        return voxelize_reference(feats, voxel_idx, grid_size, mode, point_mask)
+    name = "voxelize_cuda"
+    req = cuda_build.require
+    req(feats.is_cuda, name, f"unsupported device {feats.device}")
+    req(mode in (MODE_SUM, MODE_MEAN), name, f"mode {mode} (3 or 4 only)")
+    req(feats.dtype == torch.float32 and feats.dim() == 3, name,
+        f"feats must be f32 [B, N, C], got {feats.dtype} {tuple(feats.shape)}")
+    b, n, c = feats.shape
+    req(voxel_idx.dtype == torch.int32 and tuple(voxel_idx.shape) == (b, n, 3),
+        name, f"voxel_idx must be int32 [{b}, {n}, 3]")
+    tensors = [feats, voxel_idx]
+    if point_mask is not None:
+        req(point_mask.dtype == torch.float32
+            and tuple(point_mask.shape) == (b, n), name,
+            f"point_mask must be f32 [{b}, {n}]")
+        tensors.append(point_mask)
+    for t in tensors:
+        req(t.device == feats.device, name, "inputs on different devices")
+        req(t.is_contiguous(), name, "inputs must be contiguous")
+    d0, d1, d2 = (int(d) for d in grid_size)
+    grid = torch.zeros((b, d0, d1, d2, c), dtype=torch.float32,
+                       device=feats.device)
+    count = torch.zeros((b, d0, d1, d2), dtype=torch.float32,
+                        device=feats.device)
+    cuda_build.launch(
+        "dclx_voxelize", name, feats.device,
+        feats.data_ptr(), voxel_idx.data_ptr(),
+        None if point_mask is None else point_mask.data_ptr(),
+        grid.data_ptr(), count.data_ptr(), b, n, c, d0, d1, d2,
+        int(mode == MODE_MEAN))
+    launches += 1
+    return grid, count

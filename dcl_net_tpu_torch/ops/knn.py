@@ -1,0 +1,77 @@
+"""KNN and 3-NN interpolation (plain PyTorch).
+
+Counterpart of the parts of dcl_net_tpu/ops/knn.py that stage-1 inference
+reaches. Distances use the |a|^2 - 2ab + |b|^2 expansion of
+geometry/transform.pairwise_sq_dist, as the JAX package's XLA path does; the
+main path's kernel (ops/cuda_interp.py) uses direct differences instead.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from dcl_net_tpu_torch.geometry.transform import pairwise_sq_dist
+
+BIG = 1e10
+
+
+def iterated_argmin(d2: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """k passes of argmin over the last axis, each knocking its minimum out
+    to BIG: exact, with ties to the lowest index. With fewer than k entries
+    below BIG the remaining passes return index 0 at distance BIG (argmin of
+    an all-BIG row), as the JAX reference does."""
+    cur = d2
+    dists, idxs = [], []
+    for _ in range(k):
+        i = torch.argmin(cur, dim=-1, keepdim=True)
+        dists.append(torch.gather(cur, -1, i))
+        idxs.append(i)
+        cur = cur.scatter(-1, i, BIG)
+    return torch.cat(dists, -1), torch.cat(idxs, -1).to(torch.int32)
+
+
+def knn(k: int, query: torch.Tensor, ref: torch.Tensor,
+        ref_mask: Optional[torch.Tensor] = None
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """k nearest refs of each query: squared distances and int32 indices
+    [B, N, k], ascending. query [B, N, 3]; ref [B, M, 3]; ref_mask [B, M]."""
+    d2 = pairwise_sq_dist(query, ref)
+    if ref_mask is not None:
+        d2 = torch.where(ref_mask[:, None, :] > 0, d2, torch.full_like(d2, BIG))
+    m = d2.shape[-1]
+    k_eff = min(k, m)
+    dist2, idx = iterated_argmin(d2, k_eff)
+    if k_eff < k:  # fewer refs than k: repeat the nearest
+        pad = k - k_eff
+        dist2 = torch.cat([dist2] + [dist2[..., :1]] * pad, -1)
+        idx = torch.cat([idx] + [idx[..., :1]] * pad, -1)
+    return dist2, idx
+
+
+def three_nn(query: torch.Tensor, ref: torch.Tensor,
+             ref_mask: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return knn(3, query, ref, ref_mask)
+
+
+def three_interpolate(feats: torch.Tensor, idx: torch.Tensor,
+                      weight: torch.Tensor) -> torch.Tensor:
+    """sum_k weight[b, n, k] * feats[b, idx[b, n, k]]: [B, M, C] -> [B, N, C]."""
+    b = feats.shape[0]
+    batch = torch.arange(b, device=feats.device)[:, None, None]
+    gathered = feats[batch, idx.long()]  # [B, N, 3, C]
+    return torch.einsum("bnkc,bnk->bnc", gathered, weight)
+
+
+def nearest_neighbor_interpolate(query: torch.Tensor, ref: torch.Tensor,
+                                 ref_feats: torch.Tensor,
+                                 ref_mask: Optional[torch.Tensor] = None
+                                 ) -> torch.Tensor:
+    """3-NN inverse-squared-distance interpolation: weights 1/(d^2 + 1e-8),
+    normalised to sum to 1."""
+    dist2, idx = three_nn(query, ref, ref_mask)
+    recip = 1.0 / (dist2 + 1e-8)
+    weight = recip / recip.sum(-1, keepdim=True)
+    return three_interpolate(ref_feats, idx, weight.to(ref_feats.dtype))

@@ -1,0 +1,66 @@
+"""The PyTorch port stands alone: it imports neither JAX nor the JAX package.
+
+An AST scan of every module of dcl_net_tpu_torch (and of chip_smoke.py and
+scripts/profile_torch_stage1.py), then
+a fresh interpreter that imports them all with jax, flax and dcl_net_tpu
+blocked in sys.modules. Importing builds nothing: the kernels are compiled
+at first use only.
+"""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+PACKAGE = ROOT / "dcl_net_tpu_torch"
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "dcl_net_tpu"}
+FILES = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                         ROOT / "scripts" / "profile_torch_stage1.py"]
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_imports_in_source(path):
+    bad = FORBIDDEN & set(_imported_roots(path))
+    assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+def test_package_imports_with_jax_blocked():
+    built_before = (PACKAGE / "build").exists()
+    modules = sorted(
+        ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
+        for p in PACKAGE.rglob("*.py"))
+    code = "\n".join([
+        "import sys",
+        f"for name in {sorted(FORBIDDEN)!r}:",
+        "    sys.modules[name] = None  # any import of these raises",
+        "import importlib",
+        f"for m in {modules!r}:",
+        "    importlib.import_module(m)",
+        "import chip_smoke",
+    ])
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert len(modules) >= 20
+    if not built_before:  # importing compiled nothing
+        assert not (PACKAGE / "build").exists()
+
+
+def test_every_kernel_source_names_what_it_replaces():
+    for name in ("voxelize.cu", "compact.cu", "interp.cu"):
+        text = (PACKAGE / "csrc" / name).read_text()
+        assert "Replaces the Pallas kernel dcl_net_tpu/ops/pallas_" in text
+        assert "Bound on an H100" in text
