@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Run the PyTorch/CUDA port's stage-1 inference on one NVIDIA GPU.
+"""Run the PyTorch/CUDA port's stage-1 inference and training on one NVIDIA GPU.
 
 Usage, from the root of the repository:  python3 chip_smoke.py
 
@@ -8,15 +8,23 @@ Phases, any failure exits non-zero:
     turns TF32 off;
  2. build: compiles the hand-written kernels from dcl_net_tpu_torch/csrc/;
  3. kernels: holds each kernel (K1 voxelize, K2 compaction, K3 3-NN
-    interpolation) to its plain PyTorch version on the card, at the shapes
-    the main path gives it (batch 32, 64^3 grid, 1024 points), and times the
-    kernel, the plain version and, for K1, index_add_ with CUDA events;
- 4. main path: the full-width DCLNet of configs/config_YCBV_bs32.yaml (random
-    weights from a seed) through Evaluator over the synthetic dataset's
-    16-class template bank and several batches of 32; checks finite
-    outputs, the kernels' launch counts per encode, and one batch against
-    the same path with the plain versions on the card;
- 5. prints the per-kernel JSON line, then the result line
+    interpolation, K4 its backward, K5 the compaction's backward) to its
+    plain PyTorch version on the card, at the shapes the main paths give it
+    (batch 32, 64^3 grid, 1024 points), and times the kernel, the plain
+    version and a PyTorch library call computing the same function where
+    one exists, with CUDA events;
+ 4. eval path: the full-width DCLNet of configs/config_YCBV_bs32.yaml
+    (random weights from a seed) through Evaluator over the synthetic
+    dataset's 16-class template bank and several batches of 32; checks
+    finite outputs, the kernels' launch counts per encode, and one batch
+    against the same path with the plain versions on the card;
+ 5. training path: Solver with that config's model, optimizer, schedule and
+    batch 32 on the synthetic dataset, a warm-up step and a few timed
+    steps; checks finite losses and gradient norms, changed parameters and
+    BN statistics, and the launch counts per step (K1 2, K2-K5 8 each);
+ 6. one train step's losses and gradients from the same state through the
+    kernels and through their plain versions;
+ 7. prints the per-kernel JSON line, then the result line
     {"ok": true, "device": {...}} last.
 """
 
@@ -35,6 +43,7 @@ BATCH = 32
 N_BATCHES = 6
 N_CLASSES = 16
 MODEL_POINTS = 1024
+TRAIN_STEPS = 5  # timed training steps after one warm-up step
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and f32 (non-tensor) FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
@@ -42,6 +51,22 @@ PEAK_F32 = 67e12
 VOX_ATOL = 1e-5    # K1: f32 atomics sum each voxel in another order than the plain serial sum
 INTERP_ATOL = 1e-5  # K3: the weighted sum and weights round like the plain version's to a few ulp
 POSE_ATOL = 1e-4   # whole path: K1's summation order feeds 8 convs and the pose heads
+# K4: f32 atomics add each center's w * g terms in a run-dependent order; a
+# sum of n terms in any order is within (n - 1) * 2^-24 of sum |terms|, and
+# at most a few hundred terms land on one row of the main path: 1e-5 of
+# sum |w * g| per element. K5 writes each value once: bit-equal.
+INTERP_BWD_RTOL = 1e-5
+# One train step, kernel path vs plain path: f32 sums in run-dependent order
+# (K1's and K4's atomics, the plain versions' index_add_) move the losses by
+# a few ulp and the gradient, whose f32 conditioning is poor (the neck's BN
+# backward cancels nearly all of a near-uniform confidence average; see
+# tests/test_torch_train_model.py), by more: losses within 1e-5 relative;
+# the flat gradient within 5e-3 in relative L2 norm. On an H100 the kernel
+# path differed from itself between two runs by 3.5e-4 to 5.5e-4 and from
+# the plain path by 3.6e-4 to 1.2e-3; a kernel that dropped or misplaced a
+# neighbour's or a voxel's gradient moves it by far more.
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_REL_L2 = 5e-3
 
 
 class SmokeFailure(RuntimeError):
@@ -84,21 +109,167 @@ def max_err(a, b) -> float:
 
 @contextmanager
 def plain_versions():
-    """Route the model's three kernel calls to their plain versions, on
-    whatever device the tensors are, for the comparison run."""
-    from dcl_net_tpu_torch.models import backbone, dcl_net
+    """Route the model's five kernel calls (K1-K3 forward, K4-K5 backward)
+    to their plain versions, on whatever device the tensors are, for the
+    comparison runs."""
+    from dcl_net_tpu_torch.models import dcl_net
     from dcl_net_tpu_torch.ops import cuda_compact, cuda_interp, cuda_voxelize
 
-    saved = (dcl_net.voxelize_cuda, backbone.dense_to_sparse_cuda,
-             backbone.nn_interpolate_cuda)
-    dcl_net.voxelize_cuda = cuda_voxelize.voxelize_reference
-    backbone.dense_to_sparse_cuda = cuda_compact.dense_to_sparse_reference
-    backbone.nn_interpolate_cuda = cuda_interp.nn_interpolate_reference
+    routes = [
+        (dcl_net, "voxelize_cuda", cuda_voxelize.voxelize_reference),
+        (cuda_compact, "dense_to_sparse_cuda", cuda_compact.dense_to_sparse_reference),
+        (cuda_compact, "dense_to_sparse_bwd_cuda",
+         cuda_compact.dense_to_sparse_bwd_reference),
+        (cuda_interp, "nn_interpolate_cuda", cuda_interp.nn_interpolate_reference),
+        (cuda_interp, "nn_interpolate_bwd_cuda", cuda_interp.nn_interpolate_bwd_reference),
+    ]
+    saved = [getattr(mod, name) for mod, name, _ in routes]
+    for mod, name, plain in routes:
+        setattr(mod, name, plain)
     try:
         yield
     finally:
-        (dcl_net.voxelize_cuda, backbone.dense_to_sparse_cuda,
-         backbone.nn_interpolate_cuda) = saved
+        for (mod, name, _), fn in zip(routes, saved):
+            setattr(mod, name, fn)
+
+
+KERNEL_COUNTERS = (  # (entry name, module, counter attribute)
+    ("voxelize", "cuda_voxelize", "launches"),
+    ("compact", "cuda_compact", "launches"),
+    ("interp", "cuda_interp", "launches"),
+    ("interp_bwd", "cuda_interp", "bwd_launches"),
+    ("compact_bwd", "cuda_compact", "bwd_launches"),
+)
+
+
+def _counter_module(name: str):
+    import importlib
+
+    return importlib.import_module(f"dcl_net_tpu_torch.ops.{name}")
+
+
+def reset_counts() -> None:
+    for _, mod, attr in KERNEL_COUNTERS:
+        setattr(_counter_module(mod), attr, 0)
+
+
+def read_counts() -> dict:
+    return {key: getattr(_counter_module(mod), attr) for key, mod, attr in KERNEL_COUNTERS}
+
+
+def train_phase(cfg, card, device="cuda"):
+    """Solver at full width: a warm-up step, then TRAIN_STEPS counted and
+    timed steps through train_epoch. Returns (launch counts over the timed
+    steps, the solver, one device batch of the run)."""
+    import numpy as np
+    import torch
+
+    from dcl_net_tpu_torch.data.loader import BatchLoader
+    from dcl_net_tpu_torch.data.schema import batch_to_torch
+    from dcl_net_tpu_torch.data.synthetic import SyntheticPoseDataset
+    from dcl_net_tpu_torch.models.dcl_net import DCLNet, dcl_losses
+    from dcl_net_tpu_torch.train.solver import Solver, bn_statistics
+
+    dev = torch.device(device)
+    mcfg = cfg.model
+    bs = int(cfg.hyper_dataloader_train.bs)
+    check(bs == BATCH, f"config batch {bs}")
+    ds = SyntheticPoseDataset(
+        n_objects=N_CLASSES, n_points=int(mcfg.n_inp),
+        unit_voxel_extent=tuple(mcfg.unit_voxel_extent),
+        voxel_num_limit=tuple(int(d) for d in mcfg.voxel_num_limit),
+        length=bs * (TRAIN_STEPS + 1), seed=0)
+    loader = BatchLoader(ds, batch_size=bs, num_workers=8, seed=int(cfg.get("rd_seed", 1)))
+    model = DCLNet.from_config(mcfg, seed=0, device=dev)
+    train_cfg = cfg.merge({"per_write": 1, "per_save": 0})
+    solver = Solver(model, dcl_losses, train_cfg, loader, device=dev)
+    solver.initialize()
+    params0 = [p.detach().clone() for p in model.parameters()]
+    stats0 = [b.clone() for b in bn_statistics(model)]
+
+    # warm-up step (cuDNN algorithm choice, allocator), not counted; the
+    # epoch below starts after it (skip_next), on the same shuffle
+    t0 = time.perf_counter()
+    first = batch_to_torch(next(iter(loader)), dev)
+    warm = solver.train_step(solver.state, first)
+    torch.cuda.synchronize()
+    print(f"train warm-up step {time.perf_counter() - t0:.3f} s, "
+          f"loss_all {float(warm['loss_all']):.5f}", flush=True)
+    loader.skip_next = 1
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    avg = solver.train_epoch()
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    launches = read_counts()
+    steps = solver.state.step - 1
+    check(steps == TRAIN_STEPS, f"{steps} timed steps")
+    per_step = {"voxelize": 2, "compact": 8, "interp": 8, "interp_bwd": 8, "compact_bwd": 8}
+    print(f"train path launches {launches} over {steps} steps", flush=True)
+    check(launches == {k: n * steps for k, n in per_step.items()},
+          f"train launch counts {launches} are not 2/8/8/8/8 per step")
+    for key in ("loss_all", "loss_pose", "loss_Xo", "loss_Yc", "loss_conf", "grad_norm"):
+        check(bool(np.isfinite(avg[key])), f"train {key} not finite: {avg[key]}")
+    check(avg["skipped_nonfinite"] == 0.0, "a training step was skipped as non-finite")
+    check(all(not torch.equal(a, p) for a, p in zip(params0, model.parameters())),
+          "some parameter did not change")
+    check(all(not torch.equal(a, b) for a, b in zip(stats0, bn_statistics(model))),
+          "some BN running statistic did not change")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    rate = steps * bs / t_train
+    print(f"train path on {card}: {steps} steps of batch {bs} in {t_train:.3f} s = "
+          f"{rate:.2f} samples/s, T_step mean {avg['T_step']:.4f} s, T_data mean "
+          f"{avg['T_data']:.4f} s, peak memory {peak:.2f} GiB; mean loss_all "
+          f"{avg['loss_all']:.5f} grad_norm {avg['grad_norm']:.3f} "
+          f"overflow_frac {avg['overflow_frac']:.4f}", flush=True)
+    return launches, solver, first
+
+
+def train_step_vs_plain(solver, batch) -> None:
+    """Losses and parameter gradients of one train-mode forward and backward
+    from the same state, through the kernels and through the plain versions.
+    The BN running statistics are put back after each pass."""
+    import torch
+
+    from dcl_net_tpu_torch.train.solver import bn_statistics
+
+    model = solver.model
+    model.train()
+    params = list(model.parameters())
+    stats = bn_statistics(model)
+    saved = [b.clone() for b in stats]
+
+    def one_pass():
+        from dcl_net_tpu_torch.models.dcl_net import dcl_losses
+
+        losses = dcl_losses(model(batch), batch)
+        grads = torch.autograd.grad(losses["loss_all"], params)
+        with torch.no_grad():
+            for b, s in zip(stats, saved):
+                b.copy_(s)
+        return ({k: float(v.detach()) for k, v in losses.items()},
+                torch.cat([g.reshape(-1) for g in grads]))
+
+    reset_counts()
+    lk, gk = one_pass()
+    counts = read_counts()
+    check(all(n > 0 for n in counts.values()), f"kernel pass counts {counts}")
+    lk2, gk2 = one_pass()
+    with plain_versions():
+        lp, gp = one_pass()
+    check(read_counts() == {k: 2 * n for k, n in counts.items()},
+          "the plain pass launched a kernel")
+    denom = float(gp.norm())
+    rel = float((gk - gp).norm()) / denom
+    rel_self = float((gk - gk2).norm()) / denom
+    loss_rel = max(abs(lk[k] - lp[k]) / abs(lp[k]) for k in lp)
+    print(f"train step kernel path vs plain versions on the card: losses rel "
+          f"{loss_rel:.3g}, gradient rel L2 {rel:.3g} (kernel path vs itself "
+          f"{rel_self:.3g}), max abs {float((gk - gp).abs().max()):.3g} of max "
+          f"{float(gp.abs().max()):.3g}", flush=True)
+    check(loss_rel <= TRAIN_LOSS_RTOL, f"train losses differ by {loss_rel}")
+    check(rel <= TRAIN_GRAD_REL_L2, f"train gradients differ by {rel} in relative L2")
 
 
 def main() -> int:
@@ -201,6 +372,9 @@ def main() -> int:
     points = feats[..., 4:7].contiguous()
     k2 = dict(err=0.0, ms=0.0, plain=0.0, bytes=0.0, flops=0.0)
     k3 = dict(err=0.0, ms=0.0, plain=0.0, bytes=0.0, flops=0.0)
+    k4 = dict(err=0.0, ms=0.0, plain=0.0, lib=0.0, bytes=0.0, flops=0.0)
+    k5 = dict(err=0.0, ms=0.0, plain=0.0, lib=0.0, bytes=0.0, flops=0.0)
+    gen = torch.Generator(device=dev).manual_seed(0)
     for level, (lf, lm) in enumerate(pyramid):
         lf, lm = lf.contiguous(), lm.contiguous()
         b_, d0, d1, d2, c_ = lf.shape
@@ -252,23 +426,72 @@ def main() -> int:
         k3["flops"] += 8 * n_ * float(vmask.sum()) + 5 * b_ * n_ * c_
         print(f"K3 interp level {level} N {n_} V {v_} C {c_}: err {err:.3g} "
               f"kernel {t_k:.4f} ms plain {t_p:.4f} ms", flush=True)
+
+        # K4 at this level's shapes: a cotangent of the interpolated features
+        g = torch.randn((b_, n_, c_), device=dev, generator=gen)
+        got4 = cuda_interp.nn_interpolate_bwd_cuda(g, w, idx, v_)
+        ref4 = cuda_interp.nn_interpolate_bwd_reference(g, w, idx, v_)
+        mass = cuda_interp.nn_interpolate_bwd_reference(g.abs(), w.abs(), idx, v_)
+        err = max_err(got4, ref4)
+        rel = float(((got4 - ref4).abs() / mass.clamp(min=1e-30)).max())
+        check(rel <= INTERP_BWD_RTOL,
+              f"K4 level {level}: differs by {rel:.3g} of sum |w g| (max abs {err:.3g})")
+        k4["err"] = max(k4["err"], err)
+        rows = (idx.long() + v_ * torch.arange(b_, device=dev)[:, None, None]).reshape(-1)
+        terms = (w[..., None] * g[:, None]).reshape(-1, c_)
+        t_k = cuda_ms(lambda: cuda_interp.nn_interpolate_bwd_cuda(g, w, idx, v_))
+        t_p = cuda_ms(lambda: cuda_interp.nn_interpolate_bwd_reference(g, w, idx, v_))
+        t_l = cuda_ms(lambda: torch.zeros(b_ * v_, c_, device=dev).index_add_(0, rows, terms))
+        k4["ms"] += t_k
+        k4["plain"] += t_p
+        k4["lib"] += t_l
+        k4["bytes"] += (b_ * n_ * c_ + 2 * b_ * 3 * n_ + b_ * v_ * c_) * 4
+        k4["flops"] += 6 * b_ * n_ * c_
+        print(f"K4 interp_bwd level {level} N {n_} V {v_} C {c_}: err {err:.3g} "
+              f"(rel {rel:.3g}) kernel {t_k:.4f} ms plain {t_p:.4f} ms "
+              f"index_add_ {t_l:.4f} ms", flush=True)
+
+        # K5 at this level's shapes: a cotangent of the compacted features
+        dv = torch.randn((b_, cap, c_), device=dev, generator=gen)
+        got5 = cuda_compact.dense_to_sparse_bwd_cuda(dv, coords, vmask, (d0, d1, d2))
+        ref5 = cuda_compact.dense_to_sparse_bwd_reference(dv, coords, vmask, (d0, d1, d2))
+        check(torch.equal(got5, ref5), f"K5 level {level}: not bit-equal to the plain version")
+        valid = vmask.reshape(-1) > 0
+        lin = (((coords[..., 0].long() * d1 + coords[..., 1]) * d2 + coords[..., 2])
+               + g_ * torch.arange(b_, device=dev)[:, None]).reshape(-1)[valid]
+        vals = dv.reshape(-1, c_)[valid]
+        t_k = cuda_ms(lambda: cuda_compact.dense_to_sparse_bwd_cuda(dv, coords, vmask,
+                                                                    (d0, d1, d2)))
+        t_p = cuda_ms(lambda: cuda_compact.dense_to_sparse_bwd_reference(dv, coords, vmask,
+                                                                         (d0, d1, d2)))
+        t_l = cuda_ms(lambda: torch.zeros(b_ * g_, c_, device=dev).index_copy_(0, lin, vals))
+        n_valid = int(valid.sum())
+        k5["ms"] += t_k
+        k5["plain"] += t_p
+        k5["lib"] += t_l
+        k5["bytes"] += (n_valid * c_ + b_ * cap * 4 + b_ * g_ * c_) * 4
+        print(f"K5 compact_bwd level {level} [{b_},{cap},{c_}] -> {d0}^3: bit-equal, "
+              f"kernel {t_k:.4f} ms plain {t_p:.4f} ms index_copy_ {t_l:.4f} ms", flush=True)
     for key, acc, src, rep in (
             ("compact", k2, "compact.cu", "dcl_net_tpu/ops/pallas_compact.py:79"),
-            ("interp", k3, "interp.cu", "dcl_net_tpu/ops/pallas_interp.py:42")):
+            ("interp", k3, "interp.cu", "dcl_net_tpu/ops/pallas_interp.py:42"),
+            ("interp_bwd", k4, "interp.cu", "dcl_net_tpu/ops/pallas_interp.py:87"),
+            ("compact_bwd", k5, "compact.cu", "dcl_net_tpu/ops/pallas_compact.py:226")):
         bms, bby = bound(acc["bytes"], acc["flops"])
         entries[key] = dict(
             name=key, route="cuda", source=f"dcl_net_tpu_torch/csrc/{src}",
             replaces=rep, max_abs_err=acc["err"], ms=acc["ms"],
-            kernel_ms=acc["ms"], plain_ms=acc["plain"], bound_ms=bms, bound_by=bby, library_ms=None)
-        print(f"{key} over the 4 levels of one encode: kernel {acc['ms']:.4f} ms "
-              f"plain {acc['plain']:.4f} ms bound {bms:.4f} ms ({bby})", flush=True)
+            kernel_ms=acc["ms"], plain_ms=acc["plain"], bound_ms=bms, bound_by=bby,
+            library_ms=acc.get("lib"))
+        print(f"{key} over the 4 levels of one branch: kernel {acc['ms']:.4f} ms "
+              f"plain {acc['plain']:.4f} ms library {acc.get('lib')} ms "
+              f"bound {bms:.4f} ms ({bby})", flush=True)
 
     # ---- 4. main path at full width ------------------------------------------
     # warm-up pass (cuDNN algorithm choice, allocator), not counted
     Evaluator(model, model_points, template_bank=bank).evaluate(batches[:1])
     torch.cuda.synchronize()
-    for mod in (cuda_voxelize, cuda_compact, cuda_interp):
-        mod.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     ev = Evaluator(model, model_points, template_bank=bank)
     torch.cuda.synchronize()
@@ -277,15 +500,14 @@ def main() -> int:
     res = ev.evaluate(batches)
     torch.cuda.synchronize()
     t_eval = time.perf_counter() - t0
-    launches = {"voxelize": cuda_voxelize.launches, "compact": cuda_compact.launches,
-                "interp": cuda_interp.launches}
+    launches = read_counts()
     encodes = 1 + len(batches)  # the template bank once, then one per batch
-    print(f"main path launches {launches} over {encodes} encodes", flush=True)
+    print(f"eval path launches {launches} over {encodes} encodes", flush=True)
     check(launches == {"voxelize": encodes, "compact": 4 * encodes,
-                       "interp": 4 * encodes},
-          f"launch counts {launches} are not 1/4/4 per encode")
+                       "interp": 4 * encodes, "interp_bwd": 0, "compact_bwd": 0},
+          f"launch counts {launches} are not 1/4/4/0/0 per encode")
     for key, n in launches.items():
-        entries[key]["launches"] = n
+        entries[key]["eval_launches"] = n
     rows = BATCH * len(batches)
     check(res["n_scored"] == rows - 1, f"n_scored {res['n_scored']} != {rows - 1}")
     check(bool(np.isfinite(res["auc_mean"])), "auc_mean is not finite")
@@ -317,8 +539,18 @@ def main() -> int:
     check(e_rot <= POSE_ATOL and e_trans <= POSE_ATOL,
           "kernel path disagrees with the plain versions")
 
-    # ---- 5. result lines ------------------------------------------------------
-    order = ("voxelize", "compact", "interp")
+    # ---- 5. training path at full width -----------------------------------------
+    del ev, ev_plain, out, pout, pyramid, grid, pgrid
+    torch.cuda.empty_cache()
+    train_launches, solver, train_batch = train_phase(cfg, card)
+    for key, n in train_launches.items():
+        entries[key]["launches"] = n
+
+    # ---- 6. one train step: kernel path vs plain path ---------------------------
+    train_step_vs_plain(solver, train_batch)
+
+    # ---- 7. result lines ------------------------------------------------------
+    order = ("voxelize", "compact", "interp", "interp_bwd", "compact_bwd")
     print(json.dumps({"kernels": [entries[k] for k in order]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-// K2: stream compaction of the occupied voxels of a dense grid.
+// K2: stream compaction of the occupied voxels of a dense grid, and K5,
+// its backward.
 //
 // Replaces the Pallas kernel dcl_net_tpu/ops/pallas_compact.py
 // (_make_kernel, launched by compact_raw / pallas_dense_to_sparse), which
@@ -20,6 +21,18 @@
 // zero fill. The per-sample occupancy is written out so the caller can flag
 // an overflow (occupancy > cap). Only B blocks run (32 at the main path's
 // batch on 132 SMs): simple first, a split of G across blocks is later work.
+//
+// K5 replaces the Pallas kernel dcl_net_tpu/ops/pallas_compact.py
+// (_make_bwd_kernel, launched by _run_bwd), which recomputed the chunk
+// offsets and scattered the cotangent back with transposed one-hot
+// matmuls. Here the forward's coords and vmask are kept, so no scan runs
+// again: dgrid[b, lin(coords[b, s]), c] = dv[b, s, c] for every valid slot
+// s, into a [B, G, C] grid the caller zero-fills. Bound on an H100: bytes,
+// and nearly all of them are that zero fill (the grid is ~2 % occupied on
+// the main path). Design: one thread per (b, s, c), channel-fastest, so
+// the reads of dv and the writes of a row are coalesced. No atomics: each
+// occupied cell holds at most one slot, so the result is bit-equal to the
+// plain version.
 
 #include <cuda_runtime.h>
 
@@ -81,6 +94,23 @@ compact_occupied(const float* __restrict__ feats, const float* __restrict__ mask
   if (threadIdx.x == 0) occupancy[b] = running;
 }
 
+constexpr int kBwdThreads = 256;
+
+__global__ void __launch_bounds__(kBwdThreads)
+compact_occupied_bwd(const float* __restrict__ dv, const int* __restrict__ coords,
+                     const float* __restrict__ vmask, float* __restrict__ dgrid,
+                     int cap, int g, int c, int d1, int d2, long long total) {
+  const long long e = (long long)blockIdx.x * kBwdThreads + threadIdx.x;
+  if (e >= total) return;
+  const long long row = e / c;  // b * cap + s
+  if (!(vmask[row] > 0.f)) return;
+  const int ch = (int)(e - row * c);
+  const int b = (int)(row / cap);
+  const int* xyz = coords + row * 3;
+  const long long lin = ((long long)xyz[0] * d1 + xyz[1]) * d2 + xyz[2];
+  dgrid[((long long)b * g + lin) * c + ch] = dv[e];
+}
+
 }  // namespace
 
 // feats [B,G,C] f32, mask [B,G] f32; coords [B,cap,3] i32, vfeats [B,cap,C]
@@ -96,6 +126,23 @@ extern "C" int dclx_compact(const void* feats, const void* mask, void* coords,
         static_cast<int*>(coords), static_cast<float*>(vfeats),
         static_cast<float*>(vmask), static_cast<int*>(occupancy),
         g, c, d1, d2, cap);
+  }
+  return (int)cudaGetLastError();
+}
+
+// dv [B,cap,C] f32, coords [B,cap,3] i32 and vmask [B,cap] f32 from the
+// forward; dgrid [B,G,C] f32 zero-filled by the caller.
+extern "C" int dclx_compact_bwd(const void* dv, const void* coords,
+                                const void* vmask, void* dgrid, int b, int g,
+                                int c, int d1, int d2, int cap, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long total = (long long)b * cap * c;
+  if (total > 0) {
+    const long long blocks = (total + kBwdThreads - 1) / kBwdThreads;
+    compact_occupied_bwd<<<(unsigned)blocks, kBwdThreads, 0, s>>>(
+        static_cast<const float*>(dv), static_cast<const int*>(coords),
+        static_cast<const float*>(vmask), static_cast<float*>(dgrid),
+        cap, g, c, d1, d2, total);
   }
   return (int)cudaGetLastError();
 }

@@ -103,9 +103,17 @@ def make_batch(samples, pad_to: Optional[int] = None) -> PoseBatch:
     )
 
 
-def batch_to_torch(batch: Mapping[str, Any], device) -> Dict[str, Any]:
+def batch_to_torch(batch: Mapping[str, Any], device,
+                   non_blocking: bool = False) -> Dict[str, Any]:
     """Nested dict of arrays -> the same dict of tensors on `device`
-    (floats as f32, integers as int32, contiguous)."""
+    (floats as f32, integers as int32, contiguous).
+
+    non_blocking: for a CUDA device, stage the arrays in pinned memory and
+    copy them asynchronously, so the host does not wait for the work
+    already queued on the stream (a copy from pageable memory would)."""
+    device = torch.device(device)
+    asynchronous = non_blocking and device.type == "cuda"
+
     def conv(x):
         if isinstance(x, Mapping):
             return {k: conv(v) for k, v in x.items()}
@@ -113,6 +121,9 @@ def batch_to_torch(batch: Mapping[str, Any], device) -> Dict[str, Any]:
             return x.to(device)
         a = np.asarray(x)
         a = a.astype(np.float32 if a.dtype.kind == "f" else np.int32)
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if asynchronous:
+            return t.pin_memory().to(device, non_blocking=True)
+        return t.to(device)
 
     return {k: conv(v) for k, v in batch.items() if v is not None}

@@ -25,7 +25,8 @@ def ortho9d_to_matrix(x_raw: torch.Tensor, y_raw: torch.Tensor,
     columns of M and project to U diag(1, 1, det(U V^T)) V^T. Returns
     [B, 3, 3] rotations with det +1."""
     m = torch.stack([normalize_vector(x_raw), normalize_vector(y_raw),
-                     normalize_vector(z_raw)], dim=-1).to(torch.float32)
+                     normalize_vector(z_raw)], dim=-1)
+    m = m.to(torch.promote_types(m.dtype, torch.float32))
     u, _, vh = torch.linalg.svd(m)
     det = torch.linalg.det(u @ vh)
     sigma = torch.stack([torch.ones_like(det), torch.ones_like(det), det], -1)

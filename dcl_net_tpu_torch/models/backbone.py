@@ -8,7 +8,9 @@ by a true-average pool (kernel 3, stride 2). Grids 64^3 -> 32^3 -> 16^3 ->
 
 At each level the occupied voxels are compacted (kernel K2,
 ops/cuda_compact.py) and interpolated back onto the points by 3-NN (kernel
-K3, ops/cuda_interp.py): 32+64+128+256 = 480 channels per point.
+K3, ops/cuda_interp.py): 32+64+128+256 = 480 channels per point. In
+training the gradient flows back through the interpolation (kernel K4) and
+the compaction (kernel K5) onto the pooled grids.
 """
 
 from __future__ import annotations
@@ -20,9 +22,8 @@ import torch
 from torch import nn
 
 from dcl_net_tpu_torch.models.blocks import SparseConvBlock
-from dcl_net_tpu_torch.ops.cuda_compact import dense_to_sparse_cuda
-from dcl_net_tpu_torch.ops.cuda_interp import nn_interpolate_cuda
-from dcl_net_tpu_torch.ops.sparse_conv import sparse_avg_pool, voxel_centers
+from dcl_net_tpu_torch.ops import cuda_compact, cuda_interp
+from dcl_net_tpu_torch.ops.sparse_conv import sparse_avg_pool, voxel_center_affine
 
 
 class SparseBackbone(nn.Module):
@@ -57,7 +58,9 @@ class MultiScalePointFeatures(nn.Module):
     Voxel centers use the reference's scale_list quirk (2, 4, 6, 8), though
     the pooled grids sit at strides (2, 4, 8, 16). capacities are the
     per-level occupied-voxel budgets, capped at the level's grid size; a
-    sample whose occupancy exceeds one is flagged in the overflow output."""
+    sample whose occupancy exceeds one is flagged in the overflow output.
+    The per-level center maps live on the module's device as non-persistent
+    buffers, so a forward copies nothing from the host."""
 
     def __init__(self, unit_voxel_extent: Sequence[float] = (0.006,) * 3,
                  voxel_num_limit: Sequence[int] = (64, 64, 64),
@@ -69,6 +72,12 @@ class MultiScalePointFeatures(nn.Module):
         self.offset = -0.5 * self.unit * limit
         self.scale_list = tuple(scale_list)
         self.capacities = tuple(int(c) for c in capacities)
+        for level, scale in enumerate(self.scale_list):
+            unit, shift = voxel_center_affine(self.unit, scale, self.offset)
+            self.register_buffer(f"center_unit{level}", torch.from_numpy(unit),
+                                 persistent=False)
+            self.register_buffer(f"center_shift{level}", torch.from_numpy(shift),
+                                 persistent=False)
 
     def forward(self, points: torch.Tensor,
                 pyramid: List[Tuple[torch.Tensor, torch.Tensor]]
@@ -80,11 +89,12 @@ class MultiScalePointFeatures(nn.Module):
         for level, (feats, mask) in enumerate(pyramid):
             grid_n = int(np.prod(feats.shape[1:4]))
             cap = min(self.capacities[level], grid_n)
-            coords, vfeats, vmask, occupancy = dense_to_sparse_cuda(
+            coords, vfeats, vmask, occupancy = cuda_compact.dense_to_sparse(
                 feats.contiguous(), mask.contiguous(), cap)
             overflow = overflow | (occupancy > cap)
-            centers = voxel_centers(coords, self.unit, self.scale_list[level],
-                                    self.offset)
-            interp, _, _ = nn_interpolate_cuda(points, centers, vfeats, vmask)
-            feats_all.append(interp)
+            # f32 centers whatever the model's dtype, as voxel_centers gives
+            centers = (coords.to(torch.float32)
+                       * getattr(self, f"center_unit{level}").float()
+                       + getattr(self, f"center_shift{level}").float()).to(points.dtype)
+            feats_all.append(cuda_interp.nn_interpolate(points, centers, vfeats, vmask))
         return torch.cat(feats_all, dim=-1), overflow

@@ -4,9 +4,12 @@ Counterpart of dcl_net_tpu/models/blocks.py. Grids stay channel-last
 [B, D0, D1, D2, C] and point features [B, N, C]; only F.conv3d sees a
 [B, C, D0, D1, D2] view (channels_last_3d in memory, so no copy).
 
-This slice runs inference: the blocks normalise with their running
-statistics, and the sparse-conv block folds them into its kernel. Training
-mode raises until the training slice ports batch statistics.
+In eval mode the blocks normalise with their running statistics, and the
+sparse-conv block folds them into its kernel. In train mode (module.train())
+they normalise with batch statistics that the gradient flows through and
+update the running statistics in place, as the JAX blocks do under
+train=True with mutable batch_stats: the sparse-conv block over occupied
+voxels (MaskedBatchNorm), the per-point MLPs as flax's nn.BatchNorm.
 """
 
 from __future__ import annotations
@@ -30,11 +33,9 @@ _ACTS = {
 }
 
 
-def _inference_only(module: nn.Module) -> None:
-    if module.training:
-        raise NotImplementedError(
-            f"{type(module).__name__} runs in eval mode only (call .eval()); "
-            "training-mode batch statistics come with the training port")
+def _stat_dtype(x: torch.Tensor) -> torch.dtype:
+    """BN statistics run in at least f32 (f64 stays f64), as flax's do."""
+    return torch.promote_types(x.dtype, torch.float32)
 
 
 class MaskedBatchNorm(nn.Module):
@@ -52,9 +53,16 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
+    @torch.no_grad()
+    def reset_parameters(self) -> None:
+        self.weight.fill_(1.0)
+        self.bias.zero_()
+        self.running_mean.zero_()
+        self.running_var.fill_(1.0)
+
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         if self.training:
-            mean, var = masked_batch_norm_stats(x.to(torch.float32), mask)
+            mean, var = masked_batch_norm_stats(x.to(_stat_dtype(x)), mask)
             with torch.no_grad():
                 m = torch.clamp(mask.to(torch.float32).sum(), min=2.0)
                 unbiased = var * m / (m - 1.0)
@@ -73,6 +81,8 @@ class SparseConvBlock(nn.Module):
     In eval mode the BN running statistics fold into the conv
     (w' = w * s, b' = beta - mean * s, s = gamma / sqrt(var + eps)): one
     conv, then ReLU, then the re-mask that keeps inactive voxels at zero.
+    In train mode the conv output is normalised by MaskedBatchNorm over the
+    voxels active after the conv (dcl_net_tpu/models/blocks.py:130-145).
     Input invariant: x is zero at inactive voxels."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int = 3,
@@ -82,18 +92,21 @@ class SparseConvBlock(nn.Module):
         self.subm = subm
         self.conv = nn.Conv3d(in_features, features, kernel_size,
                               padding=kernel_size // 2, bias=False)
-        self.bn = nn.BatchNorm1d(features, eps=1e-5, momentum=0.1)
+        self.bn = MaskedBatchNorm(features)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        _inference_only(self)
         k = self.kernel_size
         new_mask = mask if self.subm else dilate_mask(mask, k)
-        s = self.bn.weight / torch.sqrt(self.bn.running_var + self.bn.eps)
-        w_eff = self.conv.weight * s[:, None, None, None, None]
-        b_eff = self.bn.bias - self.bn.running_mean * s
-        y = F.conv3d(x.permute(0, 4, 1, 2, 3), w_eff, padding=k // 2)
-        y = y.permute(0, 2, 3, 4, 1) + b_eff
+        if self.training:
+            y = F.conv3d(x.permute(0, 4, 1, 2, 3), self.conv.weight, padding=k // 2)
+            y = self.bn(y.permute(0, 2, 3, 4, 1), new_mask)
+        else:
+            s = self.bn.weight / torch.sqrt(self.bn.running_var + self.bn.eps)
+            w_eff = self.conv.weight * s[:, None, None, None, None]
+            b_eff = self.bn.bias - self.bn.running_mean * s
+            y = F.conv3d(x.permute(0, 4, 1, 2, 3), w_eff, padding=k // 2)
+            y = y.permute(0, 2, 3, 4, 1) + b_eff
         y = torch.relu(y) * new_mask[..., None].to(y.dtype)
         return y, new_mask
 
@@ -104,7 +117,13 @@ class PointMLP(nn.Module):
     (BasicBlock_3DCONV); False is the heads' (act, then BN).
 
     Submodules are named Dense_i and BatchNorm_j, the JAX parameter tree's
-    names, so weights map across one to one (weights.py)."""
+    names, so weights map across one to one (weights.py).
+
+    The BN follows flax's nn.BatchNorm, not F.batch_norm: in train mode the
+    statistics reduce over every axis but the last, the variance is
+    E[x^2] - E[x]^2 clipped at 0 (flax's use_fast_variance), and the
+    running variance is updated with that biased variance (momentum 0.1,
+    flax's 0.9); then (x - mean) * (rsqrt(var + eps) * scale) + bias."""
 
     def __init__(self, in_dim: int, dims: Sequence[int], acts: Sequence[str],
                  bns: Sequence[bool], bn_before_act: bool = False,
@@ -126,12 +145,21 @@ class PointMLP(nn.Module):
 
     def _bn(self, j: int, x: torch.Tensor) -> torch.Tensor:
         bn = getattr(self, f"BatchNorm_{j}")
+        if self.training:
+            axes = tuple(range(x.dim() - 1))
+            xf = x.to(_stat_dtype(x))
+            mean = xf.mean(dim=axes)
+            var = torch.clamp((xf * xf).mean(dim=axes) - mean * mean, min=0.0)
+            with torch.no_grad():
+                bn.running_mean.mul_(1 - bn.momentum).add_(bn.momentum * mean)
+                bn.running_var.mul_(1 - bn.momentum).add_(bn.momentum * var)
+        else:
+            mean, var = bn.running_mean, bn.running_var
         # flax's order of operations: (x - mean) * (rsqrt(var + eps) * scale) + bias
-        mul = torch.rsqrt(bn.running_var + bn.eps) * bn.weight
-        return (x - bn.running_mean) * mul + bn.bias
+        mul = torch.rsqrt(var + bn.eps) * bn.weight
+        return (x - mean) * mul + bn.bias
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        _inference_only(self)
         for i, (act, j) in enumerate(zip(self.acts, self.bn_index)):
             x = getattr(self, f"Dense_{i}")(x)
             if self.bn_before_act:

@@ -1,4 +1,4 @@
-"""DCL-Net stage-1 network, inference (PyTorch).
+"""DCL-Net stage-1 network and its losses (PyTorch).
 
 Counterpart of dcl_net_tpu/models/dcl_net.py, split the same way:
   encode_observed / encode_template: voxelize (kernel K1) -> backbone ->
@@ -7,7 +7,10 @@ Counterpart of dcl_net_tpu/models/dcl_net.py, split the same way:
   fuse: bidirectional attention + confidence + pose heads + SVD pose.
 forward = fuse(encode_observed(batch), encode_template(batch)). The template
 branch depends only on the class's CAD cloud, so the evaluator encodes it
-once per class (eval/evaluator.py).
+once per class (eval/evaluator.py), and forward_with_template_bank does the
+same in training. The module's mode is JAX's `train` flag: .train() uses
+batch statistics and updates the BN running statistics in place, .eval()
+(the state after construction) folds them.
 
 Batch contract (channel-last, fixed shapes, as the JAX package's):
   {"inp": {"feats": [B,N,7] f32, "voxel_idx": [B,N,3] int32},
@@ -27,8 +30,15 @@ from torch import nn
 
 from dcl_net_tpu_torch import resolve_device
 from dcl_net_tpu_torch.geometry.rotation import ortho9d_to_matrix
+from dcl_net_tpu_torch.geometry.transform import (
+    chamfer_distance,
+    l2_distance,
+    transform_points,
+    untransform_points,
+)
 from dcl_net_tpu_torch.models.backbone import MultiScalePointFeatures, SparseBackbone
-from dcl_net_tpu_torch.models.blocks import PointMLP
+from dcl_net_tpu_torch.models.blocks import MaskedBatchNorm, PointMLP
+from dcl_net_tpu_torch.ops.knn import knn
 from dcl_net_tpu_torch.ops.cuda_voxelize import voxelize_cuda
 from dcl_net_tpu_torch.ops.voxelize import MODE_MEAN, MODE_SUM
 
@@ -129,7 +139,7 @@ class DCLNet(nn.Module):
                 w.copy_(torch.randn(w.shape, generator=gen) / fan_in ** 0.5)
                 if mod.bias is not None:
                     mod.bias.zero_()
-            elif isinstance(mod, nn.BatchNorm1d):
+            elif isinstance(mod, (nn.BatchNorm1d, MaskedBatchNorm)):
                 mod.reset_parameters()
 
     # ------------------------------------------------------------------
@@ -206,3 +216,81 @@ class DCLNet(nn.Module):
 
     def forward(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         return self.fuse(self.encode_observed(batch), self.encode_template(batch))
+
+    def forward_with_template_bank(self, batch: Dict[str, Any],
+                                   bank: Dict[str, torch.Tensor]
+                                   ) -> Dict[str, torch.Tensor]:
+        """Forward that encodes the per-class template bank
+        {"feats": [C, M, 7], "voxel_idx": [C, M, 3]} once and gathers it
+        per instance by labels.obj_idx. Equal to forward when the batch's
+        classes are distinct; with repeated classes the template branch's
+        BN statistics weight each class once instead of each instance."""
+        obs = self.encode_observed(batch)
+        tmp_all = self.encode_template({"tmp": bank})
+        cls = batch["labels"]["obj_idx"].long()
+        return self.fuse(obs, {k: v[cls] for k, v in tmp_all.items()})
+
+
+def dcl_losses(pred: Dict[str, torch.Tensor], batch: Dict[str, Any]
+               ) -> Dict[str, torch.Tensor]:
+    """Stage-1 losses (dcl_net_tpu/models/dcl_net.py::dcl_losses).
+
+    Rows with valid = 0 weigh nothing and the denominator counts the valid
+    rows, so shapes stay fixed. Each jax.lax.stop_gradient of the JAX
+    function is a .detach() here."""
+    rot_pred = pred["rot_pred"]
+    trans_pred = pred["trans_pred"]
+    sym = batch["sym_flag"][:, None]                            # [B, 1]
+    valid = batch.get("valid")
+    if valid is None:
+        valid = torch.ones(rot_pred.shape[0], dtype=rot_pred.dtype,
+                           device=rot_pred.device)
+    w = valid / torch.clamp(valid.sum(), min=1.0)               # [B]
+
+    rot_gt = batch["labels"]["rot_gt"]
+    trans_gt = batch["labels"]["trans_gt"]
+    points_tmp = pred["points_tmp"]
+    points_inp = pred["points_inp"]
+    conf = pred["conf"]                                         # [B, N+M]
+
+    tmp_posed_pred = transform_points(points_tmp, rot_pred, trans_pred)
+    tmp_posed_gt = transform_points(points_tmp, rot_gt, trans_gt)
+    pose_per_point = ((1 - sym) * l2_distance(tmp_posed_pred, tmp_posed_gt)
+                      + sym * chamfer_distance(tmp_posed_pred, tmp_posed_gt))
+    loss_pose = torch.sum(w * pose_per_point.mean(dim=1))
+
+    xo_pred = pred["Xo_pred"]
+    yc_pred = pred["Yc_pred"]
+    inp_cano_pred = untransform_points(points_inp, rot_pred, trans_pred).detach()
+    inp_cano_gt = untransform_points(points_inp, rot_gt, trans_gt).detach()
+    loss_xo_pp = (1 - sym) * l2_distance(xo_pred, inp_cano_gt) + 0.5 * sym * (
+        chamfer_distance(xo_pred, points_tmp) + l2_distance(xo_pred, inp_cano_pred))
+    loss_xo = torch.sum(w * loss_xo_pp.mean(dim=1))
+
+    loss_yc_pp = (1 - sym) * l2_distance(yc_pred, tmp_posed_gt) + 0.5 * sym * (
+        chamfer_distance(yc_pred, tmp_posed_gt)
+        + l2_distance(yc_pred, tmp_posed_pred.detach()))
+    loss_yc = torch.sum(w * loss_yc_pp.mean(dim=1))
+
+    # confidence self-calibration against the detached per-point losses
+    pp = torch.cat([loss_xo_pp, loss_yc_pp], dim=1).detach()    # [B, N+M]
+    conf_term = pp * conf - 0.01 * torch.log(torch.clamp(conf, min=1e-12))
+    loss_conf = torch.sum(w * conf_term.mean(dim=1))
+
+    loss_all = loss_pose + 5.0 * loss_xo + 1.0 * loss_yc + 1.0 * loss_conf
+    return {
+        "loss_pose": loss_pose,
+        "loss_Xo": loss_xo,
+        "loss_Yc": loss_yc,
+        "loss_conf": loss_conf,
+        "loss_all": loss_all,
+    }
+
+
+def get_cano_label(points_tmp: torch.Tensor, points_inp: torch.Tensor,
+                   rot_pred: torch.Tensor, trans_gt: torch.Tensor) -> torch.Tensor:
+    """Nearest template point [B, N, 3] to each observed point taken back to
+    the canonical frame by (rot_pred, trans_gt)."""
+    inp_cano = untransform_points(points_inp, rot_pred, trans_gt)
+    _, idx = knn(1, inp_cano, points_tmp)
+    return torch.gather(points_tmp, 1, idx[..., 0:1].long().expand(-1, -1, 3))

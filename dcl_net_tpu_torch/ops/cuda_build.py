@@ -33,6 +33,8 @@ SIGNATURES = {
     "dclx_voxelize": [_P] * 5 + [_I] * 7 + [_P],
     "dclx_compact": [_P] * 6 + [_I] * 6 + [_P],
     "dclx_interp": [_P] * 7 + [_I] * 4 + [_P],
+    "dclx_interp_bwd": [_P] * 4 + [_I] * 4 + [_P],
+    "dclx_compact_bwd": [_P] * 4 + [_I] * 6 + [_P],
 }
 
 

@@ -1,7 +1,11 @@
-"""K3: masked 3-NN interpolation, hand-written CUDA kernel (csrc/interp.cu).
+"""K3: masked 3-NN interpolation, and K4, its backward: hand-written CUDA
+kernels (csrc/interp.cu).
 
-Replaces the Pallas kernel of dcl_net_tpu/ops/pallas_interp.py. A CUDA
-tensor goes through the kernel, a CPU tensor through the plain version;
+Replace the Pallas kernels of dcl_net_tpu/ops/pallas_interp.py (forward and
+custom-VJP backward). `nn_interpolate` is the differentiable entry point:
+an autograd Function whose forward is K3 and whose backward is K4, with the
+gradient w.r.t. the features only, as the JAX custom VJP gives. A CUDA
+tensor goes through the kernels, a CPU tensor through the plain versions;
 there is no fallback.
 """
 
@@ -14,8 +18,9 @@ import torch
 from dcl_net_tpu_torch.ops import cuda_build
 from dcl_net_tpu_torch.ops.knn import BIG, iterated_argmin
 
-# Launches of the kernel since the last reset (set to 0 to reset).
+# Launches of K3 and of K4 since the last reset (set to 0 to reset).
 launches = 0
+bwd_launches = 0
 
 
 def nn_interpolate_reference(
@@ -80,3 +85,73 @@ def nn_interpolate_cuda(
         b, n, v, c)
     launches += 1
     return out, w, idx
+
+
+def nn_interpolate_bwd_reference(g: torch.Tensor, w: torch.Tensor,
+                                 idx: torch.Tensor, v: int) -> torch.Tensor:
+    """Plain version of K4: dfeats[b, idx[b,k,t], :] += w[b,k,t] * g[b,t,:].
+
+    g [B, N, C]; w, idx [B, 3, N] as K3 writes them. Returns [B, V, C]."""
+    b, n, c = g.shape
+    terms = w[..., None] * g[:, None, :, :]                     # [B, 3, N, C]
+    rows = (idx.long() + v * torch.arange(b, device=g.device)[:, None, None])
+    out = torch.zeros((b * v, c), dtype=g.dtype, device=g.device)
+    out.index_add_(0, rows.reshape(-1), terms.reshape(-1, c))
+    return out.reshape(b, v, c)
+
+
+def nn_interpolate_bwd_cuda(g: torch.Tensor, w: torch.Tensor,
+                            idx: torch.Tensor, v: int) -> torch.Tensor:
+    """K4: the features' gradient of the 3-NN interpolation, [B, V, C] f32,
+    from the output cotangent g [B, N, C] and K3's w, idx [B, 3, N]."""
+    global bwd_launches
+    if g.device.type == "cpu":
+        return nn_interpolate_bwd_reference(g, w, idx, v)
+    name = "nn_interpolate_bwd_cuda"
+    req = cuda_build.require
+    req(g.is_cuda, name, f"unsupported device {g.device}")
+    req(g.dtype == torch.float32 and g.dim() == 3, name,
+        f"g must be f32 [B, N, C], got {g.dtype} {tuple(g.shape)}")
+    b, n, c = g.shape
+    req(w.dtype == torch.float32 and tuple(w.shape) == (b, 3, n), name,
+        f"w must be f32 [{b}, 3, {n}]")
+    req(idx.dtype == torch.int32 and tuple(idx.shape) == (b, 3, n), name,
+        f"idx must be int32 [{b}, 3, {n}]")
+    req(v > 0, name, "no centers")
+    for t in (g, w, idx):
+        req(t.device == g.device, name, "inputs on different devices")
+        req(t.is_contiguous(), name, "inputs must be contiguous")
+    dfeats = torch.zeros((b, v, c), dtype=torch.float32, device=g.device)
+    cuda_build.launch(
+        "dclx_interp_bwd", name, g.device,
+        g.data_ptr(), w.data_ptr(), idx.data_ptr(), dfeats.data_ptr(),
+        b, n, v, c)
+    bwd_launches += 1
+    return dfeats
+
+
+class NNInterpolate(torch.autograd.Function):
+    """K3 forward, K4 backward. Points, centers and mask get no gradient
+    (None), as in dcl_net_tpu/ops/pallas_interp.py::_vjp_bwd: the points are
+    data and the centers come from integer voxel coordinates."""
+
+    @staticmethod
+    def forward(ctx, points, centers, feats, mask):
+        out, w, idx = nn_interpolate_cuda(points, centers, feats, mask)
+        ctx.save_for_backward(w, idx)
+        ctx.n_centers = feats.shape[1]
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        w, idx = ctx.saved_tensors
+        dfeats = None
+        if ctx.needs_input_grad[2]:
+            dfeats = nn_interpolate_bwd_cuda(g.contiguous(), w, idx, ctx.n_centers)
+        return None, None, dfeats, None
+
+
+def nn_interpolate(points: torch.Tensor, centers: torch.Tensor,
+                   feats: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Differentiable 3-NN interpolation [B, N, C] (see nn_interpolate_cuda)."""
+    return NNInterpolate.apply(points, centers, feats, mask)

@@ -95,12 +95,20 @@ def dense_to_sparse(feats: torch.Tensor, mask: torch.Tensor, capacity: int
     return coords, vfeats, vmask
 
 
+def voxel_center_affine(unit_voxel_extent, scale: float, offset
+                        ) -> Tuple[np.ndarray, np.ndarray]:
+    """(unit * scale, offset + 0.5 * unit * scale) as f32 [3] arrays: the
+    affine map from voxel coordinates to metric centers at a scale."""
+    unit = np.asarray(unit_voxel_extent, dtype=np.float32) * float(scale)
+    shift = np.asarray(offset, dtype=np.float32) + 0.5 * unit
+    return unit, shift
+
+
 def voxel_centers(coords: torch.Tensor, unit_voxel_extent, scale: float,
                   offset) -> torch.Tensor:
     """Metric voxel centers at a pyramid scale:
     ``idx * (unit * scale) + offset + 0.5 * (unit * scale)``."""
-    unit = np.asarray(unit_voxel_extent, dtype=np.float32) * float(scale)
-    shift = np.asarray(offset, dtype=np.float32) + 0.5 * unit
+    unit, shift = voxel_center_affine(unit_voxel_extent, scale, offset)
     unit_t = torch.as_tensor(unit, device=coords.device)
     shift_t = torch.as_tensor(shift, device=coords.device)
     return coords.to(torch.float32) * unit_t + shift_t

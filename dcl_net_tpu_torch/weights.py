@@ -10,11 +10,14 @@ module names follow, so the bridge changes layouts only:
 
 A JAX leaf with no port counterpart, or a port tensor left unfilled, raises.
 Trees are nested dicts of numpy arrays (np.asarray of what model.init gives).
+to_jax_gradients reads the port's parameter gradients out in the layout of
+the JAX {"params"} tree, with the same transposes, so they compare leaf by
+leaf with jax.grad.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Mapping, Tuple
+from typing import Any, Callable, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -67,7 +70,8 @@ def _torch_name(model: nn.Module, collection: str, path: Tuple[str, ...]) -> str
     if (collection, leaf) not in table:
         raise KeyError(f"{collection}/{'/'.join(path)}: unmapped leaf for "
                        f"{type(mod).__name__}")
-    return f"{parent}.{table[(collection, leaf)]}"
+    attr = table[(collection, leaf)]
+    return f"{parent}.{attr}" if parent else attr
 
 
 def _to_torch_layout(name: str, arr: np.ndarray) -> np.ndarray:
@@ -105,21 +109,51 @@ def load_jax_variables(model: nn.Module, variables: Mapping[str, Any]) -> nn.Mod
 
 def to_jax_variables(model: nn.Module) -> Dict[str, Dict[str, Any]]:
     """The inverse: the port's weights as a JAX-layout variable tree."""
-    out: Dict[str, Dict[str, Any]] = {"params": {}, "batch_stats": {}}
+    return _export(model, lambda t: t, ("params", "batch_stats"))
+
+
+def to_jax_gradients(model: nn.Module,
+                     grads: Optional[Mapping[str, torch.Tensor]] = None
+                     ) -> Dict[str, Dict[str, Any]]:
+    """The port's parameter gradients as a JAX-layout {"params": tree}.
+
+    grads: parameter name (as named_parameters gives it) -> gradient;
+    by default each parameter's .grad. A parameter without one raises."""
+    named = dict(model.named_parameters())
+    if grads is None:
+        grads = {n: p.grad for n, p in named.items()}
+    by_id = {id(p): grads.get(n) for n, p in named.items()}
+
+    def grad_of(t: torch.Tensor) -> torch.Tensor:
+        g = by_id[id(t)]
+        if g is None:
+            raise KeyError(f"parameter of shape {tuple(t.shape)} has no gradient")
+        return g
+
+    return _export(model, grad_of, ("params",))
+
+
+def _export(model: nn.Module, value: Callable[[torch.Tensor], torch.Tensor],
+            collections: Tuple[str, ...]) -> Dict[str, Dict[str, Any]]:
+    """Walk the model in the JAX tree's layout; value(t) is what is written
+    for each port tensor t, for the collections asked for."""
+    out: Dict[str, Dict[str, Any]] = {c: {} for c in collections}
 
     def put(collection: str, name: str, leaf: str, t: torch.Tensor, perm=None):
-        arr = t.detach().cpu().numpy()
+        if collection not in out:
+            return
+        arr = value(t).detach().cpu().numpy()
         if perm is not None:
             arr = arr.transpose(perm)
         node = out[collection]
-        for part in name.split("."):
+        for part in filter(None, name.split(".")):
             node = node.setdefault(part, {})
         node[leaf] = np.ascontiguousarray(arr)
 
     conv_blocks = {n for n, m in model.named_modules()
                    if isinstance(m, SparseConvBlock)}
     for name, mod in model.named_modules():
-        if name.rpartition(".")[0] in conv_blocks:
+        if name and name.rpartition(".")[0] in conv_blocks:
             continue  # the block's own conv and bn, written with the block
         if isinstance(mod, SparseConvBlock):
             put("params", name, "kernel", mod.conv.weight, _CONV_TO_JAX)

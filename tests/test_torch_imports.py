@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX package.
 
 An AST scan of every module of dcl_net_tpu_torch (and of chip_smoke.py and
-scripts/profile_torch_stage1.py), then
+the scripts/profile_torch_*.py), then
 a fresh interpreter that imports them all with jax, flax and dcl_net_tpu
 blocked in sys.modules. Importing builds nothing: the kernels are compiled
 at first use only.
@@ -18,7 +18,8 @@ ROOT = Path(__file__).resolve().parent.parent
 PACKAGE = ROOT / "dcl_net_tpu_torch"
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "dcl_net_tpu"}
 FILES = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                         ROOT / "scripts" / "profile_torch_stage1.py"]
+                                         ROOT / "scripts" / "profile_torch_stage1.py",
+                                         ROOT / "scripts" / "profile_torch_train.py"]
 
 
 def _imported_roots(path: Path):

@@ -145,12 +145,23 @@ def test_forward_matches_jax_pallas_path(setup):
 
 
 def test_eval_mode_only(setup):
+    """Only eval mode leaves the BN running statistics alone: the model is
+    built in eval mode, an eval forward reads them, a train-mode forward
+    (the training slice) updates them in place."""
     tmodel = setup[2]
+    assert not tmodel.training
+    stats = {k: v.clone() for k, v in tmodel.state_dict().items()
+             if k.endswith(("running_mean", "running_var"))}
+    with torch.no_grad():
+        tmodel(batch_to_torch(setup[3], "cpu"))
+    assert all(torch.equal(v, tmodel.state_dict()[k]) for k, v in stats.items())
     tmodel.train()
     try:
-        with pytest.raises(NotImplementedError, match="eval mode"):
+        with torch.no_grad():
             tmodel(batch_to_torch(setup[3], "cpu"))
+        assert all(not torch.equal(v, tmodel.state_dict()[k]) for k, v in stats.items())
     finally:
+        tmodel.load_state_dict({**tmodel.state_dict(), **stats})
         tmodel.eval()
 
 
