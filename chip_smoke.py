@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Run the PyTorch/CUDA port's stage-1 inference and training on one NVIDIA GPU.
+"""Run the PyTorch/CUDA port's stage-1 and stage-2 inference and training on
+one NVIDIA GPU, on the two-stage and the fused point-feature paths.
 
 Usage, from the root of the repository:  python3 chip_smoke.py
 
@@ -8,23 +9,39 @@ Phases, any failure exits non-zero:
     turns TF32 off;
  2. build: compiles the hand-written kernels from dcl_net_tpu_torch/csrc/;
  3. kernels: holds each kernel (K1 voxelize, K2 compaction, K3 3-NN
-    interpolation, K4 its backward, K5 the compaction's backward) to its
-    plain PyTorch version on the card, at the shapes the main paths give it
-    (batch 32, 64^3 grid, 1024 points), and times the kernel, the plain
-    version and a PyTorch library call computing the same function where
-    one exists, with CUDA events;
+    interpolation, K4 its backward, K5 the compaction's backward, K6 the
+    fused compaction -> interpolation, K7 its backward) to its plain
+    PyTorch version on the card, at the shapes the main paths give it
+    (batch 32, 64^3 grid, 1024 points), K6 also bit-equal to K2 ->
+    voxel_centers -> K3, and times the kernel, the plain version and a
+    PyTorch library call computing the same function where one exists,
+    with CUDA events; then one encode's point-feature stage on both paths;
  4. eval path: the full-width DCLNet of configs/config_YCBV_bs32.yaml
     (random weights from a seed) through Evaluator over the synthetic
     dataset's 16-class template bank and several batches of 32; checks
     finite outputs, the kernels' launch counts per encode, and one batch
-    against the same path with the plain versions on the card;
+    against the same path with the plain versions on the card; then the
+    same weights and batches on the fused path (interp_mode="pallas_fused":
+    launches 1/4/4 of K1/K2/K6 per encode, no K3), its poses against the
+    two-stage path's and the plain versions';
  5. training path: Solver with that config's model, optimizer, schedule and
     batch 32 on the synthetic dataset, a warm-up step and a few timed
     steps; checks finite losses and gradient norms, changed parameters and
     BN statistics, and the launch counts per step (K1 2, K2-K5 8 each);
  6. one train step's losses and gradients from the same state through the
     kernels and through their plain versions;
- 7. prints the per-kernel JSON line, then the result line
+ 7. training on the fused path through Solver (a warm-up and
+    FUSED_TRAIN_STEPS timed steps, launches K1 2, K2 8, K6 8, K7 8 per
+    step, K4 and K5 inside K7, no K3), and one step against the two-stage
+    path and the plain versions;
+ 8. stage 2 at full width on the fused stage 1: Stage2Evaluator with
+    ITERATIONS refinement steps over the eval batches (against the plain
+    versions on one batch), then the refiner's training through
+    Solver(step_builder=make_stage2_train_step) with
+    configs/config_YCBV_bs40.yaml's optimizer at batch 40 // ITERATIONS, a
+    warm-up and STAGE2_TRAIN_STEPS timed steps (stage 1 frozen: no
+    backward kernel runs, its weights and BN statistics stay);
+ 9. prints the per-kernel JSON line, then the result line
     {"ok": true, "device": {...}} last.
 """
 
@@ -44,6 +61,9 @@ N_BATCHES = 6
 N_CLASSES = 16
 MODEL_POINTS = 1024
 TRAIN_STEPS = 5  # timed training steps after one warm-up step
+FUSED_TRAIN_STEPS = 3
+STAGE2_TRAIN_STEPS = 5
+ITERATIONS = 2  # refinement steps of stage 2
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and f32 (non-tensor) FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
@@ -97,6 +117,34 @@ def cuda_ms(fn, reps: int = 15, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def graph_ms(fn, calls: int = 10, reps: int = 10) -> float:
+    """Device time of fn() in ms without the host's launch cost: `calls`
+    calls captured in one CUDA graph, replayed `reps` times between one
+    CUDA event pair. cuda_ms times the wrapper as a caller meets it, which
+    for a kernel of ~0.1 ms is mostly the host's time to launch it."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        graph.replay()
+    b.record()
+    torch.cuda.synchronize()
+    del graph
+    return a.elapsed_time(b) / (calls * reps)
+
+
 def bound(nbytes: float, flops: float):
     """Least time on the card for the work: (ms, "bytes" or "operations")."""
     t_bytes, t_ops = nbytes / PEAK_BYTES, flops / PEAK_F32
@@ -109,11 +157,11 @@ def max_err(a, b) -> float:
 
 @contextmanager
 def plain_versions():
-    """Route the model's five kernel calls (K1-K3 forward, K4-K5 backward)
-    to their plain versions, on whatever device the tensors are, for the
-    comparison runs."""
+    """Route the model's seven kernel calls (K1-K3 and K6 forward, K4, K5
+    and K7 backward) to their plain versions, on whatever device the
+    tensors are, for the comparison runs."""
     from dcl_net_tpu_torch.models import dcl_net
-    from dcl_net_tpu_torch.ops import cuda_compact, cuda_interp, cuda_voxelize
+    from dcl_net_tpu_torch.ops import cuda_compact, cuda_fused, cuda_interp, cuda_voxelize
 
     routes = [
         (dcl_net, "voxelize_cuda", cuda_voxelize.voxelize_reference),
@@ -122,6 +170,9 @@ def plain_versions():
          cuda_compact.dense_to_sparse_bwd_reference),
         (cuda_interp, "nn_interpolate_cuda", cuda_interp.nn_interpolate_reference),
         (cuda_interp, "nn_interpolate_bwd_cuda", cuda_interp.nn_interpolate_bwd_reference),
+        (cuda_fused, "compact_interpolate_cuda", cuda_fused.compact_interpolate_reference),
+        (cuda_fused, "compact_interpolate_bwd_cuda",
+         cuda_fused.compact_interpolate_bwd_reference),
     ]
     saved = [getattr(mod, name) for mod, name, _ in routes]
     for mod, name, plain in routes:
@@ -139,7 +190,17 @@ KERNEL_COUNTERS = (  # (entry name, module, counter attribute)
     ("interp", "cuda_interp", "launches"),
     ("interp_bwd", "cuda_interp", "bwd_launches"),
     ("compact_bwd", "cuda_compact", "bwd_launches"),
+    ("fused", "cuda_fused", "launches"),
+    ("fused_bwd", "cuda_fused", "bwd_launches"),
 )
+KERNEL_ORDER = tuple(k for k, _, _ in KERNEL_COUNTERS)
+
+
+def expect_counts(counts: dict, per_run: dict, runs: int, what: str) -> None:
+    """The launch counts of a path: per_run[k] * runs for each kernel named
+    there, 0 for every other kernel."""
+    want = {k: per_run.get(k, 0) * runs for k in KERNEL_ORDER}
+    check(counts == want, f"{what} launch counts {counts}, expected {want}")
 
 
 def _counter_module(name: str):
@@ -157,10 +218,17 @@ def read_counts() -> dict:
     return {key: getattr(_counter_module(mod), attr) for key, mod, attr in KERNEL_COUNTERS}
 
 
-def train_phase(cfg, card, device="cuda"):
-    """Solver at full width: a warm-up step, then TRAIN_STEPS counted and
-    timed steps through train_epoch. Returns (launch counts over the timed
-    steps, the solver, one device batch of the run)."""
+TWO_STAGE_TRAIN = {"voxelize": 2, "compact": 8, "interp": 8, "interp_bwd": 8,
+                   "compact_bwd": 8}
+FUSED_TRAIN = {"voxelize": 2, "compact": 8, "fused": 8, "fused_bwd": 8,
+               "interp_bwd": 8, "compact_bwd": 8}  # K4 and K5 inside K7
+
+
+def train_phase(cfg, card, interp_mode="pallas", steps=TRAIN_STEPS,
+                per_step=TWO_STAGE_TRAIN, device="cuda"):
+    """Solver at full width: a warm-up step, then `steps` counted and timed
+    steps through train_epoch. Returns (launch counts over the timed steps,
+    the solver, one device batch of the run, samples/s)."""
     import numpy as np
     import torch
 
@@ -178,9 +246,9 @@ def train_phase(cfg, card, device="cuda"):
         n_objects=N_CLASSES, n_points=int(mcfg.n_inp),
         unit_voxel_extent=tuple(mcfg.unit_voxel_extent),
         voxel_num_limit=tuple(int(d) for d in mcfg.voxel_num_limit),
-        length=bs * (TRAIN_STEPS + 1), seed=0)
+        length=bs * (steps + 1), seed=0)
     loader = BatchLoader(ds, batch_size=bs, num_workers=8, seed=int(cfg.get("rd_seed", 1)))
-    model = DCLNet.from_config(mcfg, seed=0, device=dev)
+    model = DCLNet.from_config(mcfg, seed=0, device=dev, interp_mode=interp_mode)
     train_cfg = cfg.merge({"per_write": 1, "per_save": 0})
     solver = Solver(model, dcl_losses, train_cfg, loader, device=dev)
     solver.initialize()
@@ -193,7 +261,7 @@ def train_phase(cfg, card, device="cuda"):
     first = batch_to_torch(next(iter(loader)), dev)
     warm = solver.train_step(solver.state, first)
     torch.cuda.synchronize()
-    print(f"train warm-up step {time.perf_counter() - t0:.3f} s, "
+    print(f"train ({interp_mode}) warm-up step {time.perf_counter() - t0:.3f} s, "
           f"loss_all {float(warm['loss_all']):.5f}", flush=True)
     loader.skip_next = 1
     torch.cuda.reset_peak_memory_stats()
@@ -203,12 +271,10 @@ def train_phase(cfg, card, device="cuda"):
     torch.cuda.synchronize()
     t_train = time.perf_counter() - t0
     launches = read_counts()
-    steps = solver.state.step - 1
-    check(steps == TRAIN_STEPS, f"{steps} timed steps")
-    per_step = {"voxelize": 2, "compact": 8, "interp": 8, "interp_bwd": 8, "compact_bwd": 8}
-    print(f"train path launches {launches} over {steps} steps", flush=True)
-    check(launches == {k: n * steps for k, n in per_step.items()},
-          f"train launch counts {launches} are not 2/8/8/8/8 per step")
+    n = solver.state.step - 1
+    check(n == steps, f"{n} timed steps")
+    print(f"train ({interp_mode}) path launches {launches} over {n} steps", flush=True)
+    expect_counts(launches, per_step, n, f"train ({interp_mode})")
     for key in ("loss_all", "loss_pose", "loss_Xo", "loss_Yc", "loss_conf", "grad_norm"):
         check(bool(np.isfinite(avg[key])), f"train {key} not finite: {avg[key]}")
     check(avg["skipped_nonfinite"] == 0.0, "a training step was skipped as non-finite")
@@ -217,32 +283,31 @@ def train_phase(cfg, card, device="cuda"):
     check(all(not torch.equal(a, b) for a, b in zip(stats0, bn_statistics(model))),
           "some BN running statistic did not change")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    rate = steps * bs / t_train
-    print(f"train path on {card}: {steps} steps of batch {bs} in {t_train:.3f} s = "
-          f"{rate:.2f} samples/s, T_step mean {avg['T_step']:.4f} s, T_data mean "
-          f"{avg['T_data']:.4f} s, peak memory {peak:.2f} GiB; mean loss_all "
+    rate = n * bs / t_train
+    print(f"train ({interp_mode}) path on {card}: {n} steps of batch {bs} in "
+          f"{t_train:.3f} s = {rate:.2f} samples/s, T_step mean {avg['T_step']:.4f} s, "
+          f"T_data mean {avg['T_data']:.4f} s, peak memory {peak:.2f} GiB; mean loss_all "
           f"{avg['loss_all']:.5f} grad_norm {avg['grad_norm']:.3f} "
           f"overflow_frac {avg['overflow_frac']:.4f}", flush=True)
-    return launches, solver, first
+    return launches, solver, first, rate
 
 
-def train_step_vs_plain(solver, batch) -> None:
+def train_step_vs_plain(solver, batch, per_pass, two_stage=None) -> None:
     """Losses and parameter gradients of one train-mode forward and backward
-    from the same state, through the kernels and through the plain versions.
-    The BN running statistics are put back after each pass."""
+    from the same state, through the kernels and through the plain
+    versions, and (two_stage: a two-stage model with the same state) on the
+    two-stage path. per_pass: the launches of one kernel pass. The BN
+    running statistics are put back after each pass."""
     import torch
 
+    from dcl_net_tpu_torch.models.dcl_net import dcl_losses
     from dcl_net_tpu_torch.train.solver import bn_statistics
 
-    model = solver.model
-    model.train()
-    params = list(model.parameters())
-    stats = bn_statistics(model)
-    saved = [b.clone() for b in stats]
-
-    def one_pass():
-        from dcl_net_tpu_torch.models.dcl_net import dcl_losses
-
+    def one_pass(model):
+        model.train()
+        params = list(model.parameters())
+        stats = bn_statistics(model)
+        saved = [b.clone() for b in stats]
         losses = dcl_losses(model(batch), batch)
         grads = torch.autograd.grad(losses["loss_all"], params)
         with torch.no_grad():
@@ -251,25 +316,101 @@ def train_step_vs_plain(solver, batch) -> None:
         return ({k: float(v.detach()) for k, v in losses.items()},
                 torch.cat([g.reshape(-1) for g in grads]))
 
+    model = solver.model
+    mode = model.point_feats_inp.interp_mode
     reset_counts()
-    lk, gk = one_pass()
-    counts = read_counts()
-    check(all(n > 0 for n in counts.values()), f"kernel pass counts {counts}")
-    lk2, gk2 = one_pass()
+    lk, gk = one_pass(model)
+    expect_counts(read_counts(), per_pass, 1, f"one train pass ({mode})")
+    lk2, gk2 = one_pass(model)
     with plain_versions():
-        lp, gp = one_pass()
-    check(read_counts() == {k: 2 * n for k, n in counts.items()},
-          "the plain pass launched a kernel")
-    denom = float(gp.norm())
-    rel = float((gk - gp).norm()) / denom
-    rel_self = float((gk - gk2).norm()) / denom
-    loss_rel = max(abs(lk[k] - lp[k]) / abs(lp[k]) for k in lp)
-    print(f"train step kernel path vs plain versions on the card: losses rel "
-          f"{loss_rel:.3g}, gradient rel L2 {rel:.3g} (kernel path vs itself "
-          f"{rel_self:.3g}), max abs {float((gk - gp).abs().max()):.3g} of max "
-          f"{float(gp.abs().max()):.3g}", flush=True)
-    check(loss_rel <= TRAIN_LOSS_RTOL, f"train losses differ by {loss_rel}")
-    check(rel <= TRAIN_GRAD_REL_L2, f"train gradients differ by {rel} in relative L2")
+        lp, gp = one_pass(model)
+    expect_counts(read_counts(), per_pass, 2, "the plain pass launched a kernel:")
+
+    def compare(what, lo, go):
+        denom = float(go.norm())
+        rel = float((gk - go).norm()) / denom
+        loss_rel = max(abs(lk[k] - lo[k]) / abs(lo[k]) for k in lo)
+        print(f"train step ({mode}) kernel path vs {what} on the card: losses rel "
+              f"{loss_rel:.3g}, gradient rel L2 {rel:.3g} (kernel path vs itself "
+              f"{float((gk - gk2).norm()) / denom:.3g}), max abs "
+              f"{float((gk - go).abs().max()):.3g} of max {float(go.abs().max()):.3g}",
+              flush=True)
+        check(loss_rel <= TRAIN_LOSS_RTOL, f"train losses differ from {what} by {loss_rel}")
+        check(rel <= TRAIN_GRAD_REL_L2,
+              f"train gradients differ from {what} by {rel} in relative L2")
+
+    compare("plain versions", lp, gp)
+    if two_stage is not None:
+        two_stage.load_state_dict(model.state_dict())
+        lt, gt = one_pass(two_stage)
+        compare("the two-stage path", lt, gt)
+
+
+def stage2_train_phase(card, model_f, model_points, grid_shape, n_points,
+                       device="cuda") -> None:
+    """The refiner's training through Solver(step_builder=...) with
+    config_YCBV_bs40.yaml's optimizer and schedule at batch
+    bs // ITERATIONS, on the frozen fused stage 1: a warm-up step, then
+    STAGE2_TRAIN_STEPS counted and timed steps."""
+    import numpy as np
+    import torch
+
+    from dcl_net_tpu_torch.config import Config
+    from dcl_net_tpu_torch.data.loader import BatchLoader
+    from dcl_net_tpu_torch.data.schema import batch_to_torch
+    from dcl_net_tpu_torch.data.synthetic import SyntheticPoseDataset
+    from dcl_net_tpu_torch.models.refiner import Refiner
+    from dcl_net_tpu_torch.train.solver import Solver
+    from dcl_net_tpu_torch.train.stage2 import make_stage2_train_step
+
+    dev = torch.device(device)
+    cfg2 = Config.fromfile(str(ROOT / "configs" / "config_YCBV_bs40.yaml"))
+    bs = int(cfg2.hyper_dataloader_train.bs) // ITERATIONS
+    ds = SyntheticPoseDataset(
+        n_objects=N_CLASSES, n_points=n_points,
+        unit_voxel_extent=tuple(cfg2.model.unit_voxel_extent), voxel_num_limit=grid_shape,
+        length=bs * (STAGE2_TRAIN_STEPS + 1), seed=0)
+    loader = BatchLoader(ds, batch_size=bs, num_workers=8, seed=int(cfg2.get("rd_seed", 1)))
+    cld = torch.as_tensor(np.asarray(model_points, np.float32), device=dev)
+    refiner = Refiner(n_inp=n_points, seed=1)
+    stage1 = {k: v.clone() for k, v in model_f.state_dict().items()}
+    solver = Solver(refiner, None, cfg2.merge({"per_write": 1, "per_save": 0}), loader,
+                    device=dev, step_builder=lambda opt: make_stage2_train_step(
+                        model_f, refiner, opt, ITERATIONS, cld))
+    solver.initialize()
+    params0 = [p.detach().clone() for p in refiner.parameters()]
+    t0 = time.perf_counter()
+    warm = solver.train_step(solver.state, batch_to_torch(next(iter(loader)), dev))
+    torch.cuda.synchronize()
+    print(f"stage-2 train warm-up step {time.perf_counter() - t0:.3f} s, loss_all "
+          f"{float(warm['loss_all']):.5f}", flush=True)
+    loader.skip_next = 1
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    avg = solver.train_epoch()
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    launches = read_counts()
+    n = solver.state.step - 1
+    check(n == STAGE2_TRAIN_STEPS, f"{n} timed stage-2 steps")
+    print(f"stage-2 train launches {launches} over {n} steps", flush=True)
+    # the frozen stage 1: both branches forward, no backward kernel
+    expect_counts(launches, {"voxelize": 2, "compact": 8, "fused": 8}, n, "stage-2 train")
+    for key in ("loss_all", "loss_last_iter", "grad_norm"):
+        check(bool(np.isfinite(avg[key])), f"stage-2 {key} not finite: {avg[key]}")
+    check(avg["skipped_nonfinite"] == 0.0, "a stage-2 step was skipped as non-finite")
+    check(all(not torch.equal(a, p) for a, p in zip(params0, refiner.parameters())),
+          "some refiner parameter did not change")
+    check(all(torch.equal(v, model_f.state_dict()[k]) for k, v in stage1.items()),
+          "stage-2 training changed a stage-1 weight or BN statistic")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"stage-2 train on {card}: {n} steps of batch {bs} ({ITERATIONS} refinement "
+          f"steps each) in {t_train:.3f} s = {n * bs / t_train:.2f} samples/s, T_step mean "
+          f"{avg['T_step']:.4f} s, T_data mean {avg['T_data']:.4f} s, peak memory "
+          f"{peak:.2f} GiB; mean loss_all "
+          f"{avg['loss_all']:.5f} loss_last_iter {avg['loss_last_iter']:.5f} grad_norm "
+          f"{avg['grad_norm']:.3f}", flush=True)
 
 
 def main() -> int:
@@ -289,9 +430,12 @@ def main() -> int:
     from dcl_net_tpu_torch.config import Config
     from dcl_net_tpu_torch.data.schema import batch_to_torch, make_batch
     from dcl_net_tpu_torch.data.synthetic import SyntheticPoseDataset
-    from dcl_net_tpu_torch.eval.evaluator import Evaluator
+    from dcl_net_tpu_torch.eval.evaluator import Evaluator, Stage2Evaluator
     from dcl_net_tpu_torch.models.dcl_net import DCLNet
-    from dcl_net_tpu_torch.ops import cuda_build, cuda_compact, cuda_interp, cuda_voxelize
+    from dcl_net_tpu_torch.models.refiner import Refiner
+    from dcl_net_tpu_torch.ops import (
+        cuda_build, cuda_compact, cuda_fused, cuda_interp, cuda_voxelize,
+    )
     from dcl_net_tpu_torch.ops.sparse_conv import voxel_centers
 
     smi = subprocess.run(
@@ -333,6 +477,8 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     model = DCLNet.from_config(mcfg, seed=0)
     check(next(model.parameters()).is_cuda, "model is not on the card")
+    # the same weights on the fused point-feature path
+    model_f = DCLNet.from_config(mcfg, seed=0, interp_mode="pallas_fused")
 
     # ---- 3. kernels vs plain versions at main-path shapes -------------------
     tb = batch_to_torch(batches[0], dev)
@@ -354,15 +500,18 @@ def main() -> int:
     k1_plain = cuda_ms(lambda: cuda_voxelize.voxelize_reference(feats, vidx, grid_shape, 4),
                        reps=5, warmup=1)
     k1_lib = cuda_ms(lambda: torch.zeros(b_ * g_, c_ + 1, device=dev).index_add_(0, lin, ext))
+    k1_dev = graph_ms(lambda: cuda_voxelize.voxelize_cuda(feats, vidx, grid_shape, 4))
     nbytes = b_ * n_ * (c_ + 3) * 4 + b_ * g_ * (c_ + 1) * 4
     flops = b_ * n_ * (c_ + 1) + int((count > 1).sum()) * c_
     bms, bby = bound(nbytes, flops)
     entries["voxelize"] = dict(
         name="voxelize", route="cuda", source="dcl_net_tpu_torch/csrc/voxelize.cu",
         replaces="dcl_net_tpu/ops/pallas_voxelize.py:76", max_abs_err=e1,
-        ms=k1_ms, kernel_ms=k1_ms, plain_ms=k1_plain, bound_ms=bms, bound_by=bby, library_ms=k1_lib)
+        ms=k1_ms, kernel_ms=k1_ms, device_ms=k1_dev, plain_ms=k1_plain, bound_ms=bms,
+        bound_by=bby, library_ms=k1_lib)
     print(f"K1 voxelize [{b_},{n_},{c_}] -> {grid_shape}: err {e1:.3g} "
-          f"kernel {k1_ms:.4f} ms plain {k1_plain:.4f} ms index_add_ {k1_lib:.4f} ms "
+          f"kernel {k1_ms:.4f} ms (device {k1_dev:.4f}) plain {k1_plain:.4f} ms "
+          f"index_add_ {k1_lib:.4f} ms "
           f"bound {bms:.4f} ms ({bby})", flush=True)
 
     mask = (count > 0).to(torch.float32)
@@ -370,16 +519,19 @@ def main() -> int:
         pyramid = model.backbone_inp(grid, mask)
     pf = model.point_feats_inp
     points = feats[..., 4:7].contiguous()
-    k2 = dict(err=0.0, ms=0.0, plain=0.0, bytes=0.0, flops=0.0)
-    k3 = dict(err=0.0, ms=0.0, plain=0.0, bytes=0.0, flops=0.0)
-    k4 = dict(err=0.0, ms=0.0, plain=0.0, lib=0.0, bytes=0.0, flops=0.0)
-    k5 = dict(err=0.0, ms=0.0, plain=0.0, lib=0.0, bytes=0.0, flops=0.0)
+    # per kernel, summed over the levels: max error, wrapper ms, device ms
+    # (graph_ms), plain ms, library ms, bytes and operations of the bound
+    k2, k3, k4, k5, k6, k7 = (dict(err=0.0, ms=0.0, dev=0.0, plain=0.0, lib=lib,
+                                   bytes=0.0, flops=0.0)
+                              for lib in (None, None, 0.0, 0.0, None, 0.0))
+    k6.update(two=0.0, dev_two=0.0)  # the centers pass + K3 that K6 replaces
     gen = torch.Generator(device=dev).manual_seed(0)
     for level, (lf, lm) in enumerate(pyramid):
         lf, lm = lf.contiguous(), lm.contiguous()
         b_, d0, d1, d2, c_ = lf.shape
         g_ = d0 * d1 * d2
         cap = min(pf.capacities[level], g_)
+        affine = pf.center_affine[level]
         occ = (lm.reshape(b_, -1) > 0).sum(1)
         caps = [cap]
         if level == 0:  # a capacity below the occupancy: the overflow case
@@ -394,9 +546,22 @@ def main() -> int:
             check(torch.equal(got[3] > cp, occ > cp), "K2 overflow flag wrong")
             if cp < cap:
                 check(bool((got[3] > cp).any()), "K2 overflow case did not overflow")
+            # K6 on K2's output against K2 -> voxel_centers -> K3: bit-equal
+            gc, gv, gm, go = got
+            want6 = cuda_interp.nn_interpolate_cuda(
+                points, voxel_centers(gc, pf.unit, pf.scale_list[level], pf.offset), gv, gm)
+            got6 = cuda_fused.compact_interpolate_cuda(points, gc, gv, gm, go, *affine)
+            for a, r, what in zip(got6, want6, ("out", "w", "idx")):
+                check(torch.equal(a, r), f"K6 level {level} cap {cp}: {what} not bit-equal "
+                      "to K2 -> voxel_centers -> K3")
+            ref6 = cuda_fused.compact_interpolate_reference(points, gc, gv, gm, go, *affine)
+            e6 = max_err(got6[0], ref6[0])
+            check(e6 <= INTERP_ATOL, f"K6 level {level} cap {cp}: out differs by {e6}")
+            k6["err"] = max(k6["err"], e6)
         coords, vfeats, vmask, _ = got = cuda_compact.dense_to_sparse_cuda(lf, lm, cap)
         t_k = cuda_ms(lambda: cuda_compact.dense_to_sparse_cuda(lf, lm, cap))
         t_p = cuda_ms(lambda: cuda_compact.dense_to_sparse_reference(lf, lm, cap))
+        k2["dev"] += graph_ms(lambda: cuda_compact.dense_to_sparse_cuda(lf, lm, cap))
         sel = torch.clamp(occ, max=cap).sum().item()
         k2["ms"] += t_k
         k2["plain"] += t_p
@@ -417,6 +582,8 @@ def main() -> int:
         t_k = cuda_ms(lambda: cuda_interp.nn_interpolate_cuda(points, centers, vfeats, vmask))
         t_p = cuda_ms(lambda: cuda_interp.nn_interpolate_reference(points, centers, vfeats, vmask),
                       reps=5, warmup=1)
+        k3["dev"] += graph_ms(lambda: cuda_interp.nn_interpolate_cuda(
+            points, centers, vfeats, vmask))
         v_ = vfeats.shape[1]
         n_ = points.shape[1]
         k3["ms"] += t_k
@@ -426,6 +593,37 @@ def main() -> int:
         k3["flops"] += 8 * n_ * float(vmask.sum()) + 5 * b_ * n_ * c_
         print(f"K3 interp level {level} N {n_} V {v_} C {c_}: err {err:.3g} "
               f"kernel {t_k:.4f} ms plain {t_p:.4f} ms", flush=True)
+
+        # K6 at this level's shapes (bit-equality checked above), timed
+        # beside the two-stage centers pass + K3 that it replaces
+        occ_k = got[3]
+        out6, w6, idx6 = cuda_fused.compact_interpolate_cuda(points, coords, vfeats, vmask,
+                                                             occ_k, *affine)
+        t_k = cuda_ms(lambda: cuda_fused.compact_interpolate_cuda(
+            points, coords, vfeats, vmask, occ_k, *affine))
+        t_p = cuda_ms(lambda: cuda_fused.compact_interpolate_reference(
+            points, coords, vfeats, vmask, occ_k, *affine), reps=5, warmup=1)
+        c_unit = getattr(pf, f"center_unit{level}")
+        c_shift = getattr(pf, f"center_shift{level}")
+        t_two = cuda_ms(lambda: cuda_interp.nn_interpolate_cuda(
+            points, coords.to(torch.float32) * c_unit + c_shift, vfeats, vmask))
+        d_k = graph_ms(lambda: cuda_fused.compact_interpolate_cuda(
+            points, coords, vfeats, vmask, occ_k, *affine))
+        d_two = graph_ms(lambda: cuda_interp.nn_interpolate_cuda(
+            points, coords.to(torch.float32) * c_unit + c_shift, vfeats, vmask))
+        # K6 reads only the slots [0, min(occupancy, cap)) that K2 filled
+        sel = torch.clamp(occ_k, max=cap).sum().item()
+        k6["dev"] += d_k
+        k6["dev_two"] += d_two
+        k6["ms"] += t_k
+        k6["plain"] += t_p
+        k6["two"] += t_two
+        k6["bytes"] += (b_ * n_ * 3 + sel * (3 + c_ + 1) + b_ + b_ * n_ * c_
+                        + 2 * b_ * 3 * n_) * 4
+        k6["flops"] += 8 * n_ * sel + 5 * b_ * n_ * c_ + 6 * sel
+        print(f"K6 fused level {level} N {n_} cap {v_} C {c_}: kernel {t_k:.4f} ms "
+              f"(device {d_k:.4f}) plain {t_p:.4f} ms (centers pass + K3 {t_two:.4f} ms, "
+              f"device {d_two:.4f})", flush=True)
 
         # K4 at this level's shapes: a cotangent of the interpolated features
         g = torch.randn((b_, n_, c_), device=dev, generator=gen)
@@ -442,6 +640,7 @@ def main() -> int:
         t_k = cuda_ms(lambda: cuda_interp.nn_interpolate_bwd_cuda(g, w, idx, v_))
         t_p = cuda_ms(lambda: cuda_interp.nn_interpolate_bwd_reference(g, w, idx, v_))
         t_l = cuda_ms(lambda: torch.zeros(b_ * v_, c_, device=dev).index_add_(0, rows, terms))
+        k4["dev"] += graph_ms(lambda: cuda_interp.nn_interpolate_bwd_cuda(g, w, idx, v_))
         k4["ms"] += t_k
         k4["plain"] += t_p
         k4["lib"] += t_l
@@ -465,6 +664,8 @@ def main() -> int:
         t_p = cuda_ms(lambda: cuda_compact.dense_to_sparse_bwd_reference(dv, coords, vmask,
                                                                          (d0, d1, d2)))
         t_l = cuda_ms(lambda: torch.zeros(b_ * g_, c_, device=dev).index_copy_(0, lin, vals))
+        k5["dev"] += graph_ms(lambda: cuda_compact.dense_to_sparse_bwd_cuda(
+            dv, coords, vmask, (d0, d1, d2)))
         n_valid = int(valid.sum())
         k5["ms"] += t_k
         k5["plain"] += t_p
@@ -472,20 +673,76 @@ def main() -> int:
         k5["bytes"] += (n_valid * c_ + b_ * cap * 4 + b_ * g_ * c_) * 4
         print(f"K5 compact_bwd level {level} [{b_},{cap},{c_}] -> {d0}^3: bit-equal, "
               f"kernel {t_k:.4f} ms plain {t_p:.4f} ms index_copy_ {t_l:.4f} ms", flush=True)
+
+        # K7 at this level's shapes: K4 into the cap rows, then K5 onto the
+        # grid, from K6's w and idx; held as K4 is, to Σ|w g| per element
+        g7 = torch.randn((b_, n_, c_), device=dev, generator=gen)
+        grid3 = (d0, d1, d2)
+        got7 = cuda_fused.compact_interpolate_bwd_cuda(g7, w6, idx6, coords, vmask, grid3)
+        ref7 = cuda_fused.compact_interpolate_bwd_reference(g7, w6, idx6, coords, vmask, grid3)
+        mass7 = cuda_fused.compact_interpolate_bwd_reference(g7.abs(), w6.abs(), idx6,
+                                                             coords, vmask, grid3)
+        err = max_err(got7, ref7)
+        rel = float(((got7 - ref7).abs() / mass7.clamp(min=1e-30)).max())
+        check(rel <= INTERP_BWD_RTOL,
+              f"K7 level {level}: differs by {rel:.3g} of sum |w g| (max abs {err:.3g})")
+        k7["err"] = max(k7["err"], err)
+        # the library call: w g of each neighbour of a valid slot, added
+        # into the grid cell of that slot by one index_add_
+        nb = idx6.long().reshape(b_, 3 * n_)
+        cell = torch.gather(coords, 1, nb[..., None].expand(-1, -1, 3)).long()
+        rows7 = (((cell[..., 0] * d1 + cell[..., 1]) * d2 + cell[..., 2])
+                 + g_ * torch.arange(b_, device=dev)[:, None]).reshape(-1)
+        terms7 = ((w6 * torch.gather(vmask, 1, nb).reshape(b_, 3, n_))[..., None]
+                  * g7[:, None]).reshape(-1, c_)
+        lib7 = torch.zeros(b_ * g_, c_, device=dev).index_add_(0, rows7, terms7)
+        rel_l = float(((lib7.reshape(ref7.shape) - ref7).abs()
+                       / mass7.clamp(min=1e-30)).max())
+        check(rel_l <= INTERP_BWD_RTOL, f"K7 level {level}: the index_add_ call "
+              f"computes another function ({rel_l:.3g} of sum |w g|)")
+        t_k = cuda_ms(lambda: cuda_fused.compact_interpolate_bwd_cuda(
+            g7, w6, idx6, coords, vmask, grid3))
+        t_p = cuda_ms(lambda: cuda_fused.compact_interpolate_bwd_reference(
+            g7, w6, idx6, coords, vmask, grid3))
+        t_l = cuda_ms(lambda: torch.zeros(b_ * g_, c_, device=dev).index_add_(0, rows7, terms7))
+        k7["dev"] += graph_ms(lambda: cuda_fused.compact_interpolate_bwd_cuda(
+            g7, w6, idx6, coords, vmask, grid3))
+        k7["ms"] += t_k
+        k7["plain"] += t_p
+        k7["lib"] += t_l
+        k7["bytes"] += (b_ * n_ * c_ + 2 * b_ * 3 * n_ + n_valid * 4 + b_ * g_ * c_) * 4
+        k7["flops"] += 6 * b_ * n_ * c_
+        print(f"K7 fused_bwd level {level} [{b_},{n_},{c_}] -> {d0}^3: err {err:.3g} "
+              f"(rel {rel:.3g}) kernel {t_k:.4f} ms plain {t_p:.4f} ms "
+              f"index_add_ {t_l:.4f} ms", flush=True)
+    csrc = "dcl_net_tpu_torch/csrc/"
     for key, acc, src, rep in (
-            ("compact", k2, "compact.cu", "dcl_net_tpu/ops/pallas_compact.py:79"),
-            ("interp", k3, "interp.cu", "dcl_net_tpu/ops/pallas_interp.py:42"),
-            ("interp_bwd", k4, "interp.cu", "dcl_net_tpu/ops/pallas_interp.py:87"),
-            ("compact_bwd", k5, "compact.cu", "dcl_net_tpu/ops/pallas_compact.py:226")):
+            ("compact", k2, csrc + "compact.cu", "dcl_net_tpu/ops/pallas_compact.py:79"),
+            ("interp", k3, csrc + "interp.cu", "dcl_net_tpu/ops/pallas_interp.py:42"),
+            ("interp_bwd", k4, csrc + "interp.cu", "dcl_net_tpu/ops/pallas_interp.py:87"),
+            ("compact_bwd", k5, csrc + "compact.cu", "dcl_net_tpu/ops/pallas_compact.py:226"),
+            ("fused", k6, csrc + "fused.cu", "dcl_net_tpu/ops/pallas_fused.py:45"),
+            # K7 is K4 (interp.cu) then K5 (compact.cu), composed in the wrapper
+            ("fused_bwd", k7, "dcl_net_tpu_torch/ops/cuda_fused.py",
+             "dcl_net_tpu/ops/pallas_fused.py:182")):
         bms, bby = bound(acc["bytes"], acc["flops"])
         entries[key] = dict(
-            name=key, route="cuda", source=f"dcl_net_tpu_torch/csrc/{src}",
+            name=key, route="cuda", source=src,
             replaces=rep, max_abs_err=acc["err"], ms=acc["ms"],
-            kernel_ms=acc["ms"], plain_ms=acc["plain"], bound_ms=bms, bound_by=bby,
-            library_ms=acc.get("lib"))
+            kernel_ms=acc["ms"], device_ms=acc["dev"], plain_ms=acc["plain"],
+            bound_ms=bms, bound_by=bby, library_ms=acc["lib"])
         print(f"{key} over the 4 levels of one branch: kernel {acc['ms']:.4f} ms "
-              f"plain {acc['plain']:.4f} ms library {acc.get('lib')} ms "
-              f"bound {bms:.4f} ms ({bby})", flush=True)
+              f"(device {acc['dev']:.4f}) plain {acc['plain']:.4f} ms library "
+              f"{acc['lib']} ms bound {bms:.4f} ms ({bby})", flush=True)
+    print(f"fused over the 4 levels: centers pass + K3 (the two-stage path) "
+          f"{k6['two']:.4f} ms (device {k6['dev_two']:.4f})", flush=True)
+    # one encode's point-feature stage (4 levels: K2, then centers + K3 or K6)
+    with torch.inference_mode():
+        pf_ms = {name: (cuda_ms(lambda: m.point_feats_inp(points, pyramid)),
+                        graph_ms(lambda: m.point_feats_inp(points, pyramid), calls=4))
+                 for name, m in (("two-stage", model), ("fused", model_f))}
+    print(f"point-feature stage of one encode [{BATCH},{n_points}] on {card}: " + ", ".join(
+        f"{name} {t:.4f} ms (device {d:.4f})" for name, (t, d) in pf_ms.items()), flush=True)
 
     # ---- 4. main path at full width ------------------------------------------
     # warm-up pass (cuDNN algorithm choice, allocator), not counted
@@ -503,9 +760,7 @@ def main() -> int:
     launches = read_counts()
     encodes = 1 + len(batches)  # the template bank once, then one per batch
     print(f"eval path launches {launches} over {encodes} encodes", flush=True)
-    check(launches == {"voxelize": encodes, "compact": 4 * encodes,
-                       "interp": 4 * encodes, "interp_bwd": 0, "compact_bwd": 0},
-          f"launch counts {launches} are not 1/4/4/0/0 per encode")
+    expect_counts(launches, {"voxelize": 1, "compact": 4, "interp": 4}, encodes, "eval")
     for key, n in launches.items():
         entries[key]["eval_launches"] = n
     rows = BATCH * len(batches)
@@ -539,19 +794,108 @@ def main() -> int:
     check(e_rot <= POSE_ATOL and e_trans <= POSE_ATOL,
           "kernel path disagrees with the plain versions")
 
+    # ---- 4b. the fused path's eval, the same weights and batches ----------------
+    Evaluator(model_f, model_points, template_bank=bank).evaluate(batches[:1])  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    ev_f = Evaluator(model_f, model_points, template_bank=bank)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res_f = ev_f.evaluate(batches)
+    torch.cuda.synchronize()
+    t_eval_f = time.perf_counter() - t0
+    launches = read_counts()
+    print(f"fused eval path launches {launches} over {encodes} encodes", flush=True)
+    expect_counts(launches, {"voxelize": 1, "compact": 4, "fused": 4}, encodes, "fused eval")
+    entries["fused"]["eval_launches"] = launches["fused"]
+    check(res_f["n_scored"] == rows - 1, f"fused n_scored {res_f['n_scored']}")
+    check(res_f["n_overflow"] == res["n_overflow"], "fused n_overflow differs")
+    check(bool(np.isfinite(res_f["auc_mean"])), "fused auc_mean is not finite")
+    out_f = ev_f._run(tb)
+    with plain_versions():
+        pout_f = Evaluator(model_f, model_points, template_bank=bank)._run(tb)
+    for what, ref in (("the two-stage path", out), ("the plain versions", pout_f)):
+        e_rot = max_err(out_f["rot_pred"], ref["rot_pred"])
+        e_trans = max_err(out_f["trans_pred"], ref["trans_pred"])
+        print(f"fused path vs {what}, one batch: rot_pred {e_rot:.3g} trans_pred "
+              f"{e_trans:.3g}", flush=True)
+        check(e_rot <= POSE_ATOL and e_trans <= POSE_ATOL, f"fused path disagrees with {what}")
+    print(f"fused eval path on {card}: evaluate {t_eval_f:.3f} s for {rows} rows = "
+          f"{rows / t_eval_f:.1f} instances/s (two-stage in this run {inst_s:.1f})",
+          flush=True)
+
     # ---- 5. training path at full width -----------------------------------------
-    del ev, ev_plain, out, pout, pyramid, grid, pgrid
+    del ev, ev_plain, out, pout, ev_f, out_f, pout_f, pyramid, grid, pgrid
     torch.cuda.empty_cache()
-    train_launches, solver, train_batch = train_phase(cfg, card)
+    train_launches, solver, train_batch, rate_two = train_phase(cfg, card)
     for key, n in train_launches.items():
         entries[key]["launches"] = n
 
     # ---- 6. one train step: kernel path vs plain path ---------------------------
-    train_step_vs_plain(solver, train_batch)
+    train_step_vs_plain(solver, train_batch, TWO_STAGE_TRAIN)
+    del solver, train_batch
+    torch.cuda.empty_cache()
 
-    # ---- 7. result lines ------------------------------------------------------
-    order = ("voxelize", "compact", "interp", "interp_bwd", "compact_bwd")
-    print(json.dumps({"kernels": [entries[k] for k in order]}), flush=True)
+    # ---- 7. the fused path's training, and one step against the two-stage path -
+    f_launches, f_solver, f_batch, rate_fused = train_phase(
+        cfg, card, "pallas_fused", FUSED_TRAIN_STEPS, FUSED_TRAIN)
+    entries["fused"]["launches"] = f_launches["fused"]
+    entries["fused_bwd"]["launches"] = f_launches["fused_bwd"]
+    print(f"training on {card}: fused {rate_fused:.2f} samples/s, two-stage "
+          f"{rate_two:.2f} samples/s", flush=True)
+    train_step_vs_plain(f_solver, f_batch, FUSED_TRAIN, two_stage=DCLNet.from_config(
+        mcfg, seed=0, interp_mode="pallas"))
+    del f_solver, f_batch
+    torch.cuda.empty_cache()
+
+    # ---- 8a. stage-2 eval at full width on the fused stage 1 --------------------
+    refiner = Refiner(n_inp=n_points, seed=0)
+    Stage2Evaluator(model_f, refiner, model_points, iterations=ITERATIONS,
+                    template_bank=bank).evaluate(batches[:1])  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    ev2 = Stage2Evaluator(model_f, refiner, model_points, iterations=ITERATIONS,
+                          template_bank=bank)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res2 = ev2.evaluate(batches)
+    torch.cuda.synchronize()
+    t_eval2 = time.perf_counter() - t0
+    launches = read_counts()
+    print(f"stage-2 eval launches {launches} over {encodes} encodes", flush=True)
+    expect_counts(launches, {"voxelize": 1, "compact": 4, "fused": 4}, encodes,
+                  "stage-2 eval")
+    check(res2["n_scored"] == rows - 1, f"stage-2 n_scored {res2['n_scored']}")
+    check(bool(np.isfinite(res2["auc_mean"])), "stage-2 auc_mean is not finite")
+    out2 = ev2._run(tb)
+    rot2, trans2 = out2["rot_pred"], out2["trans_pred"]
+    check(bool(torch.isfinite(rot2).all() and torch.isfinite(trans2).all()
+               and torch.isfinite(out2["adds"]).all()), "stage-2 non-finite outputs")
+    check(tuple(rot2.shape) == (BATCH, 3, 3) and tuple(trans2.shape) == (BATCH, 3),
+          "stage-2 output shapes")
+    ortho = max_err(rot2.transpose(1, 2) @ rot2, eye.expand_as(rot2))
+    check(ortho < 1e-5, f"refined rot not orthonormal ({ortho})")
+    check(bool((torch.linalg.det(rot2) > 0).all()), "refined rot det < 0")
+    with plain_versions():
+        pout2 = Stage2Evaluator(model_f, refiner, model_points, iterations=ITERATIONS,
+                                template_bank=bank)._run(tb)
+    e_rot = max_err(rot2, pout2["rot_pred"])
+    e_trans = max_err(trans2, pout2["trans_pred"])
+    print(f"stage-2 kernel path vs plain versions, one batch: rot {e_rot:.3g} trans "
+          f"{e_trans:.3g}", flush=True)
+    check(e_rot <= POSE_ATOL and e_trans <= POSE_ATOL,
+          "stage-2 kernel path disagrees with the plain versions")
+    print(f"stage-2 eval on {card}: {ITERATIONS} refinement steps, auc_mean "
+          f"{res2['auc_mean']} n_scored {res2['n_scored']}, evaluate {t_eval2:.3f} s for "
+          f"{rows} rows = {rows / t_eval2:.1f} instances/s", flush=True)
+    del ev2, out2, pout2
+    torch.cuda.empty_cache()
+
+    # ---- 8b. stage-2 training at full width ---------------------------------------
+    stage2_train_phase(card, model_f, model_points, grid_shape, n_points)
+
+    # ---- 9. result lines ------------------------------------------------------
+    print(json.dumps({"kernels": [entries[k] for k in KERNEL_ORDER]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,9 +3,11 @@
 A port of the JAX package ``dcl_net_tpu``, which stays the reference: the
 modules mirror its paths and names, keep its channel-last layouts at public
 functions, and hold f32 semantics. The kernels of stage-1 inference
-(voxelize, compaction, 3-NN interpolation) and of its training (the
+(voxelize, compaction, 3-NN interpolation, and the fused compaction ->
+interpolation of interp_mode "pallas_fused") and of its training (the
 interpolation's and the compaction's backwards) live in ``csrc/`` and are
 built with nvcc at first use; a CPU tensor takes each kernel's plain version.
+Stage 2 (the refiner) is plain PyTorch on top of a stage-1 model.
 """
 
 import torch

@@ -1,6 +1,7 @@
-"""Stage-1 evaluation loop (YCB-V ADD-S AUC protocol).
+"""Stage-1 and stage-2 evaluation loops (YCB-V ADD-S AUC protocol).
 
-Counterpart of dcl_net_tpu/eval/evaluator.py::Evaluator without the mesh:
+Counterpart of dcl_net_tpu/eval/evaluator.py::Evaluator and
+Stage2Evaluator without the mesh:
 batches arrive padded, with `valid` (0 = lost detection, scored as an
 infinite distance) and `pad` (1 = fill row, never scored) flags; the model
 and the ADD-S distances run on the device, only [B]-sized results come back
@@ -17,6 +18,7 @@ import torch
 from dcl_net_tpu_torch import resolve_device, strict_f32
 from dcl_net_tpu_torch.data.schema import batch_to_torch
 from dcl_net_tpu_torch.eval.metrics import add_s_batch, per_class_auc_acc
+from dcl_net_tpu_torch.models.refiner import refine_pose
 
 
 class Evaluator:
@@ -61,11 +63,16 @@ class Evaluator:
                 out = self.model.fuse(obs, tmp)
             else:
                 out = self.model(batch)
+            rot, trans = self._pose(out)
             adds = add_s_batch(
-                self.model_points[cls], out["rot_pred"], out["trans_pred"],
+                self.model_points[cls], rot, trans,
                 batch["labels"]["rot_gt"], batch["labels"]["trans_gt"])
-        return {"adds": adds, "rot_pred": out["rot_pred"],
-                "trans_pred": out["trans_pred"], "overflow": out["overflow"]}
+        return {"adds": adds, "rot_pred": rot, "trans_pred": trans,
+                "overflow": out["overflow"]}
+
+    def _pose(self, out: Dict[str, torch.Tensor]):
+        """The pose that is scored: stage 1's."""
+        return out["rot_pred"], out["trans_pred"]
 
     def evaluate(self, loader: Iterable[Dict[str, Any]]) -> Dict[str, object]:
         """One pass over host batches (make_batch(...).to_dict()); returns
@@ -100,3 +107,21 @@ class Evaluator:
         scored = real & (valid > 0)
         distances.extend(float(x) for x in adds[scored])
         class_ids.extend(cls[scored].tolist())
+
+
+class Stage2Evaluator(Evaluator):
+    """Stage-1 + iterative refiner eval (dcl_net_tpu/eval/evaluator.py::
+    Stage2Evaluator): the stage-1 encode (template cache as in Evaluator)
+    and fuse, then `iterations` refine/compose steps (models/refiner.py::
+    refine_pose), then ADD-S of the refined pose. Takes Evaluator's
+    arguments besides the refiner."""
+
+    def __init__(self, model, refiner, model_points: np.ndarray,
+                 iterations: int = 2, **kw):
+        super().__init__(model, model_points, **kw)
+        self.refiner = refiner.to(self.device).eval()
+        self.iterations = int(iterations)
+
+    def _pose(self, out: Dict[str, torch.Tensor]):
+        return refine_pose(self.refiner, out["points_inp"], out["F_Xo_p"], out["conf"],
+                           out["rot_pred"], out["trans_pred"], self.iterations)

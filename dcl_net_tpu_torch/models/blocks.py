@@ -38,6 +38,23 @@ def _stat_dtype(x: torch.Tensor) -> torch.dtype:
     return torch.promote_types(x.dtype, torch.float32)
 
 
+@torch.no_grad()
+def init_weights(model: nn.Module, seed: int = 0) -> None:
+    """Draw a model's weights from a torch.Generator seeded with `seed`:
+    lecun-normal conv and dense kernels, zero biases, identity BN
+    parameters and statistics."""
+    gen = torch.Generator().manual_seed(int(seed))
+    for mod in model.modules():
+        if isinstance(mod, (nn.Conv3d, nn.Linear)):
+            w = mod.weight
+            fan_in = w[0].numel()
+            w.copy_(torch.randn(w.shape, generator=gen) / fan_in ** 0.5)
+            if mod.bias is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, (nn.BatchNorm1d, MaskedBatchNorm)):
+            mod.reset_parameters()
+
+
 class MaskedBatchNorm(nn.Module):
     """BatchNorm whose statistics run over occupied voxels only: biased
     variance to normalise, unbiased for the running update, momentum 0.1

@@ -2,8 +2,9 @@
 
 Counterpart of dcl_net_tpu/models/dcl_net.py, split the same way:
   encode_observed / encode_template: voxelize (kernel K1) -> backbone ->
-    multi-scale 3-NN interpolation (kernels K2, K3) -> the four disengage
-    heads of that branch;
+    multi-scale 3-NN interpolation (kernels K2 and K3, or K2 and the fused
+    K6 with interp_mode="pallas_fused") -> the four disengage heads of that
+    branch;
   fuse: bidirectional attention + confidence + pose heads + SVD pose.
 forward = fuse(encode_observed(batch), encode_template(batch)). The template
 branch depends only on the class's CAD cloud, so the evaluator encodes it
@@ -37,7 +38,7 @@ from dcl_net_tpu_torch.geometry.transform import (
     untransform_points,
 )
 from dcl_net_tpu_torch.models.backbone import MultiScalePointFeatures, SparseBackbone
-from dcl_net_tpu_torch.models.blocks import MaskedBatchNorm, PointMLP
+from dcl_net_tpu_torch.models.blocks import PointMLP, init_weights
 from dcl_net_tpu_torch.ops.knn import knn
 from dcl_net_tpu_torch.ops.cuda_voxelize import voxelize_cuda
 from dcl_net_tpu_torch.ops.voxelize import MODE_MEAN, MODE_SUM
@@ -68,6 +69,8 @@ def aligner(ri_1: torch.Tensor, ri_2: torch.Tensor, re_2: torch.Tensor):
 class DCLNet(nn.Module):
     """The stage-1 DCL-Net.
 
+    interp_mode: the point-feature path of both branches
+    (models/backbone.py::MultiScalePointFeatures).
     device: where the module lives, CUDA unless the caller names another.
     seed: the weights are drawn from a torch.Generator with this seed
     (lecun-normal kernels, zero biases, identity BN statistics), on the CPU
@@ -80,6 +83,7 @@ class DCLNet(nn.Module):
         voxel_num_limit: Sequence[int] = (64, 64, 64),
         kernel_size: int = 3,
         capacities: Sequence[int] = (2048, 1024, 512, 64),
+        interp_mode: str = "exact",
         device=None,
         seed: int = 0,
     ):
@@ -93,7 +97,8 @@ class DCLNet(nn.Module):
         self.backbone_inp = SparseBackbone(kernel_size=kernel_size)
         self.backbone_tmp = SparseBackbone(kernel_size=kernel_size)
         pf_kw = dict(unit_voxel_extent=tuple(unit_voxel_extent),
-                     voxel_num_limit=self.grid_shape, capacities=tuple(capacities))
+                     voxel_num_limit=self.grid_shape, capacities=tuple(capacities),
+                     interp_mode=interp_mode)
         self.point_feats_inp = MultiScalePointFeatures(**pf_kw)
         self.point_feats_tmp = MultiScalePointFeatures(**pf_kw)
 
@@ -123,24 +128,15 @@ class DCLNet(nn.Module):
             unit_voxel_extent=tuple(model_cfg["unit_voxel_extent"]),
             voxel_num_limit=tuple(model_cfg["voxel_num_limit"]),
             kernel_size=int(model_cfg.get("backbone", {}).get("kernel_size", 3)),
+            interp_mode=str(model_cfg.get("interp_mode", "exact")),
         )
         if "capacities" in model_cfg:
             args["capacities"] = tuple(model_cfg["capacities"])
         args.update(kw)
         return cls(**args)
 
-    @torch.no_grad()
     def reset_parameters(self, seed: int = 0) -> None:
-        gen = torch.Generator().manual_seed(int(seed))
-        for mod in self.modules():
-            if isinstance(mod, (nn.Conv3d, nn.Linear)):
-                w = mod.weight
-                fan_in = w[0].numel()
-                w.copy_(torch.randn(w.shape, generator=gen) / fan_in ** 0.5)
-                if mod.bias is not None:
-                    mod.bias.zero_()
-            elif isinstance(mod, (nn.BatchNorm1d, MaskedBatchNorm)):
-                mod.reset_parameters()
+        init_weights(self, seed)
 
     # ------------------------------------------------------------------
     # Branch encoders

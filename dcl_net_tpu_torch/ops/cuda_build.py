@@ -3,8 +3,8 @@
 The sources in ``dcl_net_tpu_torch/csrc/*.cu`` have a plain C interface. At
 first use each one is compiled by its own ``nvcc`` process (all started
 together) for ``sm_90a``, the objects are linked into one shared library
-under ``dcl_net_tpu_torch/build/`` (named by a hash of the sources and
-flags, so an edit rebuilds), and the library is loaded with ``ctypes``.
+under ``dcl_net_tpu_torch/build/`` (named by a hash of the sources, the
+headers they include and the flags, so an edit rebuilds), and the library is loaded with ``ctypes``.
 Nothing here runs when the package is imported: the CPU path never needs a
 compiler or a card.
 """
@@ -23,18 +23,22 @@ from typing import List
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
-SOURCES = ("voxelize.cu", "compact.cu", "interp.cu")
+SOURCES = ("voxelize.cu", "compact.cu", "interp.cu", "fused.cu")
+HEADERS = ("three_nn.cuh",)  # included by interp.cu and fused.cu
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C entry points: every pointer and the stream as c_void_p, sizes as c_int.
+_F = ctypes.c_float
+# C entry points: every pointer and the stream as c_void_p, sizes as c_int,
+# f32 constants as c_float.
 SIGNATURES = {
     "dclx_voxelize": [_P] * 5 + [_I] * 7 + [_P],
     "dclx_compact": [_P] * 6 + [_I] * 6 + [_P],
     "dclx_interp": [_P] * 7 + [_I] * 4 + [_P],
     "dclx_interp_bwd": [_P] * 4 + [_I] * 4 + [_P],
     "dclx_compact_bwd": [_P] * 4 + [_I] * 6 + [_P],
+    "dclx_compact_interp": [_P] * 8 + [_I] * 4 + [_F] * 6 + [_P],
 }
 
 
@@ -55,7 +59,7 @@ def nvcc() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC_DIR / name).read_bytes())
     return BUILD_DIR / f"libdclx_kernels_{h.hexdigest()[:16]}.so"

@@ -56,10 +56,11 @@ def init(args, tool_name: str) -> Tuple[object, Config]:
 
 
 def build_model(cfg: Config, device=None, seed: int = 0):
-    """The port's DCLNet from cfg.model, in f32. The model keys the port
-    does not run yet raise: compute_dtype bfloat16, remat, and the
-    interpolation modes other than the exact one (which the kernels K2-K5
-    carry; "pallas" names the same function in the JAX package)."""
+    """The port's DCLNet from cfg.model, in f32. cfg.model.interp_mode
+    (default "exact") picks the point-feature path: "exact" and "pallas" run
+    the two-stage path (kernels K2-K5), "pallas_fused" the fused one (K2,
+    K6, K7). The model keys the port does not run yet raise: compute_dtype
+    bfloat16, remat, and interp_mode "local"."""
     from dcl_net_tpu_torch.models.dcl_net import DCLNet
 
     m = cfg.model
@@ -70,9 +71,6 @@ def build_model(cfg: Config, device=None, seed: int = 0):
         raise NotImplementedError(f"compute_dtype {dtype}: the port runs f32 only")
     if m.get("remat"):
         raise NotImplementedError("model.remat: not ported yet")
-    mode = m.get("interp_mode", "exact")
-    if mode not in ("exact", "pallas"):
-        raise NotImplementedError(f"interp_mode {mode}: not ported yet")
     return DCLNet.from_config(m, device=device, seed=seed)
 
 

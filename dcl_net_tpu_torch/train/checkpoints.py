@@ -3,8 +3,11 @@
 Counterpart of the orbax checkpoints of dcl_net_tpu/train/checkpoints.py,
 in the same layout: <dir>/epoch_<n>/ holds one file, state.pt, with
 {"model": state_dict, "opt_state": {...}, "step", "epoch", "meta"}, where
-meta["consumed_batches"] > 0 marks a mid-epoch checkpoint. Converting the
-reference .pth weights is not ported yet.
+meta["consumed_batches"] > 0 marks a mid-epoch checkpoint. "model" is the
+trained module's state: the DCLNet in stage 1, the Refiner in stage 2
+(tools/train_ycbv_stage2.py), whose stage-1 model is loaded from a stage-1
+checkpoint's "model". Converting the reference .pth weights is not ported
+yet.
 """
 
 from __future__ import annotations

@@ -207,6 +207,34 @@ def bn_statistics(model: torch.nn.Module) -> List[torch.Tensor]:
             if n.endswith(("running_mean", "running_var"))]
 
 
+def apply_gradients(params: List[torch.Tensor], grads, opt: Optimizer,
+                    state: TrainState, loss: torch.Tensor,
+                    stats: List[torch.Tensor] = (),
+                    stats_before: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The optimizer half of a train step, on the device without a host
+    sync: the flat gradient (None counts as zero), its global norm,
+    AutoClip, Adam, and the parameter update, all skipped where the loss or
+    the norm is not finite. Then the parameters, state.opt_state and, when
+    given, the BN statistics (put back to stats_before on a skip) hold
+    their new values and state.step counts the step.
+    Returns (grad_norm, skipped_nonfinite) as 0-d tensors."""
+    grad = torch.cat([(g if g is not None else torch.zeros_like(p)).reshape(-1)
+                      for g, p in zip(grads, params)])
+    grad_norm = torch.sqrt(torch.sum(grad * grad))
+    update, new_opt = opt.update(grad, grad_norm, state.opt_state)
+    old = _flat(params)
+    ok = torch.isfinite(loss.detach()) & torch.isfinite(grad_norm)
+    new = torch.where(ok, old + update, old)
+    new_opt = {k: torch.where(ok, v, state.opt_state[k]) for k, v in new_opt.items()}
+    if stats:
+        _assign(stats, torch.where(ok, _flat(stats), stats_before))
+    _assign(params, new)
+    state.opt_state = new_opt
+    state.step += 1
+    return grad_norm, 1.0 - ok.to(torch.float32)
+
+
 def make_train_step(model: torch.nn.Module, opt: Optimizer, loss_fn: Callable,
                     template_bank: Optional[Mapping[str, torch.Tensor]] = None,
                     on_stage: Optional[Callable[[str], None]] = None) -> Callable:
@@ -244,25 +272,12 @@ def make_train_step(model: torch.nn.Module, opt: Optimizer, loss_fn: Callable,
         mark("loss")
         grads = torch.autograd.grad(losses["loss_all"], params, allow_unused=True)
         mark("backward")
-        grad = torch.cat([(g if g is not None else torch.zeros_like(p)).reshape(-1)
-                          for g, p in zip(grads, params)])
-        grad_norm = torch.sqrt(torch.sum(grad * grad))
-        update, new_opt = opt.update(grad, grad_norm, state.opt_state)
-        old = _flat(params)
-        new = old + update
         metrics = {k: v.detach() for k, v in losses.items()}
         if "overflow" in pred:
             metrics["overflow_frac"] = pred["overflow"].to(torch.float32).mean()
-        metrics["grad_norm"] = grad_norm
-        ok = torch.isfinite(losses["loss_all"].detach()) & torch.isfinite(grad_norm)
-        new = torch.where(ok, new, old)
-        new_opt = {k: torch.where(ok, v, state.opt_state[k]) for k, v in new_opt.items()}
-        _assign(stats, torch.where(ok, _flat(stats), stats_before))
-        metrics["skipped_nonfinite"] = 1.0 - ok.to(torch.float32)
-        _assign(params, new)
+        metrics["grad_norm"], metrics["skipped_nonfinite"] = apply_gradients(
+            params, grads, opt, state, losses["loss_all"], stats, stats_before)
         mark("optimizer")
-        state.opt_state = new_opt
-        state.step += 1
         return metrics
 
     return train_step
@@ -275,8 +290,9 @@ class Solver:
     """Epoch/step loop with per-step timing and periodic logging: T_data
     (waiting for the loader) and T_step (the sustained wall time of a step)
     per step, averages every cfg.per_write steps, a checkpoint every
-    cfg.per_save epochs and every cfg.per_save_steps steps. (The JAX
-    Solver's eval hook and mesh are not ported yet.)
+    cfg.per_save epochs and every cfg.per_save_steps steps, and the eval
+    hook every cfg.per_val epochs. (The JAX Solver's mesh is not ported
+    yet.)
 
     Metrics are fetched one step late: step k+1 is queued on the device
     before step k's scalars are read, so the read does not leave the card
@@ -284,9 +300,21 @@ class Solver:
 
     def __init__(self, model, loss_fn, cfg: Config, loader, logger=None,
                  checkpoint_dir: Optional[str] = None, writer=None,
-                 template_bank=None, device=None):
-        """template_bank: numpy {"feats", "voxel_idx"} per class. Turns on
-        cuDNN's algorithm autotuning (autotune_convs)."""
+                 template_bank=None, device=None,
+                 eval_fn: Optional[Callable] = None,
+                 step_builder: Optional[Callable] = None):
+        """template_bank: numpy {"feats", "voxel_idx"} per class.
+
+        eval_fn(state, epoch) -> dict of scalars, called every cfg.per_val
+        epochs, logged and written as "eval" scalars.
+
+        step_builder: a factory opt -> train_step(state, batch) -> metrics
+        that replaces the stage-1 step (make_train_step); it is given the
+        Solver's optimizer, so the state it updates is the Solver's. The
+        stage-2 trainer passes train/stage2.py's step, with the refiner as
+        `model` and loss_fn None.
+
+        Turns on cuDNN's algorithm autotuning (autotune_convs)."""
         autotune_convs()
         self.device = resolve_device(device)
         self.model = model.to(self.device)
@@ -295,11 +323,15 @@ class Solver:
         self.logger = logger
         self.writer = writer
         self.checkpoint_dir = checkpoint_dir
+        self.eval_fn = eval_fn
         self.opt, self.schedule = build_optimizer(cfg, len(loader))
-        bank = None if template_bank is None else batch_to_torch(
-            dict(template_bank), self.device)
-        self.train_step = make_train_step(model, self.opt, loss_fn,
-                                          template_bank=bank)
+        if step_builder is not None:
+            self.train_step = step_builder(self.opt)
+        else:
+            bank = None if template_bank is None else batch_to_torch(
+                dict(template_bank), self.device)
+            self.train_step = make_train_step(model, self.opt, loss_fn,
+                                              template_bank=bank)
         self.state: Optional[TrainState] = None
         self.epoch = 0
 
@@ -315,14 +347,23 @@ class Solver:
     def solve(self, max_epoch: Optional[int] = None) -> None:
         max_epoch = max_epoch or int(self.cfg.get("max_epoch", 1))
         per_save = int(self.cfg.get("per_save", 1))
+        per_val = int(self.cfg.get("per_val", 1))
         while self.epoch < max_epoch:
             self.train_epoch()
             self.epoch += 1
-            # per_save <= 0 disables the checkpoints
+            # per_save / per_val <= 0 disables the checkpoints / the eval hook
             if self.checkpoint_dir and per_save > 0 and self.epoch % per_save == 0:
                 from dcl_net_tpu_torch.train.checkpoints import save_checkpoint
 
                 save_checkpoint(self.checkpoint_dir, self.model, self.state, self.epoch)
+            if self.eval_fn and per_val > 0 and self.epoch % per_val == 0:
+                scalars = self.eval_fn(self.state, self.epoch)
+                if scalars:
+                    if self.logger:
+                        self.logger.info(f"[{self.epoch}] Eval - " + "\t".join(
+                            f"{k}: {v:.5f}" for k, v in scalars.items()))
+                    if self.writer:
+                        self.writer.add_scalars("eval", scalars, self.epoch)
 
     def save_due(self, i: int) -> bool:
         """Whether step i of the epoch ends with a mid-epoch checkpoint."""

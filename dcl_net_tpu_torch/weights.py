@@ -148,7 +148,7 @@ def _export(model: nn.Module, value: Callable[[torch.Tensor], torch.Tensor],
         node = out[collection]
         for part in filter(None, name.split(".")):
             node = node.setdefault(part, {})
-        node[leaf] = np.ascontiguousarray(arr)
+        node[leaf] = np.array(arr, order="C")  # a copy, never a view of the tensor
 
     conv_blocks = {n for n, m in model.named_modules()
                    if isinstance(m, SparseConvBlock)}

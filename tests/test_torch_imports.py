@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX package.
 
-An AST scan of every module of dcl_net_tpu_torch (and of chip_smoke.py and
-the scripts/profile_torch_*.py), then
+An AST scan of every module of dcl_net_tpu_torch (the stage-2 refiner,
+evaluator, train step and CLI and the fused kernel's wrapper among them;
+and of chip_smoke.py and the scripts/profile_torch_*.py), then
 a fresh interpreter that imports them all with jax, flax and dcl_net_tpu
 blocked in sys.modules. Importing builds nothing: the kernels are compiled
 at first use only.
@@ -61,7 +62,7 @@ def test_package_imports_with_jax_blocked():
 
 
 def test_every_kernel_source_names_what_it_replaces():
-    for name in ("voxelize.cu", "compact.cu", "interp.cu"):
+    for name in ("voxelize.cu", "compact.cu", "interp.cu", "fused.cu"):
         text = (PACKAGE / "csrc" / name).read_text()
         assert "Replaces the Pallas kernel dcl_net_tpu/ops/pallas_" in text
         assert "Bound on an H100" in text

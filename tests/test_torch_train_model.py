@@ -137,8 +137,9 @@ def jax_step(model, variables, batch, bank=None):
             jax.tree.map(np.asarray, stats))
 
 
-def torch_step(variables, batch, dtype, bank=None):
-    model = load_jax_variables(DCLNet(device="cpu", **KW), variables).to(dtype)
+def torch_step(variables, batch, dtype, bank=None, interp_mode="exact"):
+    model = load_jax_variables(DCLNet(interp_mode=interp_mode, device="cpu", **KW),
+                               variables).to(dtype)
     model.train()
     tb = torch_batch(batch, dtype)
     if bank is None:
