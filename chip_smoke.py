@@ -12,10 +12,17 @@ Phases, any failure exits non-zero:
     interpolation, K4 its backward, K5 the compaction's backward, K6 the
     fused compaction -> interpolation, K7 its backward) to its plain
     PyTorch version on the card, at the shapes the main paths give it
-    (batch 32, 64^3 grid, 1024 points), K6 also bit-equal to K2 ->
-    voxel_centers -> K3, and times the kernel, the plain version and a
-    PyTorch library call computing the same function where one exists,
-    with CUDA events; then one encode's point-feature stage on both paths;
+    (batch 32, 64^3 grid, 1024 points): K1 bit-equal in modes 3 and 4, on
+    the main-path batch and on an adversarial one (one full cell, tile
+    edges, the last cell, masked and out-of-range points); K5 bit-equal at
+    every level, below the occupancy and with an empty sample, after a
+    check of its precondition on K2's output; K6 also bit-equal to K2 ->
+    voxel_centers -> K3. Times the kernel as called and on the device
+    alone (CUDA-graph replay), the plain version, and a PyTorch library
+    call computing the same function where one exists, as called and on
+    the device (K1: index_add_ then the divide; also index_add_ alone,
+    which is mode 3's function); then one encode's point-feature stage on
+    both paths;
  4. eval path: the full-width DCLNet of configs/config_YCBV_bs32.yaml
     (random weights from a seed) through Evaluator over the synthetic
     dataset's 16-class template bank and several batches of 32; checks
@@ -67,17 +74,21 @@ ITERATIONS = 2  # refinement steps of stage 2
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and f32 (non-tensor) FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
-# Tolerances of kernel vs plain version, with their reasons:
-VOX_ATOL = 1e-5    # K1: f32 atomics sum each voxel in another order than the plain serial sum
+# Tolerances of kernel vs plain version, with their reasons. K1 is held
+# bit-equal: it sums each voxel's points in point order from 0 and divides
+# by max(count, 1), the plain serial scatter's order and rounding. VOX_ATOL
+# holds only its library yardstick, whose index_add_ adds each voxel's
+# points in a run-dependent order.
+VOX_ATOL = 1e-5
 INTERP_ATOL = 1e-5  # K3: the weighted sum and weights round like the plain version's to a few ulp
-POSE_ATOL = 1e-4   # whole path: K1's summation order feeds 8 convs and the pose heads
+POSE_ATOL = 1e-4   # whole path: K3's and K6's few-ulp differences feed the pose heads
 # K4: f32 atomics add each center's w * g terms in a run-dependent order; a
 # sum of n terms in any order is within (n - 1) * 2^-24 of sum |terms|, and
 # at most a few hundred terms land on one row of the main path: 1e-5 of
 # sum |w * g| per element. K5 writes each value once: bit-equal.
 INTERP_BWD_RTOL = 1e-5
 # One train step, kernel path vs plain path: f32 sums in run-dependent order
-# (K1's and K4's atomics, the plain versions' index_add_) move the losses by
+# (K4's atomics, the plain versions' index_add_) move the losses by
 # a few ulp and the gradient, whose f32 conditioning is poor (the neck's BN
 # backward cancels nearly all of a near-uniform confidence average; see
 # tests/test_torch_train_model.py), by more: losses within 1e-5 relative;
@@ -117,11 +128,13 @@ def cuda_ms(fn, reps: int = 15, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def graph_ms(fn, calls: int = 10, reps: int = 10) -> float:
+def graph_ms(fn, calls: int = 10, reps: int = 10, rounds: int = 3) -> float:
     """Device time of fn() in ms without the host's launch cost: `calls`
     calls captured in one CUDA graph, replayed `reps` times between one
-    CUDA event pair. cuda_ms times the wrapper as a caller meets it, which
-    for a kernel of ~0.1 ms is mostly the host's time to launch it."""
+    CUDA event pair; the median of `rounds` such pairs, as one pair alone
+    can catch a slow stretch of the card. cuda_ms times the wrapper as a
+    caller meets it, which for a kernel of ~0.1 ms is mostly the host's
+    time to launch it."""
     import torch
 
     side = torch.cuda.Stream()
@@ -136,13 +149,16 @@ def graph_ms(fn, calls: int = 10, reps: int = 10) -> float:
     graph.replay()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        graph.replay()
-    b.record()
-    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        a.record()
+        for _ in range(reps):
+            graph.replay()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / (calls * reps))
     del graph
-    return a.elapsed_time(b) / (calls * reps)
+    return statistics.median(times)
 
 
 def bound(nbytes: float, flops: float):
@@ -153,6 +169,52 @@ def bound(nbytes: float, flops: float):
 
 def max_err(a, b) -> float:
     return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+
+
+def adversarial_voxel_batch(grid_shape, b: int, n: int, c: int, tile: int, seed: int = 0):
+    """K1's hard inputs at the main path's shapes, as numpy (feats f32
+    [b, n, c], voxel_idx int32 [b, n, 3], point mask f32 [b, n]; b >= 6):
+    sample 0 puts every point in one cell; sample 1 fills the last cell and
+    the cells on both sides of every tile edge; sample 2 is all masked;
+    sample 3 has indices out of range on each axis (-1, D, far out);
+    sample 4 crowds its points into 8 interleaved cells of one tile; the
+    rest cluster around a center, with 10 % of the points masked."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    dims = np.asarray(grid_shape)
+    g = int(np.prod(dims))
+    center = rng.randint(8, dims - 8, size=(b, 1, 3))
+    vidx = np.clip(center + rng.randint(-6, 7, size=(b, n, 3)), 0, dims - 1)
+    feats = rng.randn(b, n, c).astype(np.float32)
+    mask = (rng.rand(b, n) > 0.1).astype(np.float32)
+    mask[:2] = 1.0
+    vidx[0] = (dims[0] // 2, dims[1] // 3, dims[2] // 5)
+    edges = [g - 1, 0] + [e for t in range(tile, g, tile) for e in (t - 1, t)]
+    vidx[1] = np.stack(np.unravel_index(np.asarray(edges)[np.arange(n) % len(edges)], dims), -1)
+    mask[2] = 0.0
+    for axis in range(3):
+        for k, bad in enumerate((-1, int(dims[axis]), -1000, 100000)):
+            vidx[3, 40 * axis + 10 * k:40 * axis + 10 * k + 10, axis] = bad
+    crowd = np.stack(np.unravel_index(tile + 97 * np.arange(8), dims), -1)
+    vidx[4] = crowd[np.arange(n) % 8]
+    return feats, vidx.astype(np.int32), mask
+
+
+def check_slot_prefix(coords, vmask, occupancy, cap: int, dims, what: str) -> None:
+    """K5's precondition on K2's output: the valid slots of each sample are
+    [0, min(occupancy, cap)) and their linear indices rise strictly."""
+    import torch
+
+    d1, d2 = int(dims[1]), int(dims[2])
+    n_valid = torch.clamp(occupancy.long(), max=cap)
+    slots = torch.arange(cap, device=vmask.device)
+    check(torch.equal(vmask > 0, slots[None] < n_valid[:, None]),
+          f"{what}: the valid slots are not the prefix [0, min(occupancy, cap))")
+    lin = (coords[..., 0].long() * d1 + coords[..., 1]) * d2 + coords[..., 2]
+    both = (vmask[:, 1:] > 0) & (vmask[:, :-1] > 0)
+    check(bool((lin[:, 1:] > lin[:, :-1])[both].all()),
+          f"{what}: the linear indices of the valid slots do not rise strictly")
 
 
 @contextmanager
@@ -485,22 +547,52 @@ def main() -> int:
     feats, vidx = tb["inp"]["feats"], tb["inp"]["voxel_idx"]
     entries = {}
 
-    grid, count = cuda_voxelize.voxelize_cuda(feats, vidx, grid_shape, 4)
-    pgrid, pcount = cuda_voxelize.voxelize_reference(feats, vidx, grid_shape, 4)
-    torch.cuda.synchronize()
-    check(torch.equal(count, pcount), "K1 counts differ from the plain version")
-    e1 = max_err(grid, pgrid)
-    check(e1 <= VOX_ATOL, f"K1 grid differs by {e1}")
     b_, n_, c_ = feats.shape
+    for mode in (3, 4):  # the main-path batch (mode 4), and the sum mode
+        grid, count = cuda_voxelize.voxelize_cuda(feats, vidx, grid_shape, mode)
+        pgrid, pcount = cuda_voxelize.voxelize_reference(feats, vidx, grid_shape, mode)
+        check(torch.equal(count, pcount) and torch.equal(grid, pgrid),
+              f"K1 mode {mode}: grid or counts not bit-equal to the plain version")
+    e1 = max_err(grid, pgrid)
+    # the adversarial batch, with and without its point mask
+    a_feats, a_vidx, a_mask = (torch.as_tensor(x, device=dev) for x in adversarial_voxel_batch(
+        grid_shape, b_, n_, c_, cuda_voxelize.TILE))
+    for mode in (3, 4):
+        for pm in (a_mask, None):
+            got = cuda_voxelize.voxelize_cuda(a_feats, a_vidx, grid_shape, mode, pm)
+            want = cuda_voxelize.voxelize_reference(a_feats, a_vidx, grid_shape, mode, pm)
+            check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+                  f"K1 mode {mode} on the adversarial batch (mask "
+                  f"{pm is not None}): not bit-equal to the plain version")
+    check(float(got[1][0].max()) == n_, "K1 adversarial: sample 0 is not one full cell")
+    print(f"K1 bit-equal to the plain version on the main-path batch and the "
+          f"adversarial batch, modes 3 and 4", flush=True)
+    del a_feats, a_vidx, a_mask, got, want
     g_ = grid_shape[0] * grid_shape[1] * grid_shape[2]
     lin = (((vidx[..., 0].long() * grid_shape[1] + vidx[..., 1]) * grid_shape[2]
             + vidx[..., 2]) + torch.arange(b_, device=dev)[:, None] * g_).reshape(-1)
     ext = torch.cat([feats, torch.ones_like(feats[..., :1])], -1).reshape(-1, c_ + 1)
+
+    def lib_sum():  # mode 3's function: the sums and counts
+        return torch.zeros(b_ * g_, c_ + 1, device=dev).index_add_(0, lin, ext)
+
+    def lib_mean():  # mode 4's: then the divide by max(count, 1)
+        acc = lib_sum()
+        return acc[:, :c_] / torch.clamp(acc[:, c_:], min=1.0), acc[:, c_]
+
+    lg, lc = lib_mean()
+    check(torch.equal(lc, pcount.reshape(-1)), "K1 yardstick: counts differ")
+    e_lib = max_err(lg, pgrid.reshape(-1, c_))
+    check(e_lib <= VOX_ATOL, f"K1 yardstick index_add_ + divide differs by {e_lib}")
+    del lg, lc
     k1_ms = cuda_ms(lambda: cuda_voxelize.voxelize_cuda(feats, vidx, grid_shape, 4))
+    k1_dev = graph_ms(lambda: cuda_voxelize.voxelize_cuda(feats, vidx, grid_shape, 4))
+    k1_sum_ms = cuda_ms(lambda: cuda_voxelize.voxelize_cuda(feats, vidx, grid_shape, 3))
+    k1_sum_dev = graph_ms(lambda: cuda_voxelize.voxelize_cuda(feats, vidx, grid_shape, 3))
     k1_plain = cuda_ms(lambda: cuda_voxelize.voxelize_reference(feats, vidx, grid_shape, 4),
                        reps=5, warmup=1)
-    k1_lib = cuda_ms(lambda: torch.zeros(b_ * g_, c_ + 1, device=dev).index_add_(0, lin, ext))
-    k1_dev = graph_ms(lambda: cuda_voxelize.voxelize_cuda(feats, vidx, grid_shape, 4))
+    lib_sum_ms, lib_sum_dev = cuda_ms(lib_sum), graph_ms(lib_sum)
+    lib_mean_ms, lib_mean_dev = cuda_ms(lib_mean), graph_ms(lib_mean)
     nbytes = b_ * n_ * (c_ + 3) * 4 + b_ * g_ * (c_ + 1) * 4
     flops = b_ * n_ * (c_ + 1) + int((count > 1).sum()) * c_
     bms, bby = bound(nbytes, flops)
@@ -508,11 +600,16 @@ def main() -> int:
         name="voxelize", route="cuda", source="dcl_net_tpu_torch/csrc/voxelize.cu",
         replaces="dcl_net_tpu/ops/pallas_voxelize.py:76", max_abs_err=e1,
         ms=k1_ms, kernel_ms=k1_ms, device_ms=k1_dev, plain_ms=k1_plain, bound_ms=bms,
-        bound_by=bby, library_ms=k1_lib)
-    print(f"K1 voxelize [{b_},{n_},{c_}] -> {grid_shape}: err {e1:.3g} "
-          f"kernel {k1_ms:.4f} ms (device {k1_dev:.4f}) plain {k1_plain:.4f} ms "
-          f"index_add_ {k1_lib:.4f} ms "
-          f"bound {bms:.4f} ms ({bby})", flush=True)
+        bound_by=bby, library_ms=lib_mean_ms, library_device_ms=lib_mean_dev,
+        library_call="index_add_ then divide by clamp(count, 1) (mode 4)",
+        sum_mode_ms=k1_sum_ms, sum_mode_device_ms=k1_sum_dev,
+        library_sum_only_ms=lib_sum_ms, library_sum_only_device_ms=lib_sum_dev)
+    print(f"K1 voxelize [{b_},{n_},{c_}] -> {grid_shape}: bit-equal, mode 4 kernel "
+          f"{k1_ms:.4f} ms (device {k1_dev:.4f}) against index_add_ + divide "
+          f"{lib_mean_ms:.4f} ms (device {lib_mean_dev:.4f}); mode 3 kernel "
+          f"{k1_sum_ms:.4f} ms (device {k1_sum_dev:.4f}) against index_add_ "
+          f"{lib_sum_ms:.4f} ms (device {lib_sum_dev:.4f}), the sum-only yardstick of "
+          f"earlier runs; plain {k1_plain:.4f} ms; bound {bms:.4f} ms ({bby})", flush=True)
 
     mask = (count > 0).to(torch.float32)
     with torch.inference_mode():
@@ -522,7 +619,7 @@ def main() -> int:
     # per kernel, summed over the levels: max error, wrapper ms, device ms
     # (graph_ms), plain ms, library ms, bytes and operations of the bound
     k2, k3, k4, k5, k6, k7 = (dict(err=0.0, ms=0.0, dev=0.0, plain=0.0, lib=lib,
-                                   bytes=0.0, flops=0.0)
+                                   lib_dev=lib, bytes=0.0, flops=0.0)
                               for lib in (None, None, 0.0, 0.0, None, 0.0))
     k6.update(two=0.0, dev_two=0.0)  # the centers pass + K3 that K6 replaces
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -546,6 +643,14 @@ def main() -> int:
             check(torch.equal(got[3] > cp, occ > cp), "K2 overflow flag wrong")
             if cp < cap:
                 check(bool((got[3] > cp).any()), "K2 overflow case did not overflow")
+            # K5 on this output: its precondition, then bit-equality
+            check_slot_prefix(got[0], got[2], got[3], cp, (d0, d1, d2),
+                              f"K2 level {level} cap {cp}")
+            dv = torch.randn((b_, cp, c_), device=dev, generator=gen)
+            check(torch.equal(
+                cuda_compact.dense_to_sparse_bwd_cuda(dv, got[0], got[2], (d0, d1, d2)),
+                cuda_compact.dense_to_sparse_bwd_reference(dv, got[0], got[2], (d0, d1, d2))),
+                f"K5 level {level} cap {cp}: not bit-equal to the plain version")
             # K6 on K2's output against K2 -> voxel_centers -> K3: bit-equal
             gc, gv, gm, go = got
             want6 = cuda_interp.nn_interpolate_cuda(
@@ -558,6 +663,16 @@ def main() -> int:
             e6 = max_err(got6[0], ref6[0])
             check(e6 <= INTERP_ATOL, f"K6 level {level} cap {cp}: out differs by {e6}")
             k6["err"] = max(k6["err"], e6)
+        # K5 with one sample's mask empty (no valid slot at all)
+        lm_e = lm.clone()
+        lm_e[0] = 0.0
+        ec, _, em, eo = cuda_compact.dense_to_sparse_cuda(lf, lm_e, cap)
+        check_slot_prefix(ec, em, eo, cap, (d0, d1, d2), f"K2 level {level}, empty sample")
+        dv = torch.randn((b_, cap, c_), device=dev, generator=gen)
+        ge = cuda_compact.dense_to_sparse_bwd_cuda(dv, ec, em, (d0, d1, d2))
+        check(torch.equal(ge, cuda_compact.dense_to_sparse_bwd_reference(dv, ec, em, (d0, d1, d2)))
+              and not bool(ge[0].any()), f"K5 level {level}, empty sample: not bit-equal")
+        del lm_e, ec, em, eo, ge
         coords, vfeats, vmask, _ = got = cuda_compact.dense_to_sparse_cuda(lf, lm, cap)
         t_k = cuda_ms(lambda: cuda_compact.dense_to_sparse_cuda(lf, lm, cap))
         t_p = cuda_ms(lambda: cuda_compact.dense_to_sparse_reference(lf, lm, cap))
@@ -639,8 +754,13 @@ def main() -> int:
         terms = (w[..., None] * g[:, None]).reshape(-1, c_)
         t_k = cuda_ms(lambda: cuda_interp.nn_interpolate_bwd_cuda(g, w, idx, v_))
         t_p = cuda_ms(lambda: cuda_interp.nn_interpolate_bwd_reference(g, w, idx, v_))
-        t_l = cuda_ms(lambda: torch.zeros(b_ * v_, c_, device=dev).index_add_(0, rows, terms))
+
+        def lib4():
+            return torch.zeros(b_ * v_, c_, device=dev).index_add_(0, rows, terms)
+
+        t_l = cuda_ms(lib4)
         k4["dev"] += graph_ms(lambda: cuda_interp.nn_interpolate_bwd_cuda(g, w, idx, v_))
+        k4["lib_dev"] += graph_ms(lib4)
         k4["ms"] += t_k
         k4["plain"] += t_p
         k4["lib"] += t_l
@@ -663,9 +783,14 @@ def main() -> int:
                                                                     (d0, d1, d2)))
         t_p = cuda_ms(lambda: cuda_compact.dense_to_sparse_bwd_reference(dv, coords, vmask,
                                                                          (d0, d1, d2)))
-        t_l = cuda_ms(lambda: torch.zeros(b_ * g_, c_, device=dev).index_copy_(0, lin, vals))
+
+        def lib5():
+            return torch.zeros(b_ * g_, c_, device=dev).index_copy_(0, lin, vals)
+
+        t_l = cuda_ms(lib5)
         k5["dev"] += graph_ms(lambda: cuda_compact.dense_to_sparse_bwd_cuda(
             dv, coords, vmask, (d0, d1, d2)))
+        k5["lib_dev"] += graph_ms(lib5)
         n_valid = int(valid.sum())
         k5["ms"] += t_k
         k5["plain"] += t_p
@@ -704,9 +829,14 @@ def main() -> int:
             g7, w6, idx6, coords, vmask, grid3))
         t_p = cuda_ms(lambda: cuda_fused.compact_interpolate_bwd_reference(
             g7, w6, idx6, coords, vmask, grid3))
-        t_l = cuda_ms(lambda: torch.zeros(b_ * g_, c_, device=dev).index_add_(0, rows7, terms7))
+
+        def lib7():
+            return torch.zeros(b_ * g_, c_, device=dev).index_add_(0, rows7, terms7)
+
+        t_l = cuda_ms(lib7)
         k7["dev"] += graph_ms(lambda: cuda_fused.compact_interpolate_bwd_cuda(
             g7, w6, idx6, coords, vmask, grid3))
+        k7["lib_dev"] += graph_ms(lib7)
         k7["ms"] += t_k
         k7["plain"] += t_p
         k7["lib"] += t_l
@@ -730,10 +860,12 @@ def main() -> int:
             name=key, route="cuda", source=src,
             replaces=rep, max_abs_err=acc["err"], ms=acc["ms"],
             kernel_ms=acc["ms"], device_ms=acc["dev"], plain_ms=acc["plain"],
-            bound_ms=bms, bound_by=bby, library_ms=acc["lib"])
+            bound_ms=bms, bound_by=bby, library_ms=acc["lib"],
+            library_device_ms=acc["lib_dev"])
         print(f"{key} over the 4 levels of one branch: kernel {acc['ms']:.4f} ms "
               f"(device {acc['dev']:.4f}) plain {acc['plain']:.4f} ms library "
-              f"{acc['lib']} ms bound {bms:.4f} ms ({bby})", flush=True)
+              f"{acc['lib']} ms (device {acc['lib_dev']}) bound {bms:.4f} ms ({bby})",
+              flush=True)
     print(f"fused over the 4 levels: centers pass + K3 (the two-stage path) "
           f"{k6['two']:.4f} ms (device {k6['dev_two']:.4f})", flush=True)
     # one encode's point-feature stage (4 levels: K2, then centers + K3 or K6)

@@ -23,18 +23,34 @@
 // batch on 132 SMs): simple first, a split of G across blocks is later work.
 //
 // K5 replaces the Pallas kernel dcl_net_tpu/ops/pallas_compact.py
-// (_make_bwd_kernel, launched by _run_bwd), which recomputed the chunk
-// offsets and scattered the cotangent back with transposed one-hot
-// matmuls. Here the forward's coords and vmask are kept, so no scan runs
-// again: dgrid[b, lin(coords[b, s]), c] = dv[b, s, c] for every valid slot
-// s, into a [B, G, C] grid the caller zero-fills. Bound on an H100: bytes,
-// and nearly all of them are that zero fill (the grid is ~2 % occupied on
-// the main path). Design: one thread per (b, s, c), channel-fastest, so
-// the reads of dv and the writes of a row are coalesced. No atomics: each
-// occupied cell holds at most one slot, so the result is bit-equal to the
-// plain version.
+// (_make_bwd_kernel, launched by _run_bwd), in which each grid step owned
+// one chunk of the grid gradient and wrote it whole, once, from prefetched
+// chunk offsets, through transposed one-hot matmuls. It computes
+// dgrid[b, lin(coords[b, s]), c] = dv[b, s, c] for every valid slot s
+// (vmask > 0), zeros elsewhere, into a [B, G, C] grid.
+//
+// Precondition, which K2 above and the plain sparse_conv.dense_to_sparse
+// both guarantee: the valid slots of a sample are the prefix
+// [0, min(occupancy, cap)) and their linear indices rise strictly. The
+// forward's coords and vmask are kept, so no scan runs again.
+//
+// Bound on an H100: bytes, and nearly all of them are the grid's zeros
+// (178 MB over the four levels of one branch on the main path, where the
+// grid is ~2 % occupied). Design: one launch writes every byte once. The
+// grid of blocks is (tiles, B); block (t, b) owns cells [lo, hi) of sample
+// b, about 16 KB of output. Two warps find its slot range [s0, s1) by a
+// 32-way search of the valid prefix (the first slot whose linear index
+// reaches lo, then hi), as the TPU kernel took its range from the
+// prefetched offsets, and then, with the other warps, store zeros over the
+// tile (float4, streaming).
+// After __syncthreads() the block copies rows dv[b, s0:s1] into their
+// cells, float4 where C % 4 == 0 and the rows are 16-byte aligned, else
+// float by float. Each cell holds at most one slot and nothing is added,
+// so the result is bit-equal to the plain version.
 
 #include <cuda_runtime.h>
+
+#include "tile_fill.cuh"
 
 namespace {
 
@@ -96,19 +112,85 @@ compact_occupied(const float* __restrict__ feats, const float* __restrict__ mask
 
 constexpr int kBwdThreads = 256;
 
+// The first slot s of [0, cap) whose key reaches target, where key(s) is
+// the linear index of a valid slot and +inf past the valid prefix (cap if
+// none does). A warp-wide search: each round the 32 lanes probe evenly
+// spaced slots and keep the gap where the key first reaches the target.
+__device__ __forceinline__ int first_slot_at(const int* __restrict__ coords,
+                                             const float* __restrict__ vmask,
+                                             int cap, int d1, int d2,
+                                             long long target) {
+  const int lane = threadIdx.x & 31;
+  int lo = 0, hi = cap;  // keys below lo are < target, keys from hi >= target
+  while (lo < hi) {
+    const int step = (hi - lo + 31) / 32;
+    const int s = lo + lane * step;
+    bool reached = false;
+    if (s < hi) {  // the mask and the coords loaded together: one wait a round
+      const float valid = vmask[s];
+      const int* xyz = coords + 3 * (long long)s;
+      const int x0 = xyz[0], x1 = xyz[1], x2 = xyz[2];
+      reached = !(valid > 0.f)  // past the valid prefix
+                || ((long long)x0 * d1 + x1) * d2 + x2 >= target;
+    }
+    const unsigned ball = __ballot_sync(0xffffffffu, reached);
+    if (ball == 0u) {
+      const int last = min(31, (hi - 1 - lo) / step);  // the last lane probed
+      lo += last * step + 1;
+    } else {
+      const int f = __ffs(ball) - 1;
+      if (f == 0) {
+        hi = lo;
+      } else {
+        hi = lo + f * step;
+        lo += (f - 1) * step + 1;
+      }
+    }
+  }
+  return lo;
+}
+
 __global__ void __launch_bounds__(kBwdThreads)
 compact_occupied_bwd(const float* __restrict__ dv, const int* __restrict__ coords,
                      const float* __restrict__ vmask, float* __restrict__ dgrid,
-                     int cap, int g, int c, int d1, int d2, long long total) {
-  const long long e = (long long)blockIdx.x * kBwdThreads + threadIdx.x;
-  if (e >= total) return;
-  const long long row = e / c;  // b * cap + s
-  if (!(vmask[row] > 0.f)) return;
-  const int ch = (int)(e - row * c);
-  const int b = (int)(row / cap);
-  const int* xyz = coords + row * 3;
-  const long long lin = ((long long)xyz[0] * d1 + xyz[1]) * d2 + xyz[2];
-  dgrid[((long long)b * g + lin) * c + ch] = dv[e];
+                     int cap, int g, int c, int d1, int d2, int tile, int vec) {
+  __shared__ int slot_range[2];
+  const int b = blockIdx.y;
+  const long long lo = (long long)blockIdx.x * tile;
+  const long long hi = min(lo + tile, (long long)g);
+  float* out = dgrid + ((long long)b * g + lo) * c;
+  const int* xyz_b = coords + (long long)b * cap * 3;
+  const int warp = threadIdx.x >> 5;
+  if (warp < 2) {  // the search's chain of loads first: the zeros need no wait
+    const int s = first_slot_at(xyz_b, vmask + (long long)b * cap, cap, d1, d2,
+                                warp == 0 ? lo : hi);
+    if ((threadIdx.x & 31) == 0) slot_range[warp] = s;
+  }
+  tile_fill::zero(out, (hi - lo) * c);
+  __syncthreads();  // also orders the zeros before the rows below
+  const int s0 = slot_range[0];
+  const long long rows = slot_range[1] - s0;
+  const float* src = dv + ((long long)b * cap + s0) * c;
+  const int* xyz = xyz_b + 3 * (long long)s0;
+  if (vec) {
+    const int c4 = c >> 2;
+    for (long long e = threadIdx.x; e < rows * c4; e += kBwdThreads) {
+      const long long r = e / c4;
+      const int k = (int)(e - r * c4);
+      const long long cell =
+          ((long long)xyz[3 * r] * d1 + xyz[3 * r + 1]) * d2 + xyz[3 * r + 2] - lo;
+      reinterpret_cast<float4*>(out + cell * c)[k] =
+          reinterpret_cast<const float4*>(src + r * c)[k];
+    }
+  } else {
+    for (long long e = threadIdx.x; e < rows * c; e += kBwdThreads) {
+      const long long r = e / c;
+      const int k = (int)(e - r * c);
+      const long long cell =
+          ((long long)xyz[3 * r] * d1 + xyz[3 * r + 1]) * d2 + xyz[3 * r + 2] - lo;
+      out[cell * c + k] = src[r * c + k];
+    }
+  }
 }
 
 }  // namespace
@@ -131,18 +213,21 @@ extern "C" int dclx_compact(const void* feats, const void* mask, void* coords,
 }
 
 // dv [B,cap,C] f32, coords [B,cap,3] i32 and vmask [B,cap] f32 from the
-// forward; dgrid [B,G,C] f32 zero-filled by the caller.
+// forward, under the precondition above; writes every float of dgrid
+// [B,G,C] f32 (no zero fill needed). tile: cells per block.
 extern "C" int dclx_compact_bwd(const void* dv, const void* coords,
                                 const void* vmask, void* dgrid, int b, int g,
-                                int c, int d1, int d2, int cap, void* stream) {
+                                int c, int d1, int d2, int cap, int tile,
+                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long total = (long long)b * cap * c;
-  if (total > 0) {
-    const long long blocks = (total + kBwdThreads - 1) / kBwdThreads;
-    compact_occupied_bwd<<<(unsigned)blocks, kBwdThreads, 0, s>>>(
+  if (b > 0 && g > 0 && c > 0) {
+    const int vec = c % 4 == 0 && reinterpret_cast<unsigned long long>(dv) % 16 == 0 &&
+                    reinterpret_cast<unsigned long long>(dgrid) % 16 == 0;
+    const dim3 blocks((unsigned)((g + tile - 1) / tile), (unsigned)b);
+    compact_occupied_bwd<<<blocks, kBwdThreads, 0, s>>>(
         static_cast<const float*>(dv), static_cast<const int*>(coords),
         static_cast<const float*>(vmask), static_cast<float*>(dgrid),
-        cap, g, c, d1, d2, total);
+        cap, g, c, d1, d2, tile, vec);
   }
   return (int)cudaGetLastError();
 }

@@ -1,86 +1,198 @@
 // K1: point -> voxel scatter (sum / mean) with exact per-voxel counts.
 //
 // Replaces the Pallas kernel dcl_net_tpu/ops/pallas_voxelize.py
-// (_make_kernel, launched by _run_fwd / pallas_voxelize), which rewrote the
-// scatter as factorised one-hot matmuls because the TPU has no fast scatter.
-// Hopper has fast global atomics, so the port is a plain scatter.
+// (_make_kernel, launched by _run_fwd / pallas_voxelize), in which each
+// grid step owned one [TILE, D2 * CP] block of the output and wrote it
+// whole, once, zeros included, through factorised one-hot matmuls. The
+// port keeps that ownership: one launch, every byte of the grid and of the
+// counts written by the block that owns it, no separate zero fill.
 //
 // Bound on an H100: bytes. The function writes a dense [B, G, C] grid plus
-// [B, G] counts (G = 64^3, about 270 MB at B = 32, C = 7) and reads a few
-// hundred KB of points. The zero fill of the outputs (done by the wrapper
-// with torch.zeros) is nearly all of the traffic. The design touches each
-// grid cell once more only where a mean is needed: the scatter pass writes
-// only occupied cells, and the mean pass reads the counts and rewrites only
-// cells that hold more than one point.
+// [B, G] counts (G = 64^3, C = 7: 268 MB at B = 32) and reads a few hundred
+// KB of points. About 2 % of the cells hold a point on the main path, so
+// nearly all of those bytes are zeros. The design stores them once, 16
+// bytes a thread, from enough blocks to fill the card, and writes an
+// occupied cell a second time with its mean only.
 //
-// Semantics:
-//  - one thread per (b, point); masked points (mask <= 0) add nothing;
-//  - points whose index falls outside the grid on any axis are dropped
-//    (the Pallas one-hot never matches them), never written out of bounds;
-//  - counts are exact integers in f32; the f32 feature sums depend on the
-//    order the atomics land in, so they match a serial scatter only to
-//    f32 rounding (a few ulp of the per-voxel sum).
+// Design: the grid of blocks is (tiles, B); block (t, b) owns the cells
+// [t * tile, t * tile + tile) of sample b.
+//  1. It stores zeros over its tile of the grid and of the counts.
+//  2. It reads the sample's N point indices (they stay in L2) and keeps the
+//     points that are unmasked (mask > 0), inside the grid on every axis and
+//     inside its tile, in ascending point order: a block-wide scan gives
+//     each kept point its place in a list in shared memory (an atomic append
+//     would lose the order), where its cell and its C features go.
+//  3. One warp walks the list in order, 32 entries at a time, and links
+//     each entry to the next entry of the same cell (__match_any_sync
+//     groups a chunk's entries by cell; a per-cell tail carries the chain
+//     across chunks). The first entry of a cell is its owner.
+//  4. After __syncthreads(), each owner follows its cell's chain in shared
+//     memory, one thread per (owner, channel), adding the points in point
+//     order from 0.f, and writes sum / max(count, 1) (mode 4) or the sum
+//     (mode 3), and the count, once. The chain visits only the cell's own
+//     points: a walk over the whole list from the owner on, or loads of the
+//     features from device memory inside the walk, made this step the
+//     slowest of the kernel.
+// That is the order and the rounding of the plain ops/voxelize.voxelize_dense
+// (a serial scatter in point order, then grid / clamp(count, 1)), so the
+// result is bit-equal to it and deterministic: IEEE division (no fast
+// math), and a sum without products, which nothing contracts into an FMA.
+//
+// Zeros go out with streaming stores (st.global.cs): nothing reads them
+// back, so they need not stay in L2.
+//
+// Shared memory, dynamic: 2 + C words per list entry (N at most) and one
+// per tile cell; ops/cuda_voxelize.py sizes it and raises for an N whose
+// list does not fit.
 
 #include <cuda_runtime.h>
 
+#include "tile_fill.cuh"
+
 namespace {
 
-__global__ void scatter_points(const float* __restrict__ feats,
-                               const int* __restrict__ vidx,
-                               const float* __restrict__ pmask,
-                               float* __restrict__ sum,
-                               float* __restrict__ count,
-                               long long n_points, int n, int c,
-                               int d0, int d1, int d2) {
-  long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= n_points) return;
-  if (pmask != nullptr && !(pmask[t] > 0.f)) return;
-  const int* v = vidx + t * 3;
-  const int i0 = v[0], i1 = v[1], i2 = v[2];
-  if (i0 < 0 || i0 >= d0 || i1 < 0 || i1 >= d1 || i2 < 0 || i2 >= d2) return;
-  const long long g = (long long)d0 * d1 * d2;
-  const long long cell = (t / n) * g + ((long long)i0 * d1 + i1) * d2 + i2;
-  atomicAdd(count + cell, 1.f);
-  const float* f = feats + t * c;
-  float* s = sum + cell * c;
-  for (int k = 0; k < c; ++k) atomicAdd(s + k, f[k]);
-}
+constexpr int kThreads = 1024;  // one point per thread per scan step
+constexpr int kWarps = kThreads / 32;
 
-// Mean mode: sum / max(count, 1). Cells with count <= 1 are already equal
-// to their mean, so only cells with more than one point are rewritten.
-__global__ void divide_by_count(float* __restrict__ sum,
-                                const float* __restrict__ count,
-                                long long cells, int c) {
-  long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= cells) return;
-  const float n = count[t];
-  if (n > 1.f) {
-    float* s = sum + t * c;
-    for (int k = 0; k < c; ++k) s[k] = s[k] / n;
+__global__ void __launch_bounds__(kThreads)
+voxelize_tiles(const float* __restrict__ feats, const int* __restrict__ vidx,
+               const float* __restrict__ pmask, float* __restrict__ grid,
+               float* __restrict__ count, int n, int c, int d0, int d1, int d2,
+               int tile, int mean) {
+  extern __shared__ int smem[];
+  int* tail = smem;                  // [tile] last list entry of a cell so far
+  int* list_cell = smem + tile;      // [n] cell of each kept point, in the tile; -1 past the owner
+  int* next = list_cell + n;         // [n] next entry of the same cell, -1 at the last
+  float* list_feat = reinterpret_cast<float*>(next + n);  // [n, c] features
+  __shared__ int warp_incl[kWarps];
+
+  const int b = blockIdx.y;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long g = (long long)d0 * d1 * d2;
+  const long long lo = (long long)blockIdx.x * tile;
+  const int cells = (int)min((long long)tile, g - lo);
+  float* grid_t = grid + ((long long)b * g + lo) * c;
+  float* count_t = count + (long long)b * g + lo;
+
+  // 1. zeros over the tile
+  tile_fill::zero(grid_t, (long long)cells * c);
+  tile_fill::zero(count_t, cells);
+
+  // 2. the tile's points, in ascending point order
+  const int* v = vidx + (long long)b * n * 3;
+  const float* m = pmask != nullptr ? pmask + (long long)b * n : nullptr;
+  const float* f = feats + (long long)b * n * c;
+  int len = 0;  // the same in every thread
+  for (int base = 0; base < n; base += kThreads) {
+    const int p = base + threadIdx.x;
+    int rel = -1;  // the point's cell in the tile, or -1 if it is not kept
+    if (p < n && (m == nullptr || m[p] > 0.f)) {
+      const int i0 = v[3 * p], i1 = v[3 * p + 1], i2 = v[3 * p + 2];
+      if (i0 >= 0 && i0 < d0 && i1 >= 0 && i1 < d1 && i2 >= 0 && i2 < d2) {
+        const long long lin = ((long long)i0 * d1 + i1) * d2 + i2 - lo;
+        if (lin >= 0 && lin < cells) rel = (int)lin;
+      }
+    }
+    const int mine = rel >= 0 ? 1 : 0;
+    int x = mine;  // inclusive scan within the warp
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, x, o);
+      if (lane >= o) x += y;
+    }
+    if (lane == 31) warp_incl[warp] = x;
+    __syncthreads();
+    if (warp == 0) {  // inclusive scan of the warp totals
+      int w = lane < kWarps ? warp_incl[lane] : 0;
+#pragma unroll
+      for (int o = 1; o < kWarps; o <<= 1) {
+        const int y = __shfl_up_sync(0xffffffffu, w, o);
+        if (lane >= o) w += y;
+      }
+      if (lane < kWarps) warp_incl[lane] = w;
+    }
+    __syncthreads();
+    if (mine) {
+      const int pos = len + (warp > 0 ? warp_incl[warp - 1] : 0) + x - 1;
+      list_cell[pos] = rel;
+      tail[rel] = -1;
+      const float* src = f + (long long)p * c;
+      for (int ch = 0; ch < c; ++ch) list_feat[pos * c + ch] = src[ch];
+    }
+    len += warp_incl[kWarps - 1];
+    __syncthreads();  // warp_incl is rewritten by the next step
+  }
+  if (len == 0) return;  // an empty tile: the zeros are the result
+
+  // 3. chains of the entries of each cell, in list (= point) order
+  if (warp == 0) {
+    for (int base = 0; base < len; base += 32) {
+      const int i = base + lane;
+      const bool on = i < len;
+      const int cell = on ? list_cell[i] : -1 - lane;  // lanes past the end group alone
+      const unsigned peers = __match_any_sync(0xffffffffu, cell);
+      const unsigned above = lane == 31 ? 0u : peers & (0xffffffffu << (lane + 1));
+      const unsigned below = peers & ((1u << lane) - 1u);
+      if (on) {
+        next[i] = above != 0u ? base + __ffs(above) - 1 : -1;
+        if (below == 0u) {  // the chunk's first entry of the cell
+          const int t = tail[cell];
+          if (t >= 0) {
+            next[t] = i;
+            list_cell[i] = -1;  // not the owner
+          }
+        } else {
+          list_cell[i] = -1;
+        }
+      }
+      __syncwarp();
+      if (on && above == 0u) tail[cell] = i;  // the chunk's last entry of the cell
+      __syncwarp();
+    }
+  }
+  __syncthreads();  // also orders the zeros of step 1 before the writes below
+
+  // 4. each owner's sums, one thread per (owner, channel), in point order
+  for (int e = threadIdx.x; e < len * c; e += kThreads) {
+    const int i = e / c;
+    const int cell = list_cell[i];
+    if (cell < 0) continue;
+    const int ch = e - i * c;
+    float s = 0.f;
+    int k_n = 0;
+    for (int j = i; j >= 0; j = next[j]) {
+      s += list_feat[j * c + ch];
+      ++k_n;
+    }
+    const float nf = (float)k_n;  // exact: k_n <= N < 2^24
+    grid_t[(long long)cell * c + ch] = mean ? s / nf : s;  // nf >= 1
+    if (ch == 0) count_t[cell] = nf;
   }
 }
 
 }  // namespace
 
-// feats [B,N,C] f32, vidx [B,N,3] i32, pmask [B,N] f32 or null,
-// sum [B,G,C] f32 and count [B,G] f32, both zero-filled by the caller.
+// feats [B,N,C] f32, vidx [B,N,3] i32, pmask [B,N] f32 or null; writes every
+// float of sum [B,G,C] f32 and count [B,G] f32 (no zero fill needed).
+// tile: cells per block; smem: the dynamic shared memory the wrapper sized,
+// (N (2 + C) + tile) words.
 extern "C" int dclx_voxelize(const void* feats, const void* vidx,
                              const void* pmask, void* sum, void* count,
                              int b, int n, int c, int d0, int d1, int d2,
-                             int mean, void* stream) {
+                             int mean, int tile, int smem, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int threads = 256;
-  const long long n_points = (long long)b * n;
-  if (n_points > 0) {
-    scatter_points<<<(unsigned)((n_points + threads - 1) / threads), threads, 0, s>>>(
-        static_cast<const float*>(feats), static_cast<const int*>(vidx),
-        static_cast<const float*>(pmask), static_cast<float*>(sum),
-        static_cast<float*>(count), n_points, n, c, d0, d1, d2);
+  const long long g = (long long)d0 * d1 * d2;
+  if (b <= 0 || g <= 0) return (int)cudaGetLastError();
+  if (smem > 47 * 1024) {  // with the static shared memory, above the default 48 KB
+    const cudaError_t e = cudaFuncSetAttribute(
+        voxelize_tiles, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
   }
-  const long long cells = (long long)b * d0 * d1 * d2;
-  if (mean && cells > 0) {
-    divide_by_count<<<(unsigned)((cells + threads - 1) / threads), threads, 0, s>>>(
-        static_cast<float*>(sum), static_cast<const float*>(count), cells, c);
-  }
+  const dim3 blocks((unsigned)((g + tile - 1) / tile), (unsigned)b);
+  voxelize_tiles<<<blocks, kThreads, smem, s>>>(
+      static_cast<const float*>(feats), static_cast<const int*>(vidx),
+      static_cast<const float*>(pmask), static_cast<float*>(sum),
+      static_cast<float*>(count), n, c, d0, d1, d2, tile, mean);
   return (int)cudaGetLastError();
 }

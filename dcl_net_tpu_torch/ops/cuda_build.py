@@ -24,7 +24,8 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
 SOURCES = ("voxelize.cu", "compact.cu", "interp.cu", "fused.cu")
-HEADERS = ("three_nn.cuh",)  # included by interp.cu and fused.cu
+HEADERS = ("three_nn.cuh",  # included by interp.cu and fused.cu
+           "tile_fill.cuh")  # included by voxelize.cu and compact.cu
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3"]
 
 _P = ctypes.c_void_p
@@ -33,11 +34,11 @@ _F = ctypes.c_float
 # C entry points: every pointer and the stream as c_void_p, sizes as c_int,
 # f32 constants as c_float.
 SIGNATURES = {
-    "dclx_voxelize": [_P] * 5 + [_I] * 7 + [_P],
+    "dclx_voxelize": [_P] * 5 + [_I] * 9 + [_P],
     "dclx_compact": [_P] * 6 + [_I] * 6 + [_P],
     "dclx_interp": [_P] * 7 + [_I] * 4 + [_P],
     "dclx_interp_bwd": [_P] * 4 + [_I] * 4 + [_P],
-    "dclx_compact_bwd": [_P] * 4 + [_I] * 6 + [_P],
+    "dclx_compact_bwd": [_P] * 4 + [_I] * 7 + [_P],
     "dclx_compact_interp": [_P] * 8 + [_I] * 4 + [_F] * 6 + [_P],
 }
 
@@ -117,18 +118,36 @@ def library() -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def entry_point(name: str):
+    """The C entry point `name` of the loaded library, resolved once."""
+    return getattr(library(), name)
+
+
 def launch(entry: str, kernel: str, device, *args) -> None:
     """Call the C entry point on `device`'s current stream, with that device
-    current, and raise if it reports a CUDA error (cudaGetLastError)."""
+    current, and raise if it reports a CUDA error (cudaGetLastError). The
+    device is made current only where it is not already."""
     import torch
 
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(library(), entry)(*args, stream)
+    fn = entry_point(entry)
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    # the raw handle of the current stream, as torch's own generated kernel
+    # launchers read it (torch.cuda.current_stream builds a Stream object)
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if index == current:
+        err = fn(*args, stream)
+    else:
+        with torch.cuda.device(index):
+            err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{kernel}: CUDA launch failed with error {err}")
 
 
-def require(cond: bool, kernel: str, what: str) -> None:
+def require(cond: bool, kernel: str, what) -> None:
+    """Raise ValueError("<kernel>: <what>") unless cond. `what` is a string
+    or, so that a message is only formatted when it is raised, a function
+    returning one: a wrapper checks its inputs on every call."""
     if not cond:
-        raise ValueError(f"{kernel}: {what}")
+        raise ValueError(f"{kernel}: {what() if callable(what) else what}")

@@ -24,6 +24,14 @@ from dcl_net_tpu_torch.ops import sparse_conv
 launches = 0
 bwd_launches = 0
 
+BWD_TILE_BYTES = 16 * 1024  # K5: output bytes per block
+
+
+def bwd_tile(c: int) -> int:
+    """K5's cells per block: about BWD_TILE_BYTES of a [B, G, C] f32 grid
+    (128 cells at C = 32, 16 at C = 256)."""
+    return max(1, BWD_TILE_BYTES // (4 * c))
+
 
 def dense_to_sparse_reference(
     feats: torch.Tensor, mask: torch.Tensor, capacity: int
@@ -47,18 +55,18 @@ def dense_to_sparse_cuda(
         return dense_to_sparse_reference(feats, mask, capacity)
     name = "dense_to_sparse_cuda"
     req = cuda_build.require
-    req(feats.is_cuda, name, f"unsupported device {feats.device}")
+    req(feats.is_cuda, name, lambda: f"unsupported device {feats.device}")
     req(feats.dtype == torch.float32 and feats.dim() == 5, name,
-        f"feats must be f32 [B, D0, D1, D2, C], got {feats.dtype} "
+        lambda: f"feats must be f32 [B, D0, D1, D2, C], got {feats.dtype} "
         f"{tuple(feats.shape)}")
     b, d0, d1, d2, c = feats.shape
     g = d0 * d1 * d2
     req(mask.dtype == torch.float32 and tuple(mask.shape) == (b, d0, d1, d2),
-        name, f"mask must be f32 [{b}, {d0}, {d1}, {d2}]")
+        name, lambda: f"mask must be f32 [{b}, {d0}, {d1}, {d2}]")
     req(mask.device == feats.device, name, "inputs on different devices")
     req(feats.is_contiguous() and mask.is_contiguous(), name,
         "inputs must be contiguous")
-    req(0 < capacity <= g, name, f"capacity {capacity} outside [1, {g}]")
+    req(0 < capacity <= g, name, lambda: f"capacity {capacity} outside [1, {g}]")
     dev = feats.device
     coords = torch.zeros((b, capacity, 3), dtype=torch.int32, device=dev)
     vfeats = torch.zeros((b, capacity, c), dtype=torch.float32, device=dev)
@@ -91,31 +99,40 @@ def dense_to_sparse_bwd_reference(dv: torch.Tensor, coords: torch.Tensor,
 def dense_to_sparse_bwd_cuda(dv: torch.Tensor, coords: torch.Tensor,
                              vmask: torch.Tensor, grid_shape) -> torch.Tensor:
     """K5: the grid gradient [B, D0, D1, D2, C] f32 of the compaction, from
-    the cotangent dv [B, cap, C] of vfeats and the forward's coords, vmask."""
+    the cotangent dv [B, cap, C] of vfeats and the forward's coords, vmask.
+
+    Precondition, which K2 (dense_to_sparse_cuda) and the plain
+    sparse_conv.dense_to_sparse guarantee: the valid slots (vmask > 0) of a
+    sample are a prefix and their linear indices rise strictly. One kernel
+    launch writes the whole grid (allocated empty): each block owns
+    `bwd_tile(C)` cells of one sample, stores their zeros, finds its slots
+    by a search of that prefix and copies their rows in. Bound: the bytes
+    of the grid, nearly all zeros. Bit-equal to the plain version."""
     global bwd_launches
     if dv.device.type == "cpu":
         return dense_to_sparse_bwd_reference(dv, coords, vmask, grid_shape)
     name = "dense_to_sparse_bwd_cuda"
     req = cuda_build.require
-    req(dv.is_cuda, name, f"unsupported device {dv.device}")
+    req(dv.is_cuda, name, lambda: f"unsupported device {dv.device}")
     req(dv.dtype == torch.float32 and dv.dim() == 3, name,
-        f"dv must be f32 [B, cap, C], got {dv.dtype} {tuple(dv.shape)}")
+        lambda: f"dv must be f32 [B, cap, C], got {dv.dtype} {tuple(dv.shape)}")
     b, cap, c = dv.shape
     req(coords.dtype == torch.int32 and tuple(coords.shape) == (b, cap, 3),
-        name, f"coords must be int32 [{b}, {cap}, 3]")
+        name, lambda: f"coords must be int32 [{b}, {cap}, 3]")
     req(vmask.dtype == torch.float32 and tuple(vmask.shape) == (b, cap),
-        name, f"vmask must be f32 [{b}, {cap}]")
+        name, lambda: f"vmask must be f32 [{b}, {cap}]")
     for t in (dv, coords, vmask):
         req(t.device == dv.device, name, "inputs on different devices")
         req(t.is_contiguous(), name, "inputs must be contiguous")
     d0, d1, d2 = (int(d) for d in grid_shape)
     g = d0 * d1 * d2
-    req(0 < cap <= g, name, f"capacity {cap} outside [1, {g}]")
-    dgrid = torch.zeros((b, d0, d1, d2, c), dtype=torch.float32, device=dv.device)
+    req(0 < cap <= g, name, lambda: f"capacity {cap} outside [1, {g}]")
+    req(b <= 65535, name, lambda: f"batch {b} above 65535 (the kernel's grid y)")
+    dgrid = torch.empty((b, d0, d1, d2, c), dtype=torch.float32, device=dv.device)
     cuda_build.launch(
         "dclx_compact_bwd", name, dv.device,
         dv.data_ptr(), coords.data_ptr(), vmask.data_ptr(), dgrid.data_ptr(),
-        b, g, c, d1, d2, cap)
+        b, g, c, d1, d2, cap, bwd_tile(c))
     bwd_launches += 1
     return dgrid
 

@@ -64,21 +64,22 @@ def compact_interpolate_cuda(
                                              occupancy, unit_s, off_c)
     name = "compact_interpolate_cuda"
     req = cuda_build.require
-    req(points.is_cuda, name, f"unsupported device {points.device}")
+    req(points.is_cuda, name, lambda: f"unsupported device {points.device}")
     req(points.dim() == 3 and points.shape[-1] == 3, name,
-        f"points must be [B, N, 3], got {tuple(points.shape)}")
+        lambda: f"points must be [B, N, 3], got {tuple(points.shape)}")
     b, n, _ = points.shape
     req(vfeats.dim() == 3 and vfeats.shape[0] == b, name,
-        f"vfeats must be [{b}, cap, C], got {tuple(vfeats.shape)}")
+        lambda: f"vfeats must be [{b}, cap, C], got {tuple(vfeats.shape)}")
     cap, c = vfeats.shape[1], vfeats.shape[2]
     req(cap > 0, name, "no slots")
     req(coords.dtype == torch.int32 and tuple(coords.shape) == (b, cap, 3), name,
-        f"coords must be int32 [{b}, {cap}, 3]")
+        lambda: f"coords must be int32 [{b}, {cap}, 3]")
     req(occupancy.dtype == torch.int32 and tuple(occupancy.shape) == (b,), name,
-        f"occupancy must be int32 [{b}]")
-    req(tuple(vmask.shape) == (b, cap), name, f"vmask must be [{b}, {cap}]")
+        lambda: f"occupancy must be int32 [{b}]")
+    req(tuple(vmask.shape) == (b, cap), name, lambda: f"vmask must be [{b}, {cap}]")
     for t in (points, vfeats, vmask):
-        req(t.dtype == torch.float32, name, f"points, vfeats, vmask must be f32, got {t.dtype}")
+        req(t.dtype == torch.float32, name,
+            lambda: f"points, vfeats, vmask must be f32, got {t.dtype}")
     for t in (points, coords, vfeats, vmask, occupancy):
         req(t.device == points.device, name, "inputs on different devices")
         req(t.is_contiguous(), name, "inputs must be contiguous")

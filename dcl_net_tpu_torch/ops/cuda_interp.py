@@ -60,18 +60,18 @@ def nn_interpolate_cuda(
         return nn_interpolate_reference(points, centers, feats, mask)
     name = "nn_interpolate_cuda"
     req = cuda_build.require
-    req(points.is_cuda, name, f"unsupported device {points.device}")
+    req(points.is_cuda, name, lambda: f"unsupported device {points.device}")
     req(points.dim() == 3 and points.shape[-1] == 3, name,
-        f"points must be [B, N, 3], got {tuple(points.shape)}")
+        lambda: f"points must be [B, N, 3], got {tuple(points.shape)}")
     b, n, _ = points.shape
     req(feats.dim() == 3 and feats.shape[0] == b, name,
-        f"feats must be [{b}, V, C], got {tuple(feats.shape)}")
+        lambda: f"feats must be [{b}, V, C], got {tuple(feats.shape)}")
     v, c = feats.shape[1], feats.shape[2]
     req(v > 0, name, "no centers")
-    req(tuple(centers.shape) == (b, v, 3), name, f"centers must be [{b}, {v}, 3]")
-    req(tuple(mask.shape) == (b, v), name, f"mask must be [{b}, {v}]")
+    req(tuple(centers.shape) == (b, v, 3), name, lambda: f"centers must be [{b}, {v}, 3]")
+    req(tuple(mask.shape) == (b, v), name, lambda: f"mask must be [{b}, {v}]")
     for t in (points, centers, feats, mask):
-        req(t.dtype == torch.float32, name, f"inputs must be f32, got {t.dtype}")
+        req(t.dtype == torch.float32, name, lambda: f"inputs must be f32, got {t.dtype}")
         req(t.device == points.device, name, "inputs on different devices")
         req(t.is_contiguous(), name, "inputs must be contiguous")
     dev = points.device
@@ -109,14 +109,14 @@ def nn_interpolate_bwd_cuda(g: torch.Tensor, w: torch.Tensor,
         return nn_interpolate_bwd_reference(g, w, idx, v)
     name = "nn_interpolate_bwd_cuda"
     req = cuda_build.require
-    req(g.is_cuda, name, f"unsupported device {g.device}")
+    req(g.is_cuda, name, lambda: f"unsupported device {g.device}")
     req(g.dtype == torch.float32 and g.dim() == 3, name,
-        f"g must be f32 [B, N, C], got {g.dtype} {tuple(g.shape)}")
+        lambda: f"g must be f32 [B, N, C], got {g.dtype} {tuple(g.shape)}")
     b, n, c = g.shape
     req(w.dtype == torch.float32 and tuple(w.shape) == (b, 3, n), name,
-        f"w must be f32 [{b}, 3, {n}]")
+        lambda: f"w must be f32 [{b}, 3, {n}]")
     req(idx.dtype == torch.int32 and tuple(idx.shape) == (b, 3, n), name,
-        f"idx must be int32 [{b}, 3, {n}]")
+        lambda: f"idx must be int32 [{b}, 3, {n}]")
     req(v > 0, name, "no centers")
     for t in (g, w, idx):
         req(t.device == g.device, name, "inputs on different devices")

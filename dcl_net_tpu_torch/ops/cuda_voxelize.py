@@ -4,6 +4,12 @@ Replaces the Pallas kernel of dcl_net_tpu/ops/pallas_voxelize.py. A CUDA
 tensor goes through the kernel; a CPU tensor goes through the plain version
 (ops/voxelize.voxelize_dense). There is no fallback: a CUDA tensor that
 cannot reach the kernel raises.
+
+The kernel is one launch in which each block owns TILE contiguous cells of
+one sample and writes them whole, zeros included; it sums each cell's
+points in point order and divides as the plain version does, so the two
+are bit-equal. Each block keeps the list of its tile's points in shared
+memory, which bounds N (`list_smem_bytes`).
 """
 
 from __future__ import annotations
@@ -21,6 +27,25 @@ launches = 0
 # The plain version: same function, plain PyTorch.
 voxelize_reference = voxelize_dense
 
+TILE = 2048  # grid cells per block: 56 KB of grid and 8 KB of counts at C = 7
+# Shared memory a block may take on an H100 (232,448 bytes), less 1 KB for
+# the kernel's static shared memory.
+SMEM_LIMIT = 232448 - 1024
+
+
+def list_smem_bytes(n: int, c: int) -> int:
+    """Dynamic shared memory of one block for N points of C features per
+    sample: the in-tile list (a cell, a link and C features for each of at
+    most N points) and each of the TILE cells' chain tail, 4 bytes a word.
+    Raises where it exceeds SMEM_LIMIT."""
+    nbytes = 4 * (n * (2 + c) + TILE)
+    cuda_build.require(
+        nbytes <= SMEM_LIMIT, "voxelize_cuda",
+        lambda: f"N = {n} points of C = {c} features need {nbytes} bytes of shared "
+        f"memory for the in-tile list, above the {SMEM_LIMIT} a block may use "
+        f"(at most {(SMEM_LIMIT - 4 * TILE) // (4 * (2 + c))} points)")
+    return nbytes
+
 
 def voxelize_cuda(
     feats: torch.Tensor,
@@ -33,38 +58,43 @@ def voxelize_cuda(
     a [B, D0, D1, D2, C] grid, with exact f32 counts [B, D0, D1, D2].
 
     feats f32 and voxel_idx int32 [B, N, 3], both contiguous; point_mask
-    optional f32 [B, N]. Points outside the grid are dropped."""
+    optional f32 [B, N]. Points outside the grid are dropped. Each cell sums
+    its points in point order, then divides by max(count, 1): bit-equal to
+    the plain version. One kernel launch writes both outputs whole (they
+    are allocated empty); N is bounded by `list_smem_bytes`."""
     global launches
     if feats.device.type == "cpu":
         return voxelize_reference(feats, voxel_idx, grid_size, mode, point_mask)
     name = "voxelize_cuda"
     req = cuda_build.require
-    req(feats.is_cuda, name, f"unsupported device {feats.device}")
-    req(mode in (MODE_SUM, MODE_MEAN), name, f"mode {mode} (3 or 4 only)")
+    req(feats.is_cuda, name, lambda: f"unsupported device {feats.device}")
+    req(mode in (MODE_SUM, MODE_MEAN), name, lambda: f"mode {mode} (3 or 4 only)")
     req(feats.dtype == torch.float32 and feats.dim() == 3, name,
-        f"feats must be f32 [B, N, C], got {feats.dtype} {tuple(feats.shape)}")
+        lambda: f"feats must be f32 [B, N, C], got {feats.dtype} {tuple(feats.shape)}")
     b, n, c = feats.shape
     req(voxel_idx.dtype == torch.int32 and tuple(voxel_idx.shape) == (b, n, 3),
-        name, f"voxel_idx must be int32 [{b}, {n}, 3]")
+        name, lambda: f"voxel_idx must be int32 [{b}, {n}, 3]")
     tensors = [feats, voxel_idx]
     if point_mask is not None:
         req(point_mask.dtype == torch.float32
             and tuple(point_mask.shape) == (b, n), name,
-            f"point_mask must be f32 [{b}, {n}]")
+            lambda: f"point_mask must be f32 [{b}, {n}]")
         tensors.append(point_mask)
     for t in tensors:
         req(t.device == feats.device, name, "inputs on different devices")
         req(t.is_contiguous(), name, "inputs must be contiguous")
+    req(b <= 65535, name, lambda: f"batch {b} above 65535 (the kernel's grid y)")
+    smem = list_smem_bytes(n, c)
     d0, d1, d2 = (int(d) for d in grid_size)
-    grid = torch.zeros((b, d0, d1, d2, c), dtype=torch.float32,
+    grid = torch.empty((b, d0, d1, d2, c), dtype=torch.float32,
                        device=feats.device)
-    count = torch.zeros((b, d0, d1, d2), dtype=torch.float32,
+    count = torch.empty((b, d0, d1, d2), dtype=torch.float32,
                         device=feats.device)
     cuda_build.launch(
         "dclx_voxelize", name, feats.device,
         feats.data_ptr(), voxel_idx.data_ptr(),
         None if point_mask is None else point_mask.data_ptr(),
         grid.data_ptr(), count.data_ptr(), b, n, c, d0, d1, d2,
-        int(mode == MODE_MEAN))
+        int(mode == MODE_MEAN), TILE, smem)
     launches += 1
     return grid, count

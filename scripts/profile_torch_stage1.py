@@ -26,7 +26,7 @@ ROOT = Path(__file__).resolve().parent.parent
 BATCH = 32
 N_BATCHES = 4
 GROUPS = (  # kernel-name substrings -> group, first match wins
-    ("K1 voxelize", ("scatter_points", "divide_by_count")),
+    ("K1 voxelize", ("voxelize_tiles",)),
     ("K2 compact", ("compact_occupied",)),
     ("K3 interp", ("interp_three_nn",)),
     ("conv3d (cuDNN)", ("fprop", "conv", "cudnn", "winograd")),

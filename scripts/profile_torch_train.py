@@ -30,7 +30,7 @@ WARMUP = 2
 STAGE_STEPS = 5
 EPOCH_STEPS = 4
 GROUPS = (  # kernel-name substrings -> group, first match wins
-    ("K1 voxelize", ("scatter_points", "divide_by_count")),
+    ("K1 voxelize", ("voxelize_tiles",)),
     ("K5 compact bwd", ("compact_occupied_bwd",)),  # before K2's prefix
     ("K4 interp bwd", ("interp_three_nn_bwd",)),
     ("K2 compact", ("compact_occupied",)),
