@@ -17,7 +17,13 @@ Phases, any failure exits non-zero:
     edges, the last cell, masked and out-of-range points); K5 bit-equal at
     every level, below the occupancy and with an empty sample, after a
     check of its precondition on K2's output; K6 also bit-equal to K2 ->
-    voxel_centers -> K3. Times the kernel as called and on the device
+    voxel_centers -> K3; K4 and K7 at every level bit-equal to their plain
+    versions run on CPU copies of the inputs and from launch to launch, on
+    the main-path inputs and on an adversarial set (one slot taking all
+    3 * 1024 contributions of a sample), within a tolerance of the plain
+    versions run on the card (whose index_add_ adds in a run-dependent
+    order), their inverse index bit-equal to its plain version. Times the
+    kernel as called and on the device
     alone (CUDA-graph replay), the plain version, and a PyTorch library
     call computing the same function where one exists, as called and on
     the device (K1: index_add_ then the divide; also index_add_ alone,
@@ -39,8 +45,9 @@ Phases, any failure exits non-zero:
     kernels and through their plain versions;
  7. training on the fused path through Solver (a warm-up and
     FUSED_TRAIN_STEPS timed steps, launches K1 2, K2 8, K6 8, K7 8 per
-    step, K4 and K5 inside K7, no K3), and one step against the two-stage
-    path and the plain versions;
+    step, no K3, K4 or K5), and one step against the two-stage path and the
+    plain versions; both training comparisons print how far a step's
+    gradient through the kernels moves between two passes;
  8. stage 2 at full width on the fused stage 1: Stage2Evaluator with
     ITERATIONS refinement steps over the eval batches (against the plain
     versions on one batch), then the refiner's training through
@@ -82,13 +89,16 @@ PEAK_F32 = 67e12
 VOX_ATOL = 1e-5
 INTERP_ATOL = 1e-5  # K3: the weighted sum and weights round like the plain version's to a few ulp
 POSE_ATOL = 1e-4   # whole path: K3's and K6's few-ulp differences feed the pose heads
-# K4: f32 atomics add each center's w * g terms in a run-dependent order; a
+# K4 and K7 sum each slot's w * g terms in ascending e = k * N + t from 0,
+# as index_add_ does on the CPU: bit-equal to the plain versions run on CPU
+# copies. On the card index_add_ adds in a run-dependent order, so the plain
+# versions and the library calls run there are held within a tolerance: a
 # sum of n terms in any order is within (n - 1) * 2^-24 of sum |terms|, and
 # at most a few hundred terms land on one row of the main path: 1e-5 of
 # sum |w * g| per element. K5 writes each value once: bit-equal.
 INTERP_BWD_RTOL = 1e-5
 # One train step, kernel path vs plain path: f32 sums in run-dependent order
-# (K4's atomics, the plain versions' index_add_) move the losses by
+# (cuDNN's, the plain versions' index_add_ on the card) move the losses by
 # a few ulp and the gradient, whose f32 conditioning is poor (the neck's BN
 # backward cancels nearly all of a near-uniform confidence average; see
 # tests/test_torch_train_model.py), by more: losses within 1e-5 relative;
@@ -217,6 +227,59 @@ def check_slot_prefix(coords, vmask, occupancy, cap: int, dims, what: str) -> No
           f"{what}: the linear indices of the valid slots do not rise strictly")
 
 
+def bit_equal_on_cpu(kernel, plain, args, what: str):
+    """kernel(*args) on the card twice: the two results equal bit for bit,
+    and equal bit for bit (signs of zero included) to plain(*args) run on
+    CPU copies of the inputs. Returns the first result."""
+    import torch
+
+    got = kernel(*args)
+    again = kernel(*args)
+    check(torch.equal(got.view(torch.int32), again.view(torch.int32)),
+          f"{what}: two launches on the same inputs differ")
+    want = plain(*(a.cpu() if torch.is_tensor(a) else a for a in args))
+    check(torch.equal(got.cpu().view(torch.int32), want.view(torch.int32)),
+          f"{what}: not bit-equal to the plain version on the CPU "
+          f"(max abs {max_err(got.cpu(), want):.3g})")
+    return got
+
+
+def share_of_mass(got, ref, mass) -> float:
+    """The largest |got - ref| per element, over sum |w g| of that element."""
+    return float(((got - ref).abs() / mass.clamp(min=1e-30)).max())
+
+
+def check_inverse_index(idx, v: int, what: str) -> None:
+    """K4's and K7's inverse index on the card against its plain version on
+    the CPU (a stable sort): bit-equal."""
+    import torch
+
+    from dcl_net_tpu_torch.ops import cuda_interp
+
+    start, ent = cuda_interp.inverse_index_cuda(idx, v)
+    want_start, want_ent = cuda_interp.inverse_index_reference(idx.cpu(), v)
+    check(torch.equal(start.cpu(), want_start) and torch.equal(ent.cpu(), want_ent),
+          f"{what}: the inverse index is not bit-equal to its plain version")
+
+
+def adversarial_bwd_inputs(g, idx, vmask, seed: int):
+    """K4's and K7's hard inputs at a level's shapes, from its cotangent g
+    [B, N, C], indices idx [B, 3, N] and slot mask vmask [B, cap]: sample
+    0's 3N contributions all on slot 0 (as when all its points sit in one
+    voxel and fewer than 3 centers are valid), sample 1's all on its last
+    valid slot, the rest as given, and g of mixed magnitude (1e-3 to 1e3 by
+    point) so that a sum in another order shows. Returns (g, idx)."""
+    import torch
+
+    gen = torch.Generator(device=g.device).manual_seed(seed)
+    idx = idx.clone()
+    idx[0] = 0
+    idx[1] = max(int((vmask[1] > 0).sum()) - 1, 0)
+    scale = 10.0 ** torch.randint(-3, 4, (g.shape[0], g.shape[1], 1), device=g.device,
+                                  generator=gen)
+    return g * scale, idx
+
+
 @contextmanager
 def plain_versions():
     """Route the model's seven kernel calls (K1-K3 and K6 forward, K4, K5
@@ -282,8 +345,7 @@ def read_counts() -> dict:
 
 TWO_STAGE_TRAIN = {"voxelize": 2, "compact": 8, "interp": 8, "interp_bwd": 8,
                    "compact_bwd": 8}
-FUSED_TRAIN = {"voxelize": 2, "compact": 8, "fused": 8, "fused_bwd": 8,
-               "interp_bwd": 8, "compact_bwd": 8}  # K4 and K5 inside K7
+FUSED_TRAIN = {"voxelize": 2, "compact": 8, "fused": 8, "fused_bwd": 8}
 
 
 def train_phase(cfg, card, interp_mode="pallas", steps=TRAIN_STEPS,
@@ -387,6 +449,11 @@ def train_step_vs_plain(solver, batch, per_pass, two_stage=None) -> None:
     with plain_versions():
         lp, gp = one_pass(model)
     expect_counts(read_counts(), per_pass, 2, "the plain pass launched a kernel:")
+
+    rep = float((gk - gk2).norm()) / float(gk.norm())
+    print(f"train step ({mode}) through the kernels, two passes from one state: gradient "
+          f"rel L2 {rep:.3g} (bit-equal {torch.equal(gk, gk2)}), losses equal "
+          f"{lk == lk2}", flush=True)
 
     def compare(what, lo, go):
         denom = float(go.norm())
@@ -622,6 +689,8 @@ def main() -> int:
                                    lib_dev=lib, bytes=0.0, flops=0.0)
                               for lib in (None, None, 0.0, 0.0, None, 0.0))
     k6.update(two=0.0, dev_two=0.0)  # the centers pass + K3 that K6 replaces
+    k4.update(index_dev=0.0)  # the inverse index alone, K4's and K7's first kernel
+    k7.update(index_dev=0.0)
     gen = torch.Generator(device=dev).manual_seed(0)
     for level, (lf, lm) in enumerate(pyramid):
         lf, lm = lf.contiguous(), lm.contiguous()
@@ -740,34 +809,47 @@ def main() -> int:
               f"(device {d_k:.4f}) plain {t_p:.4f} ms (centers pass + K3 {t_two:.4f} ms, "
               f"device {d_two:.4f})", flush=True)
 
-        # K4 at this level's shapes: a cotangent of the interpolated features
+        # K4 at this level's shapes: a cotangent of the interpolated features.
+        # Bit-equal to the plain version on CPU copies and from launch to
+        # launch, on these inputs and on the adversarial set, with its
+        # inverse index; within sum |w g| of the plain version and of
+        # index_add_ on the card
         g = torch.randn((b_, n_, c_), device=dev, generator=gen)
+        adv4 = adversarial_bwd_inputs(g, idx, vmask, seed=level)
+        for gi, ii, what in ((g, idx, ""), (*adv4, ", adversarial")):
+            check_inverse_index(ii, v_, f"K4 level {level}{what}")
+            bit_equal_on_cpu(cuda_interp.nn_interpolate_bwd_cuda,
+                             cuda_interp.nn_interpolate_bwd_reference, (gi, w, ii, v_),
+                             f"K4 level {level}{what}")
         got4 = cuda_interp.nn_interpolate_bwd_cuda(g, w, idx, v_)
         ref4 = cuda_interp.nn_interpolate_bwd_reference(g, w, idx, v_)
         mass = cuda_interp.nn_interpolate_bwd_reference(g.abs(), w.abs(), idx, v_)
-        err = max_err(got4, ref4)
-        rel = float(((got4 - ref4).abs() / mass.clamp(min=1e-30)).max())
-        check(rel <= INTERP_BWD_RTOL,
-              f"K4 level {level}: differs by {rel:.3g} of sum |w g| (max abs {err:.3g})")
-        k4["err"] = max(k4["err"], err)
         rows = (idx.long() + v_ * torch.arange(b_, device=dev)[:, None, None]).reshape(-1)
         terms = (w[..., None] * g[:, None]).reshape(-1, c_)
-        t_k = cuda_ms(lambda: cuda_interp.nn_interpolate_bwd_cuda(g, w, idx, v_))
-        t_p = cuda_ms(lambda: cuda_interp.nn_interpolate_bwd_reference(g, w, idx, v_))
 
         def lib4():
             return torch.zeros(b_ * v_, c_, device=dev).index_add_(0, rows, terms)
 
+        err = max_err(got4, ref4)
+        rel, rel_l = (share_of_mass(a, ref4, mass) for a in (got4, lib4().reshape(ref4.shape)))
+        check(rel <= INTERP_BWD_RTOL, f"K4 level {level}: differs from the plain version on "
+              f"the card by {rel:.3g} of sum |w g| (max abs {err:.3g})")
+        check(rel_l <= INTERP_BWD_RTOL, f"K4 level {level}: the index_add_ call computes "
+              f"another function ({rel_l:.3g} of sum |w g|)")
+        t_k = cuda_ms(lambda: cuda_interp.nn_interpolate_bwd_cuda(g, w, idx, v_))
+        t_p = cuda_ms(lambda: cuda_interp.nn_interpolate_bwd_reference(g, w, idx, v_))
         t_l = cuda_ms(lib4)
         k4["dev"] += graph_ms(lambda: cuda_interp.nn_interpolate_bwd_cuda(g, w, idx, v_))
+        k4["index_dev"] += graph_ms(lambda: cuda_interp.inverse_index_cuda(idx, v_))
         k4["lib_dev"] += graph_ms(lib4)
         k4["ms"] += t_k
         k4["plain"] += t_p
         k4["lib"] += t_l
         k4["bytes"] += (b_ * n_ * c_ + 2 * b_ * 3 * n_ + b_ * v_ * c_) * 4
         k4["flops"] += 6 * b_ * n_ * c_
-        print(f"K4 interp_bwd level {level} N {n_} V {v_} C {c_}: err {err:.3g} "
-              f"(rel {rel:.3g}) kernel {t_k:.4f} ms plain {t_p:.4f} ms "
+        print(f"K4 interp_bwd level {level} N {n_} V {v_} C {c_}: bit-equal to the plain "
+              f"version on the CPU (and on the adversarial set), within {rel:.3g} of sum "
+              f"|w g| of it on the card; kernel {t_k:.4f} ms plain {t_p:.4f} ms "
               f"index_add_ {t_l:.4f} ms", flush=True)
 
         # K5 at this level's shapes: a cotangent of the compacted features
@@ -799,19 +881,19 @@ def main() -> int:
         print(f"K5 compact_bwd level {level} [{b_},{cap},{c_}] -> {d0}^3: bit-equal, "
               f"kernel {t_k:.4f} ms plain {t_p:.4f} ms index_copy_ {t_l:.4f} ms", flush=True)
 
-        # K7 at this level's shapes: K4 into the cap rows, then K5 onto the
-        # grid, from K6's w and idx; held as K4 is, to Σ|w g| per element
+        # K7 at this level's shapes, from K6's w and idx: held as K4 is
         g7 = torch.randn((b_, n_, c_), device=dev, generator=gen)
         grid3 = (d0, d1, d2)
+        adv7 = adversarial_bwd_inputs(g7, idx6, vmask, seed=10 + level)
+        for gi, ii, what in ((g7, idx6, ""), (*adv7, ", adversarial")):
+            check_inverse_index(ii, cap, f"K7 level {level}{what}")
+            bit_equal_on_cpu(cuda_fused.compact_interpolate_bwd_cuda,
+                             cuda_fused.compact_interpolate_bwd_reference,
+                             (gi, w6, ii, coords, vmask, grid3), f"K7 level {level}{what}")
         got7 = cuda_fused.compact_interpolate_bwd_cuda(g7, w6, idx6, coords, vmask, grid3)
         ref7 = cuda_fused.compact_interpolate_bwd_reference(g7, w6, idx6, coords, vmask, grid3)
         mass7 = cuda_fused.compact_interpolate_bwd_reference(g7.abs(), w6.abs(), idx6,
                                                              coords, vmask, grid3)
-        err = max_err(got7, ref7)
-        rel = float(((got7 - ref7).abs() / mass7.clamp(min=1e-30)).max())
-        check(rel <= INTERP_BWD_RTOL,
-              f"K7 level {level}: differs by {rel:.3g} of sum |w g| (max abs {err:.3g})")
-        k7["err"] = max(k7["err"], err)
         # the library call: w g of each neighbour of a valid slot, added
         # into the grid cell of that slot by one index_add_
         nb = idx6.long().reshape(b_, 3 * n_)
@@ -820,30 +902,33 @@ def main() -> int:
                  + g_ * torch.arange(b_, device=dev)[:, None]).reshape(-1)
         terms7 = ((w6 * torch.gather(vmask, 1, nb).reshape(b_, 3, n_))[..., None]
                   * g7[:, None]).reshape(-1, c_)
-        lib7 = torch.zeros(b_ * g_, c_, device=dev).index_add_(0, rows7, terms7)
-        rel_l = float(((lib7.reshape(ref7.shape) - ref7).abs()
-                       / mass7.clamp(min=1e-30)).max())
-        check(rel_l <= INTERP_BWD_RTOL, f"K7 level {level}: the index_add_ call "
-              f"computes another function ({rel_l:.3g} of sum |w g|)")
-        t_k = cuda_ms(lambda: cuda_fused.compact_interpolate_bwd_cuda(
-            g7, w6, idx6, coords, vmask, grid3))
-        t_p = cuda_ms(lambda: cuda_fused.compact_interpolate_bwd_reference(
-            g7, w6, idx6, coords, vmask, grid3))
 
         def lib7():
             return torch.zeros(b_ * g_, c_, device=dev).index_add_(0, rows7, terms7)
 
+        err = max_err(got7, ref7)
+        rel, rel_l = (share_of_mass(a, ref7, mass7) for a in (got7, lib7().reshape(ref7.shape)))
+        check(rel <= INTERP_BWD_RTOL, f"K7 level {level}: differs from the plain version on "
+              f"the card by {rel:.3g} of sum |w g| (max abs {err:.3g})")
+        check(rel_l <= INTERP_BWD_RTOL, f"K7 level {level}: the index_add_ call computes "
+              f"another function ({rel_l:.3g} of sum |w g|)")
+        t_k = cuda_ms(lambda: cuda_fused.compact_interpolate_bwd_cuda(
+            g7, w6, idx6, coords, vmask, grid3))
+        t_p = cuda_ms(lambda: cuda_fused.compact_interpolate_bwd_reference(
+            g7, w6, idx6, coords, vmask, grid3))
         t_l = cuda_ms(lib7)
         k7["dev"] += graph_ms(lambda: cuda_fused.compact_interpolate_bwd_cuda(
             g7, w6, idx6, coords, vmask, grid3))
+        k7["index_dev"] += graph_ms(lambda: cuda_interp.inverse_index_cuda(idx6, cap))
         k7["lib_dev"] += graph_ms(lib7)
         k7["ms"] += t_k
         k7["plain"] += t_p
         k7["lib"] += t_l
         k7["bytes"] += (b_ * n_ * c_ + 2 * b_ * 3 * n_ + n_valid * 4 + b_ * g_ * c_) * 4
         k7["flops"] += 6 * b_ * n_ * c_
-        print(f"K7 fused_bwd level {level} [{b_},{n_},{c_}] -> {d0}^3: err {err:.3g} "
-              f"(rel {rel:.3g}) kernel {t_k:.4f} ms plain {t_p:.4f} ms "
+        print(f"K7 fused_bwd level {level} [{b_},{n_},{c_}] -> {d0}^3: bit-equal to the "
+              f"plain version on the CPU (and on the adversarial set), within {rel:.3g} of "
+              f"sum |w g| of it on the card; kernel {t_k:.4f} ms plain {t_p:.4f} ms "
               f"index_add_ {t_l:.4f} ms", flush=True)
     csrc = "dcl_net_tpu_torch/csrc/"
     for key, acc, src, rep in (
@@ -852,9 +937,7 @@ def main() -> int:
             ("interp_bwd", k4, csrc + "interp.cu", "dcl_net_tpu/ops/pallas_interp.py:87"),
             ("compact_bwd", k5, csrc + "compact.cu", "dcl_net_tpu/ops/pallas_compact.py:226"),
             ("fused", k6, csrc + "fused.cu", "dcl_net_tpu/ops/pallas_fused.py:45"),
-            # K7 is K4 (interp.cu) then K5 (compact.cu), composed in the wrapper
-            ("fused_bwd", k7, "dcl_net_tpu_torch/ops/cuda_fused.py",
-             "dcl_net_tpu/ops/pallas_fused.py:182")):
+            ("fused_bwd", k7, csrc + "fused.cu", "dcl_net_tpu/ops/pallas_fused.py:182")):
         bms, bby = bound(acc["bytes"], acc["flops"])
         entries[key] = dict(
             name=key, route="cuda", source=src,
@@ -862,6 +945,8 @@ def main() -> int:
             kernel_ms=acc["ms"], device_ms=acc["dev"], plain_ms=acc["plain"],
             bound_ms=bms, bound_by=bby, library_ms=acc["lib"],
             library_device_ms=acc["lib_dev"])
+        if "index_dev" in acc:  # K4 and K7: their first kernel, the inverse index
+            entries[key]["index_device_ms"] = acc["index_dev"]
         print(f"{key} over the 4 levels of one branch: kernel {acc['ms']:.4f} ms "
               f"(device {acc['dev']:.4f}) plain {acc['plain']:.4f} ms library "
               f"{acc['lib']} ms (device {acc['lib_dev']}) bound {bms:.4f} ms ({bby})",

@@ -40,9 +40,9 @@
 // grid of blocks is (tiles, B); block (t, b) owns cells [lo, hi) of sample
 // b, about 16 KB of output. Two warps find its slot range [s0, s1) by a
 // 32-way search of the valid prefix (the first slot whose linear index
-// reaches lo, then hi), as the TPU kernel took its range from the
-// prefetched offsets, and then, with the other warps, store zeros over the
-// tile (float4, streaming).
+// reaches lo, then hi; tile_fill::first_slot_at, shared with K7), as the
+// TPU kernel took its range from the prefetched offsets, and then, with the
+// other warps, store zeros over the tile (float4, streaming).
 // After __syncthreads() the block copies rows dv[b, s0:s1] into their
 // cells, float4 where C % 4 == 0 and the rows are 16-byte aligned, else
 // float by float. Each cell holds at most one slot and nothing is added,
@@ -112,44 +112,6 @@ compact_occupied(const float* __restrict__ feats, const float* __restrict__ mask
 
 constexpr int kBwdThreads = 256;
 
-// The first slot s of [0, cap) whose key reaches target, where key(s) is
-// the linear index of a valid slot and +inf past the valid prefix (cap if
-// none does). A warp-wide search: each round the 32 lanes probe evenly
-// spaced slots and keep the gap where the key first reaches the target.
-__device__ __forceinline__ int first_slot_at(const int* __restrict__ coords,
-                                             const float* __restrict__ vmask,
-                                             int cap, int d1, int d2,
-                                             long long target) {
-  const int lane = threadIdx.x & 31;
-  int lo = 0, hi = cap;  // keys below lo are < target, keys from hi >= target
-  while (lo < hi) {
-    const int step = (hi - lo + 31) / 32;
-    const int s = lo + lane * step;
-    bool reached = false;
-    if (s < hi) {  // the mask and the coords loaded together: one wait a round
-      const float valid = vmask[s];
-      const int* xyz = coords + 3 * (long long)s;
-      const int x0 = xyz[0], x1 = xyz[1], x2 = xyz[2];
-      reached = !(valid > 0.f)  // past the valid prefix
-                || ((long long)x0 * d1 + x1) * d2 + x2 >= target;
-    }
-    const unsigned ball = __ballot_sync(0xffffffffu, reached);
-    if (ball == 0u) {
-      const int last = min(31, (hi - 1 - lo) / step);  // the last lane probed
-      lo += last * step + 1;
-    } else {
-      const int f = __ffs(ball) - 1;
-      if (f == 0) {
-        hi = lo;
-      } else {
-        hi = lo + f * step;
-        lo += (f - 1) * step + 1;
-      }
-    }
-  }
-  return lo;
-}
-
 __global__ void __launch_bounds__(kBwdThreads)
 compact_occupied_bwd(const float* __restrict__ dv, const int* __restrict__ coords,
                      const float* __restrict__ vmask, float* __restrict__ dgrid,
@@ -162,8 +124,8 @@ compact_occupied_bwd(const float* __restrict__ dv, const int* __restrict__ coord
   const int* xyz_b = coords + (long long)b * cap * 3;
   const int warp = threadIdx.x >> 5;
   if (warp < 2) {  // the search's chain of loads first: the zeros need no wait
-    const int s = first_slot_at(xyz_b, vmask + (long long)b * cap, cap, d1, d2,
-                                warp == 0 ? lo : hi);
+    const int s = tile_fill::first_slot_at(xyz_b, vmask + (long long)b * cap, cap, d1,
+                                           d2, warp == 0 ? lo : hi);
     if ((threadIdx.x & 31) == 0) slot_range[warp] = s;
   }
   tile_fill::zero(out, (hi - lo) * c);

@@ -33,20 +33,33 @@
 // K4 replaces the Pallas kernel dcl_net_tpu/ops/pallas_interp.py
 // (_bwd_kernel, launched by _vjp_bwd), which rebuilt a [T, V] weighted
 // one-hot matrix per query tile and contracted it with the cotangent on
-// the MXU, carrying the [V, C] sum across the sequential grid.
+// the MXU, carrying the [V, C] sum across the sequential grid: no atomics,
+// every output row written by the one step that held it.
 //
-// K4 computes dfeats[b, idx[k,t], c] += w[k,t] * g[b,t,c] into a [B, V, C]
-// grid the caller zero-fills. Bound on an H100: bytes (it reads g once,
-// w and idx once, and writes dfeats once; 6 operations per g element).
-// Design: one thread per (b, t, c), channel-fastest, so the g reads and the
-// three atomicAdds of a warp touch consecutive addresses of one row each.
-// The products are rounded as the plain version rounds them (__fmul_rn);
-// the atomics sum them in an order that changes from run to run, so K4 is
-// held to its plain version within a tolerance. Contention is highest at
-// the coarsest level (V = 64 rows take 3 * 1024 contributions per sample).
+// K4 computes dfeats[b, idx[k,t], c] += w[k,t] * g[b,t,c] into [B, V, C].
+// Bound on an H100: bytes (it reads g once, w and idx once, and writes
+// dfeats once; 6 operations per g element). Hopper has no sequential grid,
+// and float atomics into V rows serialise where many queries share a
+// center (3 * 1024 contributions on 64 rows at the coarsest level), add in
+// an order that changes from run to run, and need a zero fill first. So
+// the design gives every output row an owner, as K1 and K5 do, and sums
+// in a fixed order (inverse_index.cuh), in one entry point of two kernels:
+//  1. build_csr: per sample, the contributions grouped by row in ascending
+//     e = k * N + t (a block radix sort; B blocks);
+//  2. interp_rows_bwd: the grid of blocks is (row tiles, B), 256 / C rows a
+//     block, one thread a (row, channel), which sums the row's
+//     contributions in that order from 0.f (inverse_index::write_rows) and
+//     writes it once, zeros included. The rows' (t, w) go through shared
+//     memory, the g reads coalesce across channels, and each thread issues
+//     the loads of 32 positions before their adds: a hot row's serial sum,
+//     up to a thousand terms on the main path, and not the bytes, sets the
+//     time.
+// The result is bit-equal to the plain version (index_add_ on the CPU) and
+// the same from run to run.
 
 #include <cuda_runtime.h>
 
+#include "inverse_index.cuh"
 #include "three_nn.cuh"
 
 namespace {
@@ -88,26 +101,20 @@ interp_three_nn(const float* __restrict__ points, const float* __restrict__ cent
                         w_out, idx_out);
 }
 
-constexpr int kBwdThreads = 256;
+using inverse_index::kWriterThreads;
 
-__global__ void __launch_bounds__(kBwdThreads)
-interp_three_nn_bwd(const float* __restrict__ g, const float* __restrict__ w,
-                    const int* __restrict__ idx, float* __restrict__ dfeats,
-                    int n, int v, int c, long long total) {
-  const long long e = (long long)blockIdx.x * kBwdThreads + threadIdx.x;
-  if (e >= total) return;
-  const long long bt = e / c;  // b * n + t
-  const int ch = (int)(e - bt * c);
-  const int b = (int)(bt / n);
-  const int t = (int)(bt - (long long)b * n);
-  const float gv = g[e];
-  const long long wb = (long long)b * 3 * n + t;
-  float* db = dfeats + (long long)b * v * c + ch;
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    const long long wk = wb + (long long)k * n;
-    atomicAdd(db + (long long)idx[wk] * c, __fmul_rn(w[wk], gv));
-  }
+__global__ void __launch_bounds__(kWriterThreads)
+interp_rows_bwd(const float* __restrict__ g, const float* __restrict__ w,
+                const int* __restrict__ start, const int* __restrict__ ent,
+                float* __restrict__ dfeats, int n, int v, int c, int rows) {
+  __shared__ inverse_index::Stage stage;
+  const int b = blockIdx.y;
+  const int r0 = blockIdx.x * rows;
+  const long long m = 3LL * n;
+  float* out = dfeats + ((long long)b * v + r0) * c;
+  inverse_index::write_rows(stage, start + (long long)b * (v + 1) + r0, min(rows, v - r0),
+                            ent + b * m, w + b * m, g + (long long)b * n * c, n, c,
+                            [&](int r, int ch, float x) { out[(long long)r * c + ch] = x; });
 }
 
 }  // namespace
@@ -130,19 +137,32 @@ extern "C" int dclx_interp(const void* points, const void* centers,
   return (int)cudaGetLastError();
 }
 
-// g [B,N,C] f32, w [B,3,N] f32, idx [B,3,N] i32 (each in [0, V));
-// dfeats [B,V,C] f32 zero-filled by the caller.
+// idx [B,3,N] i32 (each in [0, V)); scratch [B, V + 1 + 3N] i32: the CSR
+// of the contributions by slot (start, then ent), written here.
+extern "C" int dclx_inverse_index(const void* idx, void* scratch, int b, int n, int v,
+                                  void* stream) {
+  int* start = static_cast<int*>(scratch);
+  return inverse_index::launch_csr(static_cast<const int*>(idx), start,
+                                   start + (long long)b * (v + 1), b, 3 * n, v,
+                                   static_cast<cudaStream_t>(stream));
+}
+
+// g [B,N,C] f32, w [B,3,N] f32, idx [B,3,N] i32 (each in [0, V)); writes
+// every float of dfeats [B,V,C] f32 (no zero fill needed); scratch as
+// dclx_inverse_index's. rows: rows per block.
 extern "C" int dclx_interp_bwd(const void* g, const void* w, const void* idx,
-                               void* dfeats, int b, int n, int v, int c,
-                               void* stream) {
+                               void* dfeats, void* scratch, int b, int n, int v, int c,
+                               int rows, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long total = (long long)b * n * c;
-  if (total > 0) {
-    const long long blocks = (total + kBwdThreads - 1) / kBwdThreads;
-    interp_three_nn_bwd<<<(unsigned)blocks, kBwdThreads, 0, s>>>(
-        static_cast<const float*>(g), static_cast<const float*>(w),
-        static_cast<const int*>(idx), static_cast<float*>(dfeats),
-        n, v, c, total);
-  }
+  if (b <= 0 || v <= 0 || c <= 0) return (int)cudaGetLastError();
+  int* start = static_cast<int*>(scratch);
+  int* ent = start + (long long)b * (v + 1);
+  const int err = inverse_index::launch_csr(static_cast<const int*>(idx), start, ent, b,
+                                            3 * n, v, s);
+  if (err != (int)cudaSuccess) return err;
+  const dim3 blocks((unsigned)((v + rows - 1) / rows), (unsigned)b);
+  interp_rows_bwd<<<blocks, kWriterThreads, 0, s>>>(
+      static_cast<const float*>(g), static_cast<const float*>(w), start, ent,
+      static_cast<float*>(dfeats), n, v, c, rows);
   return (int)cudaGetLastError();
 }

@@ -24,7 +24,7 @@ from dcl_net_tpu_torch.ops import sparse_conv
 launches = 0
 bwd_launches = 0
 
-BWD_TILE_BYTES = 16 * 1024  # K5: output bytes per block
+BWD_TILE_BYTES = 16 * 1024  # K5 and K7 (ops/cuda_fused.py): output bytes per block
 
 
 def bwd_tile(c: int) -> int:

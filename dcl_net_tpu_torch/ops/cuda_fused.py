@@ -1,16 +1,17 @@
 """K6: the fused compaction -> 3-NN interpolation, and K7, its backward:
-a hand-written CUDA kernel (csrc/fused.cu) and the K4 -> K5 kernels.
+hand-written CUDA kernels (csrc/fused.cu, with csrc/inverse_index.cuh).
 
 Replace the Pallas kernels of dcl_net_tpu/ops/pallas_fused.py (forward and
 custom-VJP backward). The forward runs the compaction K2
 (ops/cuda_compact.py), then K6, which interpolates straight from K2's
 coords, decoding each voxel center in the kernel, so the [B, cap, 3]
 centers tensor and the pass that writes it are never made. Its results are
-bit-equal to K2 -> voxel_centers -> K3. The backward K7 is the
-interpolation's backward K4 into the compacted rows, then the compaction's
-backward K5 onto the grid, with the gradient w.r.t. the features only, as
-in pallas_fused._vjp_bwd (whose scatter runs into cap rounded up to 8
-rows: the port's compaction has no gaps, so it runs into cap rows).
+bit-equal to K2 -> voxel_centers -> K3. The backward K7 computes what
+pallas_fused._vjp_bwd does, the interpolation's backward into the
+compacted rows and then the compaction's backward onto the grid, with the
+gradient w.r.t. the features only, in one entry point that writes the grid
+directly: no [B, cap, C] intermediate (the TPU's ran into cap rounded up to
+8 rows; the port's compaction has no gaps).
 
 `compact_interpolate` is the differentiable entry point. A CUDA tensor goes
 through the kernels, a CPU tensor through the plain versions; there is no
@@ -28,6 +29,18 @@ from dcl_net_tpu_torch.ops import cuda_build, cuda_compact, cuda_interp
 # Launches of K6 and of K7 since the last reset (set to 0 to reset).
 launches = 0
 bwd_launches = 0
+
+# K7's blocks at least, where the grid has the cells for them: at the coarse
+# levels, where nearly every cell is a slot, a slot's serial sum and not the
+# zeros sets the time, so more blocks share it out.
+BWD_MIN_BLOCKS = 2048
+
+
+def bwd_tile(b: int, cells: int, c: int) -> int:
+    """K7's grid cells per block of a [b, cells, c] f32 grid: K5's tile
+    (cuda_compact.bwd_tile), or fewer, down to one, so that at least
+    BWD_MIN_BLOCKS blocks run (128 at [32, 32^3, 32]; 1 at [32, 4^3, 256])."""
+    return min(cuda_compact.bwd_tile(c), max(1, b * cells // BWD_MIN_BLOCKS))
 
 
 def compact_interpolate_reference(
@@ -101,7 +114,7 @@ def compact_interpolate_bwd_reference(g: torch.Tensor, w: torch.Tensor,
                                       idx: torch.Tensor, coords: torch.Tensor,
                                       vmask: torch.Tensor, grid_shape) -> torch.Tensor:
     """Plain version of K7: the plain K4 into [B, cap, C], then the plain
-    K5 onto the grid. Returns [B, D0, D1, D2, C]."""
+    K5 onto the grid (invalid slots dropped). Returns [B, D0, D1, D2, C]."""
     dv = cuda_interp.nn_interpolate_bwd_reference(g, w, idx, coords.shape[1])
     return cuda_compact.dense_to_sparse_bwd_reference(dv, coords, vmask, grid_shape)
 
@@ -110,22 +123,45 @@ def compact_interpolate_bwd_cuda(g: torch.Tensor, w: torch.Tensor,
                                  idx: torch.Tensor, coords: torch.Tensor,
                                  vmask: torch.Tensor, grid_shape) -> torch.Tensor:
     """K7: the grid gradient [B, D0, D1, D2, C] f32 of the fused op, from
-    the output cotangent g [B, N, C], K6's w, idx [B, 3, N] and K2's coords,
-    vmask: K4 (cuda_interp) into the compacted rows, then K5
-    (cuda_compact) onto the grid. Each wrapper checks its own inputs.
+    the output cotangent g [B, N, C], K6's w, idx [B, 3, N] and K2's coords
+    [B, cap, 3], vmask [B, cap].
 
-    Replaces pallas_fused._vjp_bwd, which ran the interpolation's
-    backward kernel into cap8 rows and then the compaction's backward. Bound
-    on an H100: bytes (g, w and idx read once, the [B, G, C] grid written
-    once, nearly all of it zero fill). The design keeps the TPU's two
-    stages and their [B, cap, C] round trip between them, which is small
-    beside the grid; each kernel's note (interp.cu, compact.cu) says what
-    bounds it."""
+    Replaces pallas_fused._vjp_bwd. Precondition, as K5's (K2 and the plain
+    sparse_conv.dense_to_sparse guarantee it): the valid slots of a sample
+    are a prefix and their linear indices rise strictly. One kernel entry
+    point: the inverse index (shared with K4) into an int32 scratch, then
+    one launch writes the whole grid (allocated empty), each block a tile of
+    cells of one sample: zeros, then each valid slot's ordered sum at its
+    cell. Bound: the bytes of the grid, nearly all zeros. Bit-equal to the
+    plain version on the CPU, and deterministic."""
     global bwd_launches
     if g.device.type == "cpu":
         return compact_interpolate_bwd_reference(g, w, idx, coords, vmask, grid_shape)
-    dv = cuda_interp.nn_interpolate_bwd_cuda(g, w, idx, coords.shape[1])
-    dgrid = cuda_compact.dense_to_sparse_bwd_cuda(dv, coords, vmask, grid_shape)
+    name = "compact_interpolate_bwd_cuda"
+    b, n, c = cuda_interp.check_bwd_inputs(name, g, w, idx)
+    req = cuda_build.require
+    req(coords.dim() == 3 and coords.shape[0] == b, name,
+        lambda: f"coords must be int32 [{b}, cap, 3], got {tuple(coords.shape)}")
+    cap = coords.shape[1]
+    req(coords.dtype == torch.int32 and tuple(coords.shape) == (b, cap, 3), name,
+        lambda: f"coords must be int32 [{b}, {cap}, 3]")
+    req(vmask.dtype == torch.float32 and tuple(vmask.shape) == (b, cap), name,
+        lambda: f"vmask must be f32 [{b}, {cap}]")
+    for t in (coords, vmask):
+        req(t.device == g.device, name, "inputs on different devices")
+        req(t.is_contiguous(), name, "inputs must be contiguous")
+    d0, d1, d2 = (int(d) for d in grid_shape)
+    cells = d0 * d1 * d2
+    req(0 < cap <= cells, name, lambda: f"capacity {cap} outside [1, {cells}]")
+    dev = g.device
+    dgrid = torch.empty((b, d0, d1, d2, c), dtype=torch.float32, device=dev)
+    scratch = torch.empty(cuda_interp.index_scratch_words(b, n, cap), dtype=torch.int32,
+                          device=dev)
+    cuda_build.launch(
+        "dclx_compact_interp_bwd", name, dev,
+        g.data_ptr(), w.data_ptr(), idx.data_ptr(), coords.data_ptr(), vmask.data_ptr(),
+        dgrid.data_ptr(), scratch.data_ptr(),
+        b, n, cap, cells, c, d1, d2, bwd_tile(b, cells, c))
     bwd_launches += 1
     return dgrid
 

@@ -1,5 +1,5 @@
 """K3: masked 3-NN interpolation, and K4, its backward: hand-written CUDA
-kernels (csrc/interp.cu).
+kernels (csrc/interp.cu, csrc/inverse_index.cuh).
 
 Replace the Pallas kernels of dcl_net_tpu/ops/pallas_interp.py (forward and
 custom-VJP backward). `nn_interpolate` is the differentiable entry point:
@@ -7,6 +7,11 @@ an autograd Function whose forward is K3 and whose backward is K4, with the
 gradient w.r.t. the features only, as the JAX custom VJP gives. A CUDA
 tensor goes through the kernels, a CPU tensor through the plain versions;
 there is no fallback.
+
+K4 and the fused path's backward K7 (ops/cuda_fused.py) share the inverse
+index: each sample's 3N contributions e = k * N + t grouped by slot, in
+ascending e, so that every output row is the sum of its contributions in
+the plain version's order (`inverse_index_reference`).
 """
 
 from __future__ import annotations
@@ -18,9 +23,29 @@ import torch
 from dcl_net_tpu_torch.ops import cuda_build
 from dcl_net_tpu_torch.ops.knn import BIG, iterated_argmin
 
-# Launches of K3 and of K4 since the last reset (set to 0 to reset).
+# Launches of K3, of K4 and of the inverse index alone (inverse_index_cuda)
+# since the last reset (set to 0 to reset).
 launches = 0
 bwd_launches = 0
+index_launches = 0
+
+# The inverse index sorts a sample's 3N entries in one block: N <= MAX_POINTS.
+MAX_POINTS = 2048
+# The writers of K4 and K7 (csrc/inverse_index.cuh: kWriterThreads): one
+# thread a (row, channel), WRITER_THREADS a block, so C <= WRITER_THREADS.
+WRITER_THREADS = 256
+
+
+def writer_rows(c: int) -> int:
+    """Rows a K4 or K7 writer block sums at once, and K4's rows per block:
+    WRITER_THREADS // c (8 at C = 32, 1 at 256)."""
+    return max(1, WRITER_THREADS // c)
+
+
+def index_scratch_words(b: int, n: int, v: int) -> int:
+    """int32 words of the inverse index of b samples of 3n entries over v
+    slots: start [b, v + 1], then ent [b, 3n]."""
+    return b * (v + 1 + 3 * n)
 
 
 def nn_interpolate_reference(
@@ -91,7 +116,9 @@ def nn_interpolate_bwd_reference(g: torch.Tensor, w: torch.Tensor,
                                  idx: torch.Tensor, v: int) -> torch.Tensor:
     """Plain version of K4: dfeats[b, idx[b,k,t], :] += w[b,k,t] * g[b,t,:].
 
-    g [B, N, C]; w, idx [B, 3, N] as K3 writes them. Returns [B, V, C]."""
+    g [B, N, C]; w, idx [B, 3, N] as K3 writes them. Returns [B, V, C]. On
+    the CPU, index_add_ adds each row's terms w * g (each rounded once) one
+    by one in ascending e = k * N + t from 0, the order K4 sums in."""
     b, n, c = g.shape
     terms = w[..., None] * g[:, None, :, :]                     # [B, 3, N, C]
     rows = (idx.long() + v * torch.arange(b, device=g.device)[:, None, None])
@@ -100,14 +127,26 @@ def nn_interpolate_bwd_reference(g: torch.Tensor, w: torch.Tensor,
     return out.reshape(b, v, c)
 
 
-def nn_interpolate_bwd_cuda(g: torch.Tensor, w: torch.Tensor,
-                            idx: torch.Tensor, v: int) -> torch.Tensor:
-    """K4: the features' gradient of the 3-NN interpolation, [B, V, C] f32,
-    from the output cotangent g [B, N, C] and K3's w, idx [B, 3, N]."""
-    global bwd_launches
-    if g.device.type == "cpu":
-        return nn_interpolate_bwd_reference(g, w, idx, v)
-    name = "nn_interpolate_bwd_cuda"
+def inverse_index_reference(idx: torch.Tensor, v: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the inverse index of K4 and K7: for each sample of
+    idx [B, 3, N], its entries e = k * N + t sorted stably by slot idx[e].
+    Returns start [B, V + 1] (slot s holds the positions [start[s],
+    start[s + 1])) and ent [B, 3N], both int32. An idx outside [0, V) sorts
+    past start[V]."""
+    b = idx.shape[0]
+    slot = idx.reshape(b, -1).long()
+    slot = torch.where((slot >= 0) & (slot < v), slot, torch.full_like(slot, v))
+    keys, ent = torch.sort(slot, dim=1, stable=True)
+    bounds = torch.arange(v + 1, device=idx.device).expand(b, -1).contiguous()
+    start = torch.searchsorted(keys, bounds)
+    return start.to(torch.int32), ent.to(torch.int32)
+
+
+def check_bwd_inputs(name: str, g: torch.Tensor, w: torch.Tensor,
+                     idx: torch.Tensor) -> Tuple[int, int, int]:
+    """Check the inputs that K4 and K7 share (the cotangent g [B, N, C] f32
+    and K3's or K6's w [B, 3, N] f32, idx [B, 3, N] int32, contiguous, on
+    one CUDA device); raise ValueError otherwise. Returns (B, N, C)."""
     req = cuda_build.require
     req(g.is_cuda, name, lambda: f"unsupported device {g.device}")
     req(g.dtype == torch.float32 and g.dim() == 3, name,
@@ -117,15 +156,63 @@ def nn_interpolate_bwd_cuda(g: torch.Tensor, w: torch.Tensor,
         lambda: f"w must be f32 [{b}, 3, {n}]")
     req(idx.dtype == torch.int32 and tuple(idx.shape) == (b, 3, n), name,
         lambda: f"idx must be int32 [{b}, 3, {n}]")
-    req(v > 0, name, "no centers")
+    req(n <= MAX_POINTS, name,
+        lambda: f"{n} points per sample: the inverse index takes at most {MAX_POINTS}")
+    req(c <= WRITER_THREADS, name,
+        lambda: f"{c} channels: the writer takes at most {WRITER_THREADS}")
+    req(b <= 65535, name, lambda: f"batch {b} above 65535 (the kernel's grid y)")
     for t in (g, w, idx):
         req(t.device == g.device, name, "inputs on different devices")
         req(t.is_contiguous(), name, "inputs must be contiguous")
-    dfeats = torch.zeros((b, v, c), dtype=torch.float32, device=g.device)
+    return b, n, c
+
+
+def inverse_index_cuda(idx: torch.Tensor, v: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The inverse index alone (the first of K4's and K7's two kernels), to
+    hold it to `inverse_index_reference`: start [B, V + 1] and ent [B, 3N]
+    int32 from idx [B, 3, N] int32 (each in [0, V))."""
+    global index_launches
+    if idx.device.type == "cpu":
+        return inverse_index_reference(idx, v)
+    name = "inverse_index_cuda"
+    req = cuda_build.require
+    req(idx.is_cuda, name, lambda: f"unsupported device {idx.device}")
+    req(idx.dtype == torch.int32 and idx.dim() == 3 and idx.shape[1] == 3, name,
+        lambda: f"idx must be int32 [B, 3, N], got {idx.dtype} {tuple(idx.shape)}")
+    req(idx.is_contiguous(), name, "idx must be contiguous")
+    b, _, n = idx.shape
+    req(n <= MAX_POINTS, name,
+        lambda: f"{n} points per sample: the inverse index takes at most {MAX_POINTS}")
+    req(v > 0, name, "no slots")
+    scratch = torch.empty(index_scratch_words(b, n, v), dtype=torch.int32, device=idx.device)
+    cuda_build.launch("dclx_inverse_index", name, idx.device,
+                      idx.data_ptr(), scratch.data_ptr(), b, n, v)
+    index_launches += 1
+    split = b * (v + 1)
+    return scratch[:split].view(b, v + 1), scratch[split:].view(b, 3 * n)
+
+
+def nn_interpolate_bwd_cuda(g: torch.Tensor, w: torch.Tensor,
+                            idx: torch.Tensor, v: int) -> torch.Tensor:
+    """K4: the features' gradient of the 3-NN interpolation, [B, V, C] f32,
+    from the output cotangent g [B, N, C] and K3's w, idx [B, 3, N].
+
+    One kernel entry point: the inverse index into an int32 scratch, then
+    blocks of `writer_rows(C)` rows sum each (row, channel)'s contributions
+    in the plain version's order and write every row once (allocated
+    empty). Bit-equal to the plain version on the CPU, and deterministic."""
+    global bwd_launches
+    if g.device.type == "cpu":
+        return nn_interpolate_bwd_reference(g, w, idx, v)
+    name = "nn_interpolate_bwd_cuda"
+    b, n, c = check_bwd_inputs(name, g, w, idx)
+    cuda_build.require(v > 0, name, "no centers")
+    dfeats = torch.empty((b, v, c), dtype=torch.float32, device=g.device)
+    scratch = torch.empty(index_scratch_words(b, n, v), dtype=torch.int32, device=g.device)
     cuda_build.launch(
         "dclx_interp_bwd", name, g.device,
-        g.data_ptr(), w.data_ptr(), idx.data_ptr(), dfeats.data_ptr(),
-        b, n, v, c)
+        g.data_ptr(), w.data_ptr(), idx.data_ptr(), dfeats.data_ptr(), scratch.data_ptr(),
+        b, n, v, c, writer_rows(c))
     bwd_launches += 1
     return dfeats
 

@@ -32,7 +32,9 @@ EPOCH_STEPS = 4
 GROUPS = (  # kernel-name substrings -> group, first match wins
     ("K1 voxelize", ("voxelize_tiles",)),
     ("K5 compact bwd", ("compact_occupied_bwd",)),  # before K2's prefix
-    ("K4 interp bwd", ("interp_three_nn_bwd",)),
+    ("K4/K7 inverse index", ("build_csr",)),
+    ("K7 fused bwd", ("compact_interp_grid_bwd",)),
+    ("K4 interp bwd", ("interp_rows_bwd",)),
     ("K2 compact", ("compact_occupied",)),
     ("K3 interp", ("interp_three_nn",)),
     ("conv3d wgrad", ("wgrad",)),
