@@ -22,13 +22,19 @@ Phases, any failure exits non-zero:
     the main-path inputs and on an adversarial set (one slot taking all
     3 * 1024 contributions of a sample), within a tolerance of the plain
     versions run on the card (whose index_add_ adds in a run-dependent
-    order), their inverse index bit-equal to its plain version. Times the
-    kernel as called and on the device
-    alone (CUDA-graph replay), the plain version, and a PyTorch library
-    call computing the same function where one exists, as called and on
-    the device (K1: index_add_ then the divide; also index_add_ alone,
-    which is mode 3's function); then one encode's point-feature stage on
-    both paths;
+    order), their inverse index bit-equal to its plain version. K3 as the
+    main path calls it (n_valid = K2's occupancy) torch.equal to K3 on all
+    cap rows, at every level and on an adversarial set (tie lattices, 0-3
+    valid centers, an empty sample, N = 1000, V % 4 != 0, a non-prefix
+    mask: idx equal to the plain version's, out and w within INTERP_ATOL).
+    Times the kernel as called and on the device alone (CUDA-graph replay;
+    K2 and K3 also per level, K3 also on all cap rows), the plain version,
+    and a PyTorch library call computing the same function where one
+    exists, as called and on the device (K1: index_add_ then the divide;
+    also index_add_ alone, which is mode 3's function); K2 and K3 at the
+    configs' eval batch of 512 (the batch-32 levels repeated 16 times,
+    each output equal to the batch-32 output repeated); then one encode's
+    point-feature stage on both paths;
  4. eval path: the full-width DCLNet of configs/config_YCBV_bs32.yaml
     (random weights from a seed) through Evaluator over the synthetic
     dataset's 16-class template bank and several batches of 32; checks
@@ -78,6 +84,7 @@ TRAIN_STEPS = 5  # timed training steps after one warm-up step
 FUSED_TRAIN_STEPS = 3
 STAGE2_TRAIN_STEPS = 5
 ITERATIONS = 2  # refinement steps of stage 2
+REPEAT = 16  # K2 and K3 are also timed at batch BATCH * REPEAT = 512, the configs' eval batch
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and f32 (non-tensor) FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
@@ -225,6 +232,117 @@ def check_slot_prefix(coords, vmask, occupancy, cap: int, dims, what: str) -> No
     both = (vmask[:, 1:] > 0) & (vmask[:, :-1] > 0)
     check(bool((lin[:, 1:] > lin[:, :-1])[both].all()),
           f"{what}: the linear indices of the valid slots do not rise strictly")
+
+
+def adversarial_interp_inputs(seed: int = 0):
+    """K3's hard inputs, as numpy: a list of (what, points [B, N, 3],
+    centers [B, V, 3], feats [B, V, C], mask [B, V], n_valid [B] int32 or
+    None). Where n_valid is given the mask is 0 from n_valid[b] on, as K2's
+    output is past its occupancy.
+     - "tie lattice": 2048 centers on a 16 x 16 x 8 lattice of spacing 0.25
+       (exact in f32), queries on its nodes, edge and face midpoints and
+       cell centers (up to 8 equidistant centers); sample 1 holds the
+       lattice shuffled (tied centers far apart in j), sample 2 each of
+       1024 centers twice (equal distances at neighbouring j), sample 3 a
+       masked tail from 1000 on;
+     - "few valid": V = 64 with 0, 1, 2 and 3 valid centers, N = 1000 (not a
+       multiple of the block's queries), C = 33 (no float4 epilogue);
+     - "V % 4 != 0": V = 517 (rows of odd samples start off 16 bytes, and a
+       rounded-up copy would pass V), n_valid 517, 300 and 5, C = 40;
+     - "non-prefix mask": half the rows masked at random, no n_valid."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    f32 = np.float32
+    lat = (np.stack(np.meshgrid(np.arange(16), np.arange(16), np.arange(8), indexing="ij"),
+                    -1).reshape(-1, 3) * 0.25).astype(f32)
+    centers = np.repeat(lat[None], 4, 0)
+    centers[1] = lat[rng.permutation(len(lat))]
+    centers[2] = np.repeat(lat[:1024], 2, 0)
+    n_valid = np.asarray([2048, 2048, 2048, 1000], np.int32)
+    mask = (np.arange(2048)[None] < n_valid[:, None]).astype(f32)
+    offs = np.asarray([[0, 0, 0], [0.125, 0, 0], [0.125, 0.125, 0], [0.125, 0.125, 0.125]], f32)
+    points = lat[rng.randint(0, len(lat), (4, 1024))] + offs[rng.randint(0, 4, (4, 1024))]
+    cases = [("tie lattice", points, centers, rng.randn(4, 2048, 32).astype(f32), mask,
+              n_valid)]
+    n_valid = np.asarray([0, 1, 2, 3], np.int32)
+    cases.append(("few valid", rng.rand(4, 1000, 3).astype(f32),
+                  rng.rand(4, 64, 3).astype(f32), rng.randn(4, 64, 33).astype(f32),
+                  (np.arange(64)[None] < n_valid[:, None]).astype(f32), n_valid))
+    n_valid = np.asarray([517, 300, 5], np.int32)
+    cases.append(("V % 4 != 0", rng.rand(3, 1000, 3).astype(f32),
+                  rng.rand(3, 517, 3).astype(f32), rng.randn(3, 517, 40).astype(f32),
+                  (np.arange(517)[None] < n_valid[:, None]).astype(f32), n_valid))
+    cases.append(("non-prefix mask", rng.rand(2, 1024, 3).astype(f32),
+                  rng.rand(2, 1024, 3).astype(f32), rng.randn(2, 1024, 64).astype(f32),
+                  (rng.rand(2, 1024) > 0.5).astype(f32), None))
+    return cases
+
+
+def check_interp_adversarial(dev) -> None:
+    """K3 on adversarial_interp_inputs: with and without n_valid the kernel's
+    out, w and idx are torch.equal; against the plain version on CPU copies
+    (whose argmin breaks ties to the lowest index) idx is equal and out, w
+    are within INTERP_ATOL."""
+    import torch
+
+    from dcl_net_tpu_torch.ops import cuda_interp
+
+    for what, *arrays in adversarial_interp_inputs():
+        pts, ctr, fts, msk = (torch.as_tensor(a, device=dev) for a in arrays[:4])
+        nv = None if arrays[4] is None else torch.as_tensor(arrays[4], device=dev)
+        got = cuda_interp.nn_interpolate_cuda(pts, ctr, fts, msk)
+        if nv is not None:
+            with_nv = cuda_interp.nn_interpolate_cuda(pts, ctr, fts, msk, nv)
+            for a, r, name in zip(with_nv, got, ("out", "w", "idx")):
+                check(torch.equal(a, r), f"K3 {what}: {name} with n_valid differs from "
+                      "without")
+        want = cuda_interp.nn_interpolate_reference(pts.cpu(), ctr.cpu(), fts.cpu(), msk.cpu())
+        check(torch.equal(got[2].cpu(), want[2]), f"K3 {what}: idx differ from the plain "
+              "version")
+        for a, r, name in zip(got[:2], want[:2], ("out", "w")):
+            e = max_err(a.cpu(), r)
+            check(e <= INTERP_ATOL, f"K3 {what}: {name} differs by {e}")
+
+
+def batch512_phase(entries: dict, level_outputs, card: str) -> None:
+    """K2 and K3 at the configs' eval batch of 512
+    (configs/config_YCBV_bs32.yaml: hyper_dataloader_test.bs): each level's batch-32
+    inputs repeated REPEAT times along the batch, so the backbone never runs
+    at 512. Each output is torch.equal to the batch-32 output repeated; each
+    kernel is timed as called and on the device, summed over the levels,
+    into entries' batch512_ms, batch512_device_ms."""
+    import torch
+
+    from dcl_net_tpu_torch.ops import cuda_compact, cuda_interp
+
+    def rep(t):
+        return t.repeat(REPEAT, *([1] * (t.dim() - 1)))
+
+    t = {"compact": [0.0, 0.0], "interp": [0.0, 0.0]}
+    for level, (lf, lm, cap, got2, args3, got3) in enumerate(level_outputs):
+        lf16, lm16 = rep(lf), rep(lm)
+        big2 = cuda_compact.dense_to_sparse_cuda(lf16, lm16, cap)
+        for a, r, what in zip(big2, got2, ("coords", "vfeats", "vmask", "occupancy")):
+            check(torch.equal(a, rep(r)), f"K2 level {level} at batch {BATCH * REPEAT}: "
+                  f"{what} is not the batch-{BATCH} output repeated")
+        args16 = tuple(rep(a) for a in args3) + (big2[3],)
+        big3 = cuda_interp.nn_interpolate_cuda(*args16)
+        for a, r, what in zip(big3, got3, ("out", "w", "idx")):
+            check(torch.equal(a, rep(r)), f"K3 level {level} at batch {BATCH * REPEAT}: "
+                  f"{what} is not the batch-{BATCH} output repeated")
+        del big2, big3
+        for key, fn in (("compact", lambda: cuda_compact.dense_to_sparse_cuda(lf16, lm16, cap)),
+                        ("interp", lambda: cuda_interp.nn_interpolate_cuda(*args16))):
+            t[key][0] += cuda_ms(fn, reps=10)
+            t[key][1] += graph_ms(fn, calls=4, reps=5)
+        del lf16, lm16, args16
+        torch.cuda.empty_cache()
+    for key, (ms, dev_ms) in t.items():
+        entries[key].update(batch512_ms=ms, batch512_device_ms=dev_ms)
+        print(f"{key} at batch {BATCH * REPEAT} on {card}, 4 levels: {ms:.4f} ms (device "
+              f"{dev_ms:.4f}); the outputs equal the batch-{BATCH} outputs repeated",
+              flush=True)
 
 
 def bit_equal_on_cpu(kernel, plain, args, what: str):
@@ -689,6 +807,12 @@ def main() -> int:
                                    lib_dev=lib, bytes=0.0, flops=0.0)
                               for lib in (None, None, 0.0, 0.0, None, 0.0))
     k6.update(two=0.0, dev_two=0.0)  # the centers pass + K3 that K6 replaces
+    k2.update(levels=[])  # device ms per level
+    # K3 on the main path's call (n_valid: K2's occupancy) and on all cap
+    # rows (no n_valid, what earlier rows of the table timed)
+    k3.update(levels=[], levels_all=[], dev_all=0.0, ms_all=0.0, bytes_all=0.0,
+              flops_all=0.0)
+    level_outputs = []  # per level: the batch-32 inputs and outputs of K2 and K3
     k4.update(index_dev=0.0)  # the inverse index alone, K4's and K7's first kernel
     k7.update(index_dev=0.0)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -721,13 +845,16 @@ def main() -> int:
                 cuda_compact.dense_to_sparse_bwd_reference(dv, got[0], got[2], (d0, d1, d2))),
                 f"K5 level {level} cap {cp}: not bit-equal to the plain version")
             # K6 on K2's output against K2 -> voxel_centers -> K3: bit-equal
+            # (K3 with n_valid, as the main path calls it, and without)
             gc, gv, gm, go = got
-            want6 = cuda_interp.nn_interpolate_cuda(
-                points, voxel_centers(gc, pf.unit, pf.scale_list[level], pf.offset), gv, gm)
+            gctr = voxel_centers(gc, pf.unit, pf.scale_list[level], pf.offset)
+            want6 = cuda_interp.nn_interpolate_cuda(points, gctr, gv, gm, go)
+            want6_all = cuda_interp.nn_interpolate_cuda(points, gctr, gv, gm)
             got6 = cuda_fused.compact_interpolate_cuda(points, gc, gv, gm, go, *affine)
-            for a, r, what in zip(got6, want6, ("out", "w", "idx")):
-                check(torch.equal(a, r), f"K6 level {level} cap {cp}: {what} not bit-equal "
-                      "to K2 -> voxel_centers -> K3")
+            for a, r, r_all, what in zip(got6, want6, want6_all, ("out", "w", "idx")):
+                check(torch.equal(a, r) and torch.equal(a, r_all),
+                      f"K6 level {level} cap {cp}: {what} not bit-equal to K2 -> "
+                      "voxel_centers -> K3 (with and without n_valid)")
             ref6 = cuda_fused.compact_interpolate_reference(points, gc, gv, gm, go, *affine)
             e6 = max_err(got6[0], ref6[0])
             check(e6 <= INTERP_ATOL, f"K6 level {level} cap {cp}: out differs by {e6}")
@@ -742,45 +869,64 @@ def main() -> int:
         check(torch.equal(ge, cuda_compact.dense_to_sparse_bwd_reference(dv, ec, em, (d0, d1, d2)))
               and not bool(ge[0].any()), f"K5 level {level}, empty sample: not bit-equal")
         del lm_e, ec, em, eo, ge
-        coords, vfeats, vmask, _ = got = cuda_compact.dense_to_sparse_cuda(lf, lm, cap)
+        coords, vfeats, vmask, occ_k = got = cuda_compact.dense_to_sparse_cuda(lf, lm, cap)
         t_k = cuda_ms(lambda: cuda_compact.dense_to_sparse_cuda(lf, lm, cap))
         t_p = cuda_ms(lambda: cuda_compact.dense_to_sparse_reference(lf, lm, cap))
-        k2["dev"] += graph_ms(lambda: cuda_compact.dense_to_sparse_cuda(lf, lm, cap))
+        d_k = graph_ms(lambda: cuda_compact.dense_to_sparse_cuda(lf, lm, cap))
+        k2["dev"] += d_k
+        k2["levels"].append(d_k)
         sel = torch.clamp(occ, max=cap).sum().item()
         k2["ms"] += t_k
         k2["plain"] += t_p
         k2["bytes"] += b_ * g_ * 4 + sel * c_ * 4 + b_ * cap * (c_ + 4) * 4 + b_ * 4
         print(f"K2 compact level {level} [{b_},{d0},{d1},{d2},{c_}] cap {cap} "
-              f"occupancy max {int(occ.max())}: kernel {t_k:.4f} ms plain {t_p:.4f} ms",
-              flush=True)
+              f"occupancy max {int(occ.max())}: kernel {t_k:.4f} ms (device {d_k:.4f}) "
+              f"plain {t_p:.4f} ms", flush=True)
 
+        # K3 as the main path calls it (n_valid = K2's occupancy) and on all
+        # cap rows: torch.equal to each other, held to the plain version
         centers = voxel_centers(coords, pf.unit, pf.scale_list[level], pf.offset)
-        out, w, idx = cuda_interp.nn_interpolate_cuda(points, centers, vfeats, vmask)
-        pout, pw, pidx = cuda_interp.nn_interpolate_reference(points, centers, vfeats, vmask)
+        args3 = (points, centers, vfeats, vmask)
+        out, w, idx = got3 = cuda_interp.nn_interpolate_cuda(*args3, occ_k)
+        for a, r, what in zip(got3, cuda_interp.nn_interpolate_cuda(*args3),
+                              ("out", "w", "idx")):
+            check(torch.equal(a, r), f"K3 level {level}: {what} with n_valid differs from "
+                  "without")
+        pout, pw, pidx = cuda_interp.nn_interpolate_reference(*args3)
         err = max_err(out, pout)
         check(err <= INTERP_ATOL, f"K3 level {level}: out differs by {err}")
         check(max_err(w, pw) <= INTERP_ATOL, f"K3 level {level}: weights differ")
         full = (vmask.sum(1) >= 3)
         check(torch.equal(idx[full], pidx[full]), f"K3 level {level}: idx differ")
         k3["err"] = max(k3["err"], err)
-        t_k = cuda_ms(lambda: cuda_interp.nn_interpolate_cuda(points, centers, vfeats, vmask))
-        t_p = cuda_ms(lambda: cuda_interp.nn_interpolate_reference(points, centers, vfeats, vmask),
-                      reps=5, warmup=1)
-        k3["dev"] += graph_ms(lambda: cuda_interp.nn_interpolate_cuda(
-            points, centers, vfeats, vmask))
+        t_k = cuda_ms(lambda: cuda_interp.nn_interpolate_cuda(*args3, occ_k))
+        t_all = cuda_ms(lambda: cuda_interp.nn_interpolate_cuda(*args3))
+        t_p = cuda_ms(lambda: cuda_interp.nn_interpolate_reference(*args3), reps=5, warmup=1)
+        d_k = graph_ms(lambda: cuda_interp.nn_interpolate_cuda(*args3, occ_k))
+        d_all = graph_ms(lambda: cuda_interp.nn_interpolate_cuda(*args3))
         v_ = vfeats.shape[1]
         n_ = points.shape[1]
+        sel = torch.clamp(occ_k, max=cap).sum().item()  # the rows K3 reads with n_valid
         k3["ms"] += t_k
+        k3["ms_all"] += t_all
+        k3["dev"] += d_k
+        k3["dev_all"] += d_all
+        k3["levels"].append(d_k)
+        k3["levels_all"].append(d_all)
         k3["plain"] += t_p
-        k3["bytes"] += (b_ * n_ * 3 + b_ * v_ * (3 + c_ + 1) + b_ * n_ * c_
+        k3["bytes"] += (b_ * n_ * 3 + sel * (3 + 1 + c_) + b_ + b_ * n_ * c_
                         + 2 * b_ * 3 * n_) * 4
-        k3["flops"] += 8 * n_ * float(vmask.sum()) + 5 * b_ * n_ * c_
-        print(f"K3 interp level {level} N {n_} V {v_} C {c_}: err {err:.3g} "
-              f"kernel {t_k:.4f} ms plain {t_p:.4f} ms", flush=True)
+        k3["bytes_all"] += (b_ * n_ * 3 + b_ * v_ * (3 + c_ + 1) + b_ * n_ * c_
+                            + 2 * b_ * 3 * n_) * 4
+        k3["flops"] += 8 * n_ * sel + 5 * b_ * n_ * c_
+        k3["flops_all"] += 8 * n_ * float(vmask.sum()) + 5 * b_ * n_ * c_
+        level_outputs.append((lf, lm, cap, got, args3, got3))
+        print(f"K3 interp level {level} N {n_} V {v_} C {c_}: err {err:.3g}, with n_valid "
+              f"kernel {t_k:.4f} ms (device {d_k:.4f}), all {v_} rows {t_all:.4f} ms (device "
+              f"{d_all:.4f}); plain {t_p:.4f} ms", flush=True)
 
         # K6 at this level's shapes (bit-equality checked above), timed
         # beside the two-stage centers pass + K3 that it replaces
-        occ_k = got[3]
         out6, w6, idx6 = cuda_fused.compact_interpolate_cuda(points, coords, vfeats, vmask,
                                                              occ_k, *affine)
         t_k = cuda_ms(lambda: cuda_fused.compact_interpolate_cuda(
@@ -790,11 +936,11 @@ def main() -> int:
         c_unit = getattr(pf, f"center_unit{level}")
         c_shift = getattr(pf, f"center_shift{level}")
         t_two = cuda_ms(lambda: cuda_interp.nn_interpolate_cuda(
-            points, coords.to(torch.float32) * c_unit + c_shift, vfeats, vmask))
+            points, coords.to(torch.float32) * c_unit + c_shift, vfeats, vmask, occ_k))
         d_k = graph_ms(lambda: cuda_fused.compact_interpolate_cuda(
             points, coords, vfeats, vmask, occ_k, *affine))
         d_two = graph_ms(lambda: cuda_interp.nn_interpolate_cuda(
-            points, coords.to(torch.float32) * c_unit + c_shift, vfeats, vmask))
+            points, coords.to(torch.float32) * c_unit + c_shift, vfeats, vmask, occ_k))
         # K6 reads only the slots [0, min(occupancy, cap)) that K2 filled
         sel = torch.clamp(occ_k, max=cap).sum().item()
         k6["dev"] += d_k
@@ -947,10 +1093,30 @@ def main() -> int:
             library_device_ms=acc["lib_dev"])
         if "index_dev" in acc:  # K4 and K7: their first kernel, the inverse index
             entries[key]["index_device_ms"] = acc["index_dev"]
+        if "levels" in acc:  # K2 and K3: per level, and the host's share of a call
+            entries[key]["level_device_ms"] = acc["levels"]
+            entries[key]["host_us_per_call"] = (acc["ms"] - acc["dev"]) / 4 * 1e3
         print(f"{key} over the 4 levels of one branch: kernel {acc['ms']:.4f} ms "
               f"(device {acc['dev']:.4f}) plain {acc['plain']:.4f} ms library "
               f"{acc['lib']} ms (device {acc['lib_dev']}) bound {bms:.4f} ms ({bby})",
               flush=True)
+    bms_all, _ = bound(k3["bytes_all"], k3["flops_all"])
+    entries["interp"].update(
+        ms_all_rows=k3["ms_all"], device_ms_all_rows=k3["dev_all"],
+        level_device_ms_all_rows=k3["levels_all"], bound_all_rows_ms=bms_all)
+    for key in ("compact", "interp"):
+        e = entries[key]
+        print(f"{key} device ms per level {', '.join(f'{t:.4f}' for t in e['level_device_ms'])}"
+              f"; host overhead {e['host_us_per_call']:.1f} us a call", flush=True)
+    print(f"interp on all cap rows (no n_valid): kernel {k3['ms_all']:.4f} ms (device "
+          f"{k3['dev_all']:.4f}; per level {', '.join(f'{t:.4f}' for t in k3['levels_all'])}) "
+          f"bound {bms_all:.4f} ms", flush=True)
+    check_interp_adversarial(dev)
+    print("K3 on the adversarial set (tie lattices, 0-3 valid centers, N = 1000, V = 517, "
+          "a non-prefix mask): idx equal to the plain version's, out and w within "
+          f"{INTERP_ATOL}, with n_valid torch.equal to without", flush=True)
+    batch512_phase(entries, level_outputs, card)
+    del level_outputs
     print(f"fused over the 4 levels: centers pass + K3 (the two-stage path) "
           f"{k6['two']:.4f} ms (device {k6['dev_two']:.4f})", flush=True)
     # one encode's point-feature stage (4 levels: K2, then centers + K3 or K6)

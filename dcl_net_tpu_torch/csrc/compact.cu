@@ -11,16 +11,29 @@
 // Bound on an H100: bytes. The function reads the [B, G] occupancy once and
 // the feature rows of the occupied cells only (about 2% of the grid on the
 // main path), and writes the [B, cap, C] list. The design reads the mask
-// once, coalesced, and touches a feature row only when it is selected.
+// twice (the second time mostly from L2), coalesced, as float4, and touches
+// a feature row only when it is selected.
 //
-// Design: one block per sample walks G in tiles of kThreads cells. A
-// block-wide exclusive scan of the tile's occupancy (warp shuffles, then a
-// scan of the warp totals) gives each occupied cell its rank; the running
-// offset carries across tiles. A cell of rank < cap writes its coords, its
-// feature row and vmask = 1. Rows past the occupancy stay as the caller's
-// zero fill. The per-sample occupancy is written out so the caller can flag
-// an overflow (occupancy > cap). Only B blocks run (32 at the main path's
-// batch on 132 SMs): simple first, a split of G across blocks is later work.
+// Design: one entry point, two kernels on the same grid of (cell tiles, B)
+// blocks, kTileCells / 4 threads a block, 4 cells a thread
+// (cuda_compact.TILE_CELLS: 256, 512 or 1024 cells, swept by
+// scripts/sweep_interp_compact.py):
+//  1. compact_count: each block counts the occupied cells of its tile and
+//     writes one count;
+//  2. compact_write: each block sums the counts of the tiles before its
+//     own in its sample (one warp, 32 tiles a round: one round at level 0
+//     with 1024-cell tiles) and the sample's total, then ranks its occupied cells by a block-wide exclusive scan
+//     (warp shuffles, then a scan of the warp totals). A cell of rank < cap
+//     writes its coords and vmask = 1 and lists itself in shared memory;
+//     the block then copies the listed feature rows, threads across
+//     channels, float4 where C % 4 == 0, the loads of kCopyUnroll rows in
+//     flight. The tail [min(occupancy, cap), cap) of coords, vfeats and
+//     vmask is zeroed by the same blocks, shared out over the sample's
+//     tiles, so the caller allocates the outputs empty; the first tile's
+//     block writes the occupancy, so the caller can flag an overflow
+//     (occupancy > cap).
+// No atomics: the output is the same from run to run, and bit-equal to the
+// plain version.
 //
 // K5 replaces the Pallas kernel dcl_net_tpu/ops/pallas_compact.py
 // (_make_bwd_kernel, launched by _run_bwd), in which each grid step owned
@@ -54,60 +67,178 @@
 
 namespace {
 
-constexpr int kThreads = 1024;
-constexpr int kWarps = kThreads / 32;
+constexpr int kCopyUnroll = 4;  // rows whose loads K2's writer issues together
 
-__global__ void __launch_bounds__(kThreads)
-compact_occupied(const float* __restrict__ feats, const float* __restrict__ mask,
-                 int* __restrict__ coords, float* __restrict__ vfeats,
-                 float* __restrict__ vmask, int* __restrict__ occupancy,
-                 int g, int c, int d1, int d2, int cap) {
+// The occupancy bits of cells cell0 .. cell0 + 3 of m[0, g) (bit k: cell0 +
+// k, mask > 0): one float4 load where vec (g % 4 == 0, m 16-byte aligned).
+__device__ __forceinline__ unsigned occupied4(const float* __restrict__ m, long long cell0,
+                                              int g, int vec) {
+  if (cell0 >= g) return 0u;
+  if (vec) {
+    const float4 x = reinterpret_cast<const float4*>(m + cell0)[0];
+    return (x.x > 0.f ? 1u : 0u) | (x.y > 0.f ? 2u : 0u) | (x.z > 0.f ? 4u : 0u) |
+           (x.w > 0.f ? 8u : 0u);
+  }
+  unsigned bits = 0u;
+  for (int k = 0; k < 4 && cell0 + k < g; ++k) bits |= (m[cell0 + k] > 0.f ? 1u : 0u) << k;
+  return bits;
+}
+
+__device__ __forceinline__ int warp_sum(int x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+template <int kTileCells>
+__global__ void __launch_bounds__(kTileCells / 4)
+compact_count(const float* __restrict__ mask, int* __restrict__ tile_counts, int g,
+              int tiles, int vec) {
+  constexpr int kWarps = kTileCells / 4 / 32;
+  __shared__ int warp_total[kWarps];
+  const int b = blockIdx.y;
+  const long long cell0 = (long long)blockIdx.x * kTileCells + 4 * threadIdx.x;
+  const int x = warp_sum(__popc(occupied4(mask + (long long)b * g, cell0, g, vec)));
+  if ((threadIdx.x & 31) == 0) warp_total[threadIdx.x >> 5] = x;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int total = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) total += warp_total[w];
+    tile_counts[(long long)b * tiles + blockIdx.x] = total;
+  }
+}
+
+template <int kTileCells>
+__global__ void __launch_bounds__(kTileCells / 4)
+compact_write(const float* __restrict__ feats, const float* __restrict__ mask,
+              const int* __restrict__ tile_counts, int* __restrict__ coords,
+              float* __restrict__ vfeats, float* __restrict__ vmask,
+              int* __restrict__ occupancy, int g, int c, int d1, int d2, int cap, int tiles,
+              int vec_mask, int vec_rows) {
+  constexpr int kThreads = kTileCells / 4;
+  constexpr int kWarps = kThreads / 32;
   __shared__ int warp_incl[kWarps];
-  const int b = blockIdx.x;
+  __shared__ int sample[2];       // occupied cells before this tile, in the sample
+  __shared__ int sel[kTileCells];  // the cells of this tile's written rows, in rank order
+  const int b = blockIdx.y;
+  const int t = blockIdx.x;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const float* m = mask + (long long)b * g;
-  const float* f = feats + (long long)b * g * c;
-  int running = 0;
-  for (int base = 0; base < g; base += kThreads) {
-    const int cell = base + threadIdx.x;
-    const int occ = (cell < g && m[cell] > 0.f) ? 1 : 0;
-    int x = occ;  // inclusive scan within the warp
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, x, o);
-      if (lane >= o) x += y;
+  if (warp == 0) {
+    const int* counts = tile_counts + (long long)b * tiles;
+    int before = 0, total = 0;
+    for (int i = lane; i < tiles; i += 32) {
+      const int x = counts[i];
+      total += x;
+      before += i < t ? x : 0;
     }
-    if (lane == 31) warp_incl[warp] = x;
-    __syncthreads();
-    if (warp == 0) {  // inclusive scan of the warp totals
-      int w = warp_incl[lane];
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const int y = __shfl_up_sync(0xffffffffu, w, o);
-        if (lane >= o) w += y;
-      }
-      warp_incl[lane] = w;
+    before = warp_sum(before);
+    total = warp_sum(total);
+    if (lane == 0) {
+      sample[0] = before;
+      sample[1] = total;
     }
-    __syncthreads();
-    const int rank = running + (warp > 0 ? warp_incl[warp - 1] : 0) + x - occ;
-    if (occ && rank < cap) {
+  }
+  const long long cell0 = (long long)t * kTileCells + 4 * threadIdx.x;
+  const unsigned bits = occupied4(mask + (long long)b * g, cell0, g, vec_mask);
+  const int own = __popc(bits);
+  int x = own;  // inclusive scan within the warp
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) warp_incl[warp] = x;
+  __syncthreads();
+  if (warp == 0) {  // inclusive scan of the warp totals
+    int w = lane < kWarps ? warp_incl[lane] : 0;
+#pragma unroll
+    for (int o = 1; o < kWarps; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, w, o);
+      if (lane >= o) w += y;
+    }
+    if (lane < kWarps) warp_incl[lane] = w;
+  }
+  __syncthreads();
+  const int before = sample[0];
+  const int total = sample[1];
+  const long long row0 = (long long)b * cap;
+  int rank = before + (warp > 0 ? warp_incl[warp - 1] : 0) + x - own;
+  for (int k = 0; k < 4; ++k) {
+    if (!((bits >> k) & 1u)) continue;
+    if (rank < cap) {
+      const int cell = (int)cell0 + k;
       const int i0 = cell / (d1 * d2);
       const int rem = cell - i0 * d1 * d2;
       const int i1 = rem / d2;
-      const long long row = (long long)b * cap + rank;
-      coords[row * 3 + 0] = i0;
-      coords[row * 3 + 1] = i1;
-      coords[row * 3 + 2] = rem - i1 * d2;
-      vmask[row] = 1.f;
-      const float* src = f + (long long)cell * c;
-      float* dst = vfeats + row * c;
-      for (int k = 0; k < c; ++k) dst[k] = src[k];
+      int* xyz = coords + (row0 + rank) * 3;
+      xyz[0] = i0;
+      xyz[1] = i1;
+      xyz[2] = rem - i1 * d2;
+      vmask[row0 + rank] = 1.f;
+      sel[rank - before] = cell;
     }
-    running += warp_incl[kWarps - 1];
-    __syncthreads();  // warp_incl is rewritten by the next tile
+    ++rank;
   }
-  if (threadIdx.x == 0) occupancy[b] = running;
+  __syncthreads();
+  // the listed rows: vfeats[row0 + before + r] = feats[b, sel[r]]
+  const int rows = max(0, min(cap - before, warp_incl[kWarps - 1]));
+  const float* fb = feats + (long long)b * g * c;
+  float* dst = vfeats + (row0 + before) * c;
+  if (vec_rows) {
+    const int c4 = c >> 2;
+    const int k = threadIdx.x % c4;
+    const int step = kThreads / c4;
+    const float4* src4 = reinterpret_cast<const float4*>(fb) + k;
+    float4* dst4 = reinterpret_cast<float4*>(dst) + k;
+    int r = threadIdx.x / c4;
+    for (; r + (kCopyUnroll - 1) * step < rows; r += kCopyUnroll * step) {
+      float4 f[kCopyUnroll];
+#pragma unroll
+      for (int u = 0; u < kCopyUnroll; ++u) f[u] = src4[(long long)sel[r + u * step] * c4];
+#pragma unroll
+      for (int u = 0; u < kCopyUnroll; ++u) dst4[(long long)(r + u * step) * c4] = f[u];
+    }
+    for (; r < rows; r += step) dst4[(long long)r * c4] = src4[(long long)sel[r] * c4];
+  } else {
+    for (long long e = threadIdx.x; e < (long long)rows * c; e += kThreads) {
+      const int r = (int)(e / c);
+      dst[e] = fb[(long long)sel[r] * c + (e - (long long)r * c)];
+    }
+  }
+  // the tail [min(total, cap), cap), a share of it per tile of the sample
+  const int nv = min(total, cap);
+  const int share = (cap - nv + tiles - 1) / tiles;
+  const long long lo = min((long long)cap, nv + (long long)t * share);
+  const long long hi = min((long long)cap, lo + share);
+  if (lo < hi) {
+    tile_fill::zero(vfeats + (row0 + lo) * c, (hi - lo) * c);
+    tile_fill::zero(reinterpret_cast<float*>(coords + (row0 + lo) * 3), (hi - lo) * 3);
+    tile_fill::zero(vmask + row0 + lo, hi - lo);
+  }
+  if (t == 0 && threadIdx.x == 0) occupancy[b] = total;
+}
+
+template <int kTileCells>
+int launch_compact(const float* feats, const float* mask, int* coords, float* vfeats,
+                   float* vmask, int* counts, int b, int g, int c, int d1, int d2, int cap,
+                   cudaStream_t s) {
+  constexpr int kThreads = kTileCells / 4;
+  const int tiles = (g + kTileCells - 1) / kTileCells;
+  const auto aligned = [](const void* p) {
+    return reinterpret_cast<unsigned long long>(p) % 16 == 0;
+  };
+  const int vec_mask = g % 4 == 0 && aligned(mask);
+  const int vec_rows = c > 0 && c % 4 == 0 && kThreads % (c / 4) == 0 && aligned(feats) &&
+                       aligned(vfeats);
+  int* tile_counts = counts + b;
+  const dim3 blocks((unsigned)tiles, (unsigned)b);
+  compact_count<kTileCells><<<blocks, kThreads, 0, s>>>(mask, tile_counts, g, tiles, vec_mask);
+  compact_write<kTileCells><<<blocks, kThreads, 0, s>>>(
+      feats, mask, tile_counts, coords, vfeats, vmask, counts, g, c, d1, d2, cap, tiles,
+      vec_mask, vec_rows);
+  return (int)cudaGetLastError();
 }
 
 constexpr int kBwdThreads = 256;
@@ -157,21 +288,29 @@ compact_occupied_bwd(const float* __restrict__ dv, const int* __restrict__ coord
 
 }  // namespace
 
-// feats [B,G,C] f32, mask [B,G] f32; coords [B,cap,3] i32, vfeats [B,cap,C]
-// f32 and vmask [B,cap] f32 zero-filled by the caller; occupancy [B] i32.
+// feats [B,G,C] f32, mask [B,G] f32; writes every element of coords
+// [B,cap,3] i32, vfeats [B,cap,C] f32 and vmask [B,cap] f32 (allocated
+// empty) and of counts [B + B * ceil(G / tile_cells)] i32: the occupancy
+// [B], then the per-tile counts. tile_cells in {256, 512, 1024}; another
+// value returns cudaErrorInvalidValue.
 extern "C" int dclx_compact(const void* feats, const void* mask, void* coords,
-                            void* vfeats, void* vmask, void* occupancy,
-                            int b, int g, int c, int d1, int d2, int cap,
+                            void* vfeats, void* vmask, void* counts,
+                            int b, int g, int c, int d1, int d2, int cap, int tile_cells,
                             void* stream) {
+  if (b <= 0 || g <= 0) return (int)cudaGetLastError();
+  const auto* f = static_cast<const float*>(feats);
+  const auto* m = static_cast<const float*>(mask);
+  auto* xyz = static_cast<int*>(coords);
+  auto* vf = static_cast<float*>(vfeats);
+  auto* vm = static_cast<float*>(vmask);
+  auto* n = static_cast<int*>(counts);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (b > 0) {
-    compact_occupied<<<b, kThreads, 0, s>>>(
-        static_cast<const float*>(feats), static_cast<const float*>(mask),
-        static_cast<int*>(coords), static_cast<float*>(vfeats),
-        static_cast<float*>(vmask), static_cast<int*>(occupancy),
-        g, c, d1, d2, cap);
+  switch (tile_cells) {
+    case 256: return launch_compact<256>(f, m, xyz, vf, vm, n, b, g, c, d1, d2, cap, s);
+    case 512: return launch_compact<512>(f, m, xyz, vf, vm, n, b, g, c, d1, d2, cap, s);
+    case 1024: return launch_compact<1024>(f, m, xyz, vf, vm, n, b, g, c, d1, d2, cap, s);
+    default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 // dv [B,cap,C] f32, coords [B,cap,3] i32 and vmask [B,cap] f32 from the

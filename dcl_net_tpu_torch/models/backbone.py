@@ -11,11 +11,11 @@ ops/cuda_compact.py) and interpolated back onto the points by 3-NN:
 32+64+128+256 = 480 channels per point. interp_mode picks the
 interpolation: "exact" and "pallas" (the JAX package's names for its XLA
 and Pallas two-stage paths, one path here) build the voxel centers and run
-kernel K3 (ops/cuda_interp.py); "pallas_fused" runs kernel K6
-(ops/cuda_fused.py), which decodes the centers inside the kernel. In
-training the gradient flows back through the interpolation (kernel K4) and
-the compaction (kernel K5) onto the pooled grids; on the fused path the two
-run as its backward, K7.
+kernel K3 (ops/cuda_interp.py) over K2's valid prefix (its occupancy);
+"pallas_fused" runs kernel K6 (ops/cuda_fused.py), which decodes the
+centers inside the kernel. In training the gradient flows back through the
+interpolation (kernel K4) and the compaction (kernel K5) onto the pooled
+grids; on the fused path the two run as its backward, K7.
 """
 
 from __future__ import annotations
@@ -121,7 +121,9 @@ class MultiScalePointFeatures(nn.Module):
                 centers = (coords.to(torch.float32)
                            * getattr(self, f"center_unit{level}").float()
                            + getattr(self, f"center_shift{level}").float()).to(points.dtype)
-                interp = cuda_interp.nn_interpolate(points, centers, vfeats, vmask)
+                # K3 scans only K2's valid prefix [0, min(occupancy, cap))
+                interp = cuda_interp.nn_interpolate(points, centers, vfeats, vmask,
+                                                    occupancy)
             overflow = overflow | (occupancy > cap)
             feats_all.append(interp)
         return torch.cat(feats_all, dim=-1), overflow

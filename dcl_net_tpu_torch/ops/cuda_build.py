@@ -24,7 +24,8 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
 SOURCES = ("voxelize.cu", "compact.cu", "interp.cu", "fused.cu")
-HEADERS = ("three_nn.cuh",  # included by interp.cu and fused.cu
+HEADERS = ("three_nn.cuh",  # included by fused.cu and three_nn_lanes.cuh
+           "three_nn_lanes.cuh",  # included by interp.cu
            "inverse_index.cuh",  # included by interp.cu and fused.cu
            "tile_fill.cuh")  # included by voxelize.cu, compact.cu and fused.cu
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3"]
@@ -36,8 +37,8 @@ _F = ctypes.c_float
 # f32 constants as c_float.
 SIGNATURES = {
     "dclx_voxelize": [_P] * 5 + [_I] * 9 + [_P],
-    "dclx_compact": [_P] * 6 + [_I] * 6 + [_P],
-    "dclx_interp": [_P] * 7 + [_I] * 4 + [_P],
+    "dclx_compact": [_P] * 6 + [_I] * 7 + [_P],
+    "dclx_interp": [_P] * 8 + [_I] * 6 + [_P],
     "dclx_inverse_index": [_P] * 2 + [_I] * 3 + [_P],
     "dclx_interp_bwd": [_P] * 5 + [_I] * 5 + [_P],
     "dclx_compact_bwd": [_P] * 4 + [_I] * 7 + [_P],

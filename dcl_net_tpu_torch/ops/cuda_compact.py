@@ -25,6 +25,9 @@ launches = 0
 bwd_launches = 0
 
 BWD_TILE_BYTES = 16 * 1024  # K5 and K7 (ops/cuda_fused.py): output bytes per block
+# K2's cells per block (csrc/compact.cu: 256, 512 or 1024), 4 cells a thread
+TILE_CELLS = 1024
+TILE_CHOICES = (256, 512, 1024)
 
 
 def bwd_tile(c: int) -> int:
@@ -49,7 +52,13 @@ def dense_to_sparse_cuda(
     (occupied = mask > 0, mask f32 [B, D0, D1, D2]) in linear-index order.
 
     Returns coords [B, cap, 3] int32, vfeats [B, cap, C], vmask [B, cap]
-    (zero past the occupancy) and the occupancy [B] int32."""
+    (zero past the occupancy) and the occupancy [B] int32.
+
+    One kernel entry point of two kernels on (cell tiles of TILE_CELLS, B)
+    blocks: per-tile counts, then a writer that ranks its tile's cells from
+    the counts before it and writes every element of the outputs, the zero
+    tail included, so all four are allocated empty (the occupancy shares
+    its buffer with the per-tile counts)."""
     global launches
     if feats.device.type == "cpu":
         return dense_to_sparse_reference(feats, mask, capacity)
@@ -67,18 +76,21 @@ def dense_to_sparse_cuda(
     req(feats.is_contiguous() and mask.is_contiguous(), name,
         "inputs must be contiguous")
     req(0 < capacity <= g, name, lambda: f"capacity {capacity} outside [1, {g}]")
+    req(b <= 65535, name, lambda: f"batch {b} above 65535 (the kernel's grid y)")
+    tile = TILE_CELLS
+    req(tile in TILE_CHOICES, name, lambda: f"TILE_CELLS {tile} not in {TILE_CHOICES}")
     dev = feats.device
-    coords = torch.zeros((b, capacity, 3), dtype=torch.int32, device=dev)
-    vfeats = torch.zeros((b, capacity, c), dtype=torch.float32, device=dev)
-    vmask = torch.zeros((b, capacity), dtype=torch.float32, device=dev)
-    occupancy = torch.empty((b,), dtype=torch.int32, device=dev)
+    coords = torch.empty((b, capacity, 3), dtype=torch.int32, device=dev)
+    vfeats = torch.empty((b, capacity, c), dtype=torch.float32, device=dev)
+    vmask = torch.empty((b, capacity), dtype=torch.float32, device=dev)
+    counts = torch.empty((b * (1 + -(-g // tile)),), dtype=torch.int32, device=dev)
     cuda_build.launch(
         "dclx_compact", name, dev,
         feats.data_ptr(), mask.data_ptr(), coords.data_ptr(),
-        vfeats.data_ptr(), vmask.data_ptr(), occupancy.data_ptr(),
-        b, g, c, d1, d2, capacity)
+        vfeats.data_ptr(), vmask.data_ptr(), counts.data_ptr(),
+        b, g, c, d1, d2, capacity, tile)
     launches += 1
-    return coords, vfeats, vmask, occupancy
+    return coords, vfeats, vmask, counts[:b]
 
 
 def dense_to_sparse_bwd_reference(dv: torch.Tensor, coords: torch.Tensor,

@@ -16,7 +16,7 @@ the plain version's order (`inverse_index_reference`).
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -28,6 +28,13 @@ from dcl_net_tpu_torch.ops.knn import BIG, iterated_argmin
 launches = 0
 bwd_launches = 0
 index_launches = 0
+
+# K3's block: QUERIES queries, each scanned by SCAN_LANES lanes of a warp
+# (csrc/interp.cu; swept by scripts/sweep_interp_compact.py).
+SCAN_LANES = 4
+QUERIES = 128
+LANE_CHOICES = (2, 4, 8)
+QUERY_CHOICES = (32, 64, 128)
 
 # The inverse index sorts a sample's 3N entries in one block: N <= MAX_POINTS.
 MAX_POINTS = 2048
@@ -50,9 +57,10 @@ def index_scratch_words(b: int, n: int, v: int) -> int:
 
 def nn_interpolate_reference(
     points: torch.Tensor, centers: torch.Tensor, feats: torch.Tensor,
-    mask: torch.Tensor,
+    mask: torch.Tensor, n_valid: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain version of the kernel.
+    """Plain version of the kernel. n_valid is taken and ignored: under its
+    precondition (mask 0 from n_valid[b] on) it changes nothing.
 
     Squared distances by direct differences, summed over axes 0, 1, 2 in
     that order; masked centers at BIG; iterated-argmin top 3 (ties to the
@@ -71,19 +79,37 @@ def nn_interpolate_reference(
     return out, w.transpose(1, 2).contiguous(), idx.transpose(1, 2).contiguous()
 
 
+def check_n_valid(name: str, n_valid: Optional[torch.Tensor], b: int, device) -> None:
+    """n_valid, where given, is int32 [b], contiguous, on `device`; raise
+    ValueError otherwise."""
+    if n_valid is None:
+        return
+    req = cuda_build.require
+    req(n_valid.dtype == torch.int32 and tuple(n_valid.shape) == (b,), name,
+        lambda: f"n_valid must be int32 [{b}], got {n_valid.dtype} {tuple(n_valid.shape)}")
+    req(n_valid.device == device, name, "inputs on different devices")
+    req(n_valid.is_contiguous(), name, "n_valid must be contiguous")
+
+
 def nn_interpolate_cuda(
     points: torch.Tensor, centers: torch.Tensor, feats: torch.Tensor,
-    mask: torch.Tensor,
+    mask: torch.Tensor, n_valid: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """3-NN inverse-squared-distance interpolation of [B, V, C] features at
     [B, V, 3] centers (valid where mask [B, V] > 0) onto [B, N, 3] points.
 
-    All inputs f32 and contiguous. Returns out [B, N, C] and, for the
-    backward, the weights w [B, 3, N] and indices idx [B, 3, N] int32."""
+    All inputs f32 and contiguous. n_valid [B] int32, optional: the kernel
+    reads and scans only rows [0, min(n_valid[b], V)) of sample b, so the
+    mask must be 0 from there on (K2's occupancy meets that for K2's
+    output; it may exceed V, which is the capacity). Without it all V rows
+    are scanned. The result is the same either way. Returns out [B, N, C]
+    and, for the backward, the weights w [B, 3, N] and indices idx
+    [B, 3, N] int32."""
     global launches
+    name = "nn_interpolate_cuda"
+    check_n_valid(name, n_valid, points.shape[0], points.device)
     if points.device.type == "cpu":
         return nn_interpolate_reference(points, centers, feats, mask)
-    name = "nn_interpolate_cuda"
     req = cuda_build.require
     req(points.is_cuda, name, lambda: f"unsupported device {points.device}")
     req(points.dim() == 3 and points.shape[-1] == 3, name,
@@ -95,19 +121,24 @@ def nn_interpolate_cuda(
     req(v > 0, name, "no centers")
     req(tuple(centers.shape) == (b, v, 3), name, lambda: f"centers must be [{b}, {v}, 3]")
     req(tuple(mask.shape) == (b, v), name, lambda: f"mask must be [{b}, {v}]")
+    req(b <= 65535, name, lambda: f"batch {b} above 65535 (the kernel's grid y)")
     for t in (points, centers, feats, mask):
         req(t.dtype == torch.float32, name, lambda: f"inputs must be f32, got {t.dtype}")
         req(t.device == points.device, name, "inputs on different devices")
         req(t.is_contiguous(), name, "inputs must be contiguous")
+    lanes, queries = SCAN_LANES, QUERIES
+    req(lanes in LANE_CHOICES and queries in QUERY_CHOICES, name,
+        lambda: f"SCAN_LANES {lanes} / QUERIES {queries} not in {LANE_CHOICES} / "
+        f"{QUERY_CHOICES}")
     dev = points.device
     out = torch.empty((b, n, c), dtype=torch.float32, device=dev)
     w = torch.empty((b, 3, n), dtype=torch.float32, device=dev)
     idx = torch.empty((b, 3, n), dtype=torch.int32, device=dev)
     cuda_build.launch(
         "dclx_interp", name, dev,
-        points.data_ptr(), centers.data_ptr(), feats.data_ptr(),
-        mask.data_ptr(), out.data_ptr(), w.data_ptr(), idx.data_ptr(),
-        b, n, v, c)
+        points.data_ptr(), centers.data_ptr(), feats.data_ptr(), mask.data_ptr(),
+        None if n_valid is None else n_valid.data_ptr(),
+        out.data_ptr(), w.data_ptr(), idx.data_ptr(), b, n, v, c, lanes, queries)
     launches += 1
     return out, w, idx
 
@@ -223,8 +254,8 @@ class NNInterpolate(torch.autograd.Function):
     data and the centers come from integer voxel coordinates."""
 
     @staticmethod
-    def forward(ctx, points, centers, feats, mask):
-        out, w, idx = nn_interpolate_cuda(points, centers, feats, mask)
+    def forward(ctx, points, centers, feats, mask, n_valid):
+        out, w, idx = nn_interpolate_cuda(points, centers, feats, mask, n_valid)
         ctx.save_for_backward(w, idx)
         ctx.n_centers = feats.shape[1]
         return out
@@ -235,10 +266,12 @@ class NNInterpolate(torch.autograd.Function):
         dfeats = None
         if ctx.needs_input_grad[2]:
             dfeats = nn_interpolate_bwd_cuda(g.contiguous(), w, idx, ctx.n_centers)
-        return None, None, dfeats, None
+        return None, None, dfeats, None, None
 
 
 def nn_interpolate(points: torch.Tensor, centers: torch.Tensor,
-                   feats: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Differentiable 3-NN interpolation [B, N, C] (see nn_interpolate_cuda)."""
-    return NNInterpolate.apply(points, centers, feats, mask)
+                   feats: torch.Tensor, mask: torch.Tensor,
+                   n_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Differentiable 3-NN interpolation [B, N, C] (see nn_interpolate_cuda;
+    n_valid bounds the rows the kernel scans)."""
+    return NNInterpolate.apply(points, centers, feats, mask, n_valid)

@@ -22,7 +22,7 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from dcl_net_tpu_torch import autotune_convs, resolve_device
+from dcl_net_tpu_torch import autotune_convs, resolve_device, strict_f32
 from dcl_net_tpu_torch.config import Config
 from dcl_net_tpu_torch.data.schema import batch_to_torch
 
@@ -254,7 +254,10 @@ def make_train_step(model: torch.nn.Module, opt: Optimizer, loss_fn: Callable,
     on_stage: called with "forward", "loss", "backward" and "optimizer" as
     each stage has been queued (scripts/profile_torch_train.py records a
     CUDA event there); None costs nothing.
+
+    Turns TF32 off (strict_f32): the step runs in f32.
     """
+    strict_f32()
     params = [p for p in model.parameters() if p.requires_grad]
     stats = bn_statistics(model)
     mark = on_stage or (lambda stage: None)
@@ -314,7 +317,9 @@ class Solver:
         stage-2 trainer passes train/stage2.py's step, with the refiner as
         `model` and loss_fn None.
 
-        Turns on cuDNN's algorithm autotuning (autotune_convs)."""
+        Turns TF32 off (strict_f32) and cuDNN's algorithm autotuning on
+        (autotune_convs)."""
+        strict_f32()
         autotune_convs()
         self.device = resolve_device(device)
         self.model = model.to(self.device)

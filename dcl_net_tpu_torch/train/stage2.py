@@ -17,6 +17,7 @@ from typing import Any, Callable, Dict, Mapping
 
 import torch
 
+from dcl_net_tpu_torch import strict_f32
 from dcl_net_tpu_torch.models.refiner import compose_pose, refiner_inputs, refiner_losses
 from dcl_net_tpu_torch.train.solver import Optimizer, TrainState, apply_gradients
 
@@ -30,7 +31,8 @@ def make_stage2_train_step(main_model: torch.nn.Module, refiner: torch.nn.Module
     train_step(state, batch) updates the refiner's parameters and
     state.opt_state in place and returns 0-d device tensors: loss_all (the
     sum over iterations), loss_last_iter, grad_norm, overflow_frac (of the
-    stage-1 forward) and skipped_nonfinite."""
+    stage-1 forward) and skipped_nonfinite. Turns TF32 off (strict_f32)."""
+    strict_f32()
     params = [p for p in refiner.parameters() if p.requires_grad]
 
     def train_step(state: TrainState, batch: Mapping[str, Any]

@@ -272,3 +272,27 @@ def test_batch_loader_order_padding_and_skip():
     assert len(batches) == 3
     assert batches[-1]["pad"].tolist() == [0.0, 1.0, 1.0]  # padded to the batch
     assert batches[-1]["valid"].tolist() == [1.0, 0.0, 0.0]
+
+
+@pytest.mark.parametrize("entry", ["Solver", "make_train_step", "make_stage2_train_step"])
+def test_training_entry_points_turn_tf32_off(entry, monkeypatch):
+    """Training runs in f32: building a Solver or a train step directly turns
+    off TF32 for matmuls and cuDNN convolutions (both on before)."""
+    from dcl_net_tpu_torch.models.refiner import Refiner
+    from dcl_net_tpu_torch.train.stage2 import make_stage2_train_step
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    ds, model = _tiny()
+    opt, _ = tsolver.build_optimizer(Config(OPT_CFG), 1)
+    if entry == "Solver":
+        cfg = Config(dict(OPT_CFG, max_epoch=1, per_write=1, per_save=0))
+        tsolver.Solver(model, dcl_losses, cfg, BatchLoader(ds, batch_size=2, num_workers=1),
+                       device="cpu")
+    elif entry == "make_train_step":
+        tsolver.make_train_step(model, opt, dcl_losses)
+    else:
+        make_stage2_train_step(model, Refiner(n_inp=64, device="cpu"), opt, 2,
+                               torch.zeros(2, 8, 3))
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
