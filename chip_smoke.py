@@ -17,7 +17,9 @@ Phases, any failure exits non-zero:
     edges, the last cell, masked and out-of-range points); K5 bit-equal at
     every level, below the occupancy and with an empty sample, after a
     check of its precondition on K2's output; K6 also bit-equal to K2 ->
-    voxel_centers -> K3; K4 and K7 at every level bit-equal to their plain
+    voxel_centers -> K3, at every level and on an adversarial set in coords
+    form (tie lattices, 0-3 valid slots, cap % 4 != 0, occupancy above cap,
+    a two-tile sample of 3000 slots); K4 and K7 at every level bit-equal to their plain
     versions run on CPU copies of the inputs and from launch to launch, on
     the main-path inputs and on an adversarial set (one slot taking all
     3 * 1024 contributions of a sample), within a tolerance of the plain
@@ -28,10 +30,10 @@ Phases, any failure exits non-zero:
     valid centers, an empty sample, N = 1000, V % 4 != 0, a non-prefix
     mask: idx equal to the plain version's, out and w within INTERP_ATOL).
     Times the kernel as called and on the device alone (CUDA-graph replay;
-    K2 and K3 also per level, K3 also on all cap rows), the plain version,
+    K2, K3 and K6 also per level, K3 also on all cap rows), the plain version,
     and a PyTorch library call computing the same function where one
     exists, as called and on the device (K1: index_add_ then the divide;
-    also index_add_ alone, which is mode 3's function); K2 and K3 at the
+    also index_add_ alone, which is mode 3's function); K2, K3 and K6 at the
     configs' eval batch of 512 (the batch-32 levels repeated 16 times,
     each output equal to the batch-32 output repeated); then one encode's
     point-feature stage on both paths;
@@ -84,7 +86,7 @@ TRAIN_STEPS = 5  # timed training steps after one warm-up step
 FUSED_TRAIN_STEPS = 3
 STAGE2_TRAIN_STEPS = 5
 ITERATIONS = 2  # refinement steps of stage 2
-REPEAT = 16  # K2 and K3 are also timed at batch BATCH * REPEAT = 512, the configs' eval batch
+REPEAT = 16  # K2, K3, K6 are also timed at batch BATCH * REPEAT = 512, the configs' eval batch
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and f32 (non-tensor) FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
@@ -305,8 +307,84 @@ def check_interp_adversarial(dev) -> None:
             check(e <= INTERP_ATOL, f"K3 {what}: {name} differs by {e}")
 
 
+def adversarial_fused_inputs(seed: int = 0):
+    """K6's hard inputs, as numpy: a list of (what, points [B, N, 3], coords
+    [B, cap, 3] int32, feats [B, cap, C], mask [B, cap], occupancy [B]
+    int32, unit_s, off_c). As in K2's output the mask is 1 on the slots
+    [0, min(occupancy, cap)) and 0 after.
+     - "tie lattice": adversarial_interp_inputs' lattice as integer coords
+       with unit_s 0.25 and off_c 0 (centers exact in f32): in order,
+       shuffled, each of 1024 coords twice, and occupancy 1000 of 2048;
+     - "few valid": cap 64 with occupancy 0, 1, 2 and 3, N = 1000 (not a
+       multiple of the block's queries), C = 33 (no float4 epilogue);
+     - "cap % 4 != 0": cap 517 with occupancy 517, 300 and 5, C = 40 (odd
+       samples' rows start off 16 bytes: the plain-load path);
+     - "over capacity": occupancy 300, 1000, 256 and 100 at cap 256;
+     - "tile loop": one sample, cap 4096, occupancy 3000: two tiles of 2048
+       rows, the second bulk copy after the first tile's in-place decode.
+    The other cases' coords are random in [0, 64)^3 (repeats included) under
+    the affine map of a 64^3 grid."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    f32, i32 = np.float32, np.int32
+
+    def prefix(occ, cap):
+        return (np.arange(cap)[None] < np.minimum(occ, cap)[:, None]).astype(f32)
+
+    lat = np.stack(np.meshgrid(np.arange(16), np.arange(16), np.arange(8), indexing="ij"),
+                   -1).reshape(-1, 3).astype(i32)
+    coords = np.repeat(lat[None], 4, 0)
+    coords[1] = lat[rng.permutation(len(lat))]
+    coords[2] = np.repeat(lat[:1024], 2, 0)
+    occ = np.asarray([2048, 2048, 2048, 1000], i32)
+    offs = np.asarray([[0, 0, 0], [0.125, 0, 0], [0.125, 0.125, 0], [0.125, 0.125, 0.125]], f32)
+    points = (lat[rng.randint(0, len(lat), (4, 1024))] * f32(0.25)
+              + offs[rng.randint(0, 4, (4, 1024))]).astype(f32)
+    cases = [("tie lattice", points, coords, rng.randn(4, 2048, 32).astype(f32),
+              prefix(occ, 2048), occ, (0.25,) * 3, (0.0,) * 3)]
+    unit_s, off_c = (0.024, 0.03, 0.018), (-0.75, -0.9, -0.6)
+    lo, hi = np.asarray(off_c, f32), np.asarray(off_c, f32) + 64 * np.asarray(unit_s, f32)
+    for what, b, n, cap, c, occ in (
+            ("few valid", 4, 1000, 64, 33, (0, 1, 2, 3)),
+            ("cap % 4 != 0", 3, 1000, 517, 40, (517, 300, 5)),
+            ("over capacity", 4, 512, 256, 32, (300, 1000, 256, 100)),
+            ("tile loop", 1, 600, 4096, 32, (3000,))):
+        occ = np.asarray(occ, i32)
+        cases.append((what, (lo + rng.rand(b, n, 3) * (hi - lo)).astype(f32),
+                      rng.randint(0, 64, (b, cap, 3)).astype(i32),
+                      rng.randn(b, cap, c).astype(f32), prefix(occ, cap), occ, unit_s, off_c))
+    return cases
+
+
+def check_fused_adversarial(dev) -> None:
+    """K6 on adversarial_fused_inputs: out, w and idx torch.equal to K3 with
+    n_valid (the occupancy) on the centers coords * unit_s + off_c formed on
+    the card; against the plain K6 on CPU copies idx is equal and out, w
+    are within INTERP_ATOL."""
+    import torch
+
+    from dcl_net_tpu_torch.ops import cuda_fused, cuda_interp
+
+    for what, *arrays, unit_s, off_c in adversarial_fused_inputs():
+        pts, crd, fts, msk, occ = (torch.as_tensor(a, device=dev) for a in arrays)
+        got = cuda_fused.compact_interpolate_cuda(pts, crd, fts, msk, occ, unit_s, off_c)
+        unit, off = (torch.tensor(x, dtype=torch.float32, device=dev) for x in (unit_s, off_c))
+        want = cuda_interp.nn_interpolate_cuda(pts, crd.to(torch.float32) * unit + off, fts,
+                                               msk, occ)
+        for a, r, name in zip(got, want, ("out", "w", "idx")):
+            check(torch.equal(a, r), f"K6 {what}: {name} differs from K2's centers -> K3")
+        plain = cuda_fused.compact_interpolate_reference(
+            pts.cpu(), crd.cpu(), fts.cpu(), msk.cpu(), occ.cpu(), unit_s, off_c)
+        check(torch.equal(got[2].cpu(), plain[2]), f"K6 {what}: idx differ from the plain "
+              "version")
+        for a, r, name in zip(got[:2], plain[:2], ("out", "w")):
+            e = max_err(a.cpu(), r)
+            check(e <= INTERP_ATOL, f"K6 {what}: {name} differs by {e}")
+
+
 def batch512_phase(entries: dict, level_outputs, card: str) -> None:
-    """K2 and K3 at the configs' eval batch of 512
+    """K2, K3 and K6 at the configs' eval batch of 512
     (configs/config_YCBV_bs32.yaml: hyper_dataloader_test.bs): each level's batch-32
     inputs repeated REPEAT times along the batch, so the backbone never runs
     at 512. Each output is torch.equal to the batch-32 output repeated; each
@@ -314,13 +392,13 @@ def batch512_phase(entries: dict, level_outputs, card: str) -> None:
     into entries' batch512_ms, batch512_device_ms."""
     import torch
 
-    from dcl_net_tpu_torch.ops import cuda_compact, cuda_interp
+    from dcl_net_tpu_torch.ops import cuda_compact, cuda_fused, cuda_interp
 
     def rep(t):
         return t.repeat(REPEAT, *([1] * (t.dim() - 1)))
 
-    t = {"compact": [0.0, 0.0], "interp": [0.0, 0.0]}
-    for level, (lf, lm, cap, got2, args3, got3) in enumerate(level_outputs):
+    t = {"compact": [0.0, 0.0], "interp": [0.0, 0.0], "fused": [0.0, 0.0]}
+    for level, (lf, lm, cap, got2, args3, got3, affine, got6) in enumerate(level_outputs):
         lf16, lm16 = rep(lf), rep(lm)
         big2 = cuda_compact.dense_to_sparse_cuda(lf16, lm16, cap)
         for a, r, what in zip(big2, got2, ("coords", "vfeats", "vmask", "occupancy")):
@@ -331,12 +409,19 @@ def batch512_phase(entries: dict, level_outputs, card: str) -> None:
         for a, r, what in zip(big3, got3, ("out", "w", "idx")):
             check(torch.equal(a, rep(r)), f"K3 level {level} at batch {BATCH * REPEAT}: "
                   f"{what} is not the batch-{BATCH} output repeated")
-        del big2, big3
+        del big3
+        args6 = (args16[0], *big2, *affine)
+        big6 = cuda_fused.compact_interpolate_cuda(*args6)
+        for a, r, what in zip(big6, got6, ("out", "w", "idx")):
+            check(torch.equal(a, rep(r)), f"K6 level {level} at batch {BATCH * REPEAT}: "
+                  f"{what} is not the batch-{BATCH} output repeated")
+        del big2, big6
         for key, fn in (("compact", lambda: cuda_compact.dense_to_sparse_cuda(lf16, lm16, cap)),
-                        ("interp", lambda: cuda_interp.nn_interpolate_cuda(*args16))):
+                        ("interp", lambda: cuda_interp.nn_interpolate_cuda(*args16)),
+                        ("fused", lambda: cuda_fused.compact_interpolate_cuda(*args6))):
             t[key][0] += cuda_ms(fn, reps=10)
             t[key][1] += graph_ms(fn, calls=4, reps=5)
-        del lf16, lm16, args16
+        del lf16, lm16, args16, args6
         torch.cuda.empty_cache()
     for key, (ms, dev_ms) in t.items():
         entries[key].update(batch512_ms=ms, batch512_device_ms=dev_ms)
@@ -808,11 +893,12 @@ def main() -> int:
                               for lib in (None, None, 0.0, 0.0, None, 0.0))
     k6.update(two=0.0, dev_two=0.0)  # the centers pass + K3 that K6 replaces
     k2.update(levels=[])  # device ms per level
+    k6.update(levels=[])
     # K3 on the main path's call (n_valid: K2's occupancy) and on all cap
     # rows (no n_valid, what earlier rows of the table timed)
     k3.update(levels=[], levels_all=[], dev_all=0.0, ms_all=0.0, bytes_all=0.0,
               flops_all=0.0)
-    level_outputs = []  # per level: the batch-32 inputs and outputs of K2 and K3
+    level_outputs = []  # per level: the batch-32 inputs and outputs of K2, K3 and K6
     k4.update(index_dev=0.0)  # the inverse index alone, K4's and K7's first kernel
     k7.update(index_dev=0.0)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -920,7 +1006,6 @@ def main() -> int:
                             + 2 * b_ * 3 * n_) * 4
         k3["flops"] += 8 * n_ * sel + 5 * b_ * n_ * c_
         k3["flops_all"] += 8 * n_ * float(vmask.sum()) + 5 * b_ * n_ * c_
-        level_outputs.append((lf, lm, cap, got, args3, got3))
         print(f"K3 interp level {level} N {n_} V {v_} C {c_}: err {err:.3g}, with n_valid "
               f"kernel {t_k:.4f} ms (device {d_k:.4f}), all {v_} rows {t_all:.4f} ms (device "
               f"{d_all:.4f}); plain {t_p:.4f} ms", flush=True)
@@ -944,6 +1029,7 @@ def main() -> int:
         # K6 reads only the slots [0, min(occupancy, cap)) that K2 filled
         sel = torch.clamp(occ_k, max=cap).sum().item()
         k6["dev"] += d_k
+        k6["levels"].append(d_k)
         k6["dev_two"] += d_two
         k6["ms"] += t_k
         k6["plain"] += t_p
@@ -954,6 +1040,7 @@ def main() -> int:
         print(f"K6 fused level {level} N {n_} cap {v_} C {c_}: kernel {t_k:.4f} ms "
               f"(device {d_k:.4f}) plain {t_p:.4f} ms (centers pass + K3 {t_two:.4f} ms, "
               f"device {d_two:.4f})", flush=True)
+        level_outputs.append((lf, lm, cap, got, args3, got3, affine, (out6, w6, idx6)))
 
         # K4 at this level's shapes: a cotangent of the interpolated features.
         # Bit-equal to the plain version on CPU copies and from launch to
@@ -1093,7 +1180,7 @@ def main() -> int:
             library_device_ms=acc["lib_dev"])
         if "index_dev" in acc:  # K4 and K7: their first kernel, the inverse index
             entries[key]["index_device_ms"] = acc["index_dev"]
-        if "levels" in acc:  # K2 and K3: per level, and the host's share of a call
+        if "levels" in acc:  # K2, K3 and K6: per level, and the host's share of a call
             entries[key]["level_device_ms"] = acc["levels"]
             entries[key]["host_us_per_call"] = (acc["ms"] - acc["dev"]) / 4 * 1e3
         print(f"{key} over the 4 levels of one branch: kernel {acc['ms']:.4f} ms "
@@ -1104,7 +1191,7 @@ def main() -> int:
     entries["interp"].update(
         ms_all_rows=k3["ms_all"], device_ms_all_rows=k3["dev_all"],
         level_device_ms_all_rows=k3["levels_all"], bound_all_rows_ms=bms_all)
-    for key in ("compact", "interp"):
+    for key in ("compact", "interp", "fused"):
         e = entries[key]
         print(f"{key} device ms per level {', '.join(f'{t:.4f}' for t in e['level_device_ms'])}"
               f"; host overhead {e['host_us_per_call']:.1f} us a call", flush=True)
@@ -1115,6 +1202,11 @@ def main() -> int:
     print("K3 on the adversarial set (tie lattices, 0-3 valid centers, N = 1000, V = 517, "
           "a non-prefix mask): idx equal to the plain version's, out and w within "
           f"{INTERP_ATOL}, with n_valid torch.equal to without", flush=True)
+    check_fused_adversarial(dev)
+    print("K6 on the adversarial set in coords form (tie lattices, 0-3 valid slots, N = "
+          "1000, cap 517, occupancy above cap, 3000 of 4096 slots): torch.equal to K3 with "
+          f"n_valid on the decoded centers, idx equal to the plain version's, out and w within "
+          f"{INTERP_ATOL}", flush=True)
     batch512_phase(entries, level_outputs, card)
     del level_outputs
     print(f"fused over the 4 levels: centers pass + K3 (the two-stage path) "

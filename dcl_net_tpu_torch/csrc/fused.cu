@@ -13,23 +13,30 @@
 // K2's outputs as they are: coords, vfeats, vmask and the occupancy.
 //
 // What the fusion keeps out of device memory is the [B, cap, 3] f32
-// centers tensor and the elementwise pass that writes it: each tile of
-// centers is decoded on its way into shared memory as
-//   c_a = __fadd_rn(__fmul_rn((float)i_a, unit_s[a]), off_c[a]),
-// one rounded product then one rounded sum, which is what the two-stage
-// path's `coords * unit + shift` computes in two passes. With the
-// constants of sparse_conv.voxel_center_affine the centers, and so out, w
-// and idx, are bit-equal to K2 -> voxel_centers -> K3.
-//
-// Bound on an H100: as K3's (interp.cu), operations at the finest level
-// (N x valid-centers distances of 8 f32 operations each), bytes at the
-// coarse ones. The design is K3's (three_nn.cuh): one thread per query, a
-// shared-memory tile of centers, the top 3 in registers, strict < so ties
-// go to the lowest index, and a coalesced block-wide output write. The
-// valid slots are exactly [0, min(occupancy, cap)), so the scan stops
-// there instead of reading the masked tail of the buffer; a query with
-// fewer than 3 valid centers gets index 0 at distance 1e10 for each
-// missing slot, as K3 and the reference give.
+// centers tensor and the elementwise pass that writes it. Bound on an
+// H100: as K3's (interp.cu), operations at the finest level (N x
+// valid-centers distances of 8 f32 operations each), bytes at the coarse
+// ones. K6 runs K3's kernel body (three_nn_lanes.cuh) with the coords as
+// its row source (three_nn_lanes::CoordRows):
+//  - the scan stops at the occupancy: the valid slots are exactly
+//    [0, max(0, min(occupancy, cap))), passed as K3's n_valid;
+//  - a coords row is 12 bytes, as a centers row is, so the same bulk copies
+//    (cp.async.bulk, completion on an mbarrier) bring the valid prefix of
+//    coords and of the mask into the same shared-memory layout, 16 B a row,
+//    up to 2048 rows at once; plain loads where the sample's rows are not
+//    16-byte aligned or a rounded-up copy would pass cap, as K3's;
+//  - after the copy the block decodes the tile in place, each word
+//    c_a = __fadd_rn(__fmul_rn((float)i_a, unit_s[a]), off_c[a]), one
+//    rounded product then one rounded sum, which is what the two-stage
+//    path's `coords * unit + shift` computes in two passes. Those are
+//    generic-proxy writes to shared memory, so a later tile's bulk copy
+//    into the same buffer is fenced after them (fence.proxy.async);
+//  - then K3's split scan over S lanes of a warp, the (d, j) merge, the
+//    weights and the float4 epilogue, unchanged.
+// With the constants of sparse_conv.voxel_center_affine the centers, and so
+// out, w and idx, are bit-equal to K2 -> voxel_centers -> K3. A query with
+// fewer than 3 valid centers gets index 0 at distance 1e10 for each missing
+// slot, as K3 and the reference give.
 //
 // K7 replaces the Pallas backward of dcl_net_tpu/ops/pallas_fused.py
 // (_vjp_bwd), which ran the interpolation's backward kernel (a weighted
@@ -66,53 +73,10 @@
 #include <cuda_runtime.h>
 
 #include "inverse_index.cuh"
-#include "three_nn.cuh"
+#include "three_nn_lanes.cuh"
 #include "tile_fill.cuh"
 
 namespace {
-
-using three_nn::kQueries;
-using three_nn::kTile;
-
-__global__ void __launch_bounds__(kQueries)
-compact_interp_three_nn(const float* __restrict__ points, const int* __restrict__ coords,
-                        const float* __restrict__ vfeats, const float* __restrict__ vmask,
-                        const int* __restrict__ occupancy, float* __restrict__ out,
-                        float* __restrict__ w_out, int* __restrict__ idx_out, int n,
-                        int cap, int c, float us0, float us1, float us2, float oc0,
-                        float oc1, float oc2) {
-  __shared__ float4 ctr[kTile];
-  const int b = blockIdx.y;
-  const int q0 = blockIdx.x * kQueries;
-  const int q = q0 + threadIdx.x;
-  const bool active = q < n;
-  float px = 0.f, py = 0.f, pz = 0.f;
-  if (active) {
-    const float* p = points + ((long long)b * n + q) * 3;
-    px = p[0];
-    py = p[1];
-    pz = p[2];
-  }
-  three_nn::Top3 top;
-  const int* cb = coords + (long long)b * cap * 3;
-  const float* mb = vmask + (long long)b * cap;
-  const int nv = min(occupancy[b], cap);  // the same for the whole block
-  for (int base = 0; base < nv; base += kTile) {
-    const int len = min(kTile, nv - base);
-    for (int t = threadIdx.x; t < len; t += kQueries) {
-      const int* ci = cb + (long long)(base + t) * 3;
-      ctr[t] = make_float4(__fadd_rn(__fmul_rn(__int2float_rn(ci[0]), us0), oc0),
-                           __fadd_rn(__fmul_rn(__int2float_rn(ci[1]), us1), oc1),
-                           __fadd_rn(__fmul_rn(__int2float_rn(ci[2]), us2), oc2),
-                           mb[base + t]);
-    }
-    __syncthreads();
-    if (active) three_nn::scan_tile(top, ctr, len, base, px, py, pz);
-    __syncthreads();  // the tile is overwritten next
-  }
-  three_nn::write_block(top, active, b, q0, n, c, vfeats + (long long)b * cap * c, out,
-                        w_out, idx_out);
-}
 
 using inverse_index::kWriterThreads;
 
@@ -152,26 +116,23 @@ compact_interp_grid_bwd(const float* __restrict__ g, const float* __restrict__ w
 }  // namespace
 
 // points [B,N,3] f32; coords [B,cap,3] i32, vfeats [B,cap,C] f32,
-// vmask [B,cap] f32, occupancy [B] i32 as K2 writes them;
-// out [B,N,C] f32, w [B,3,N] f32, idx [B,3,N] i32; unit_s and off_c the
-// per-axis affine map from voxel coordinates to metric centers.
+// vmask [B,cap] f32, occupancy [B] i32 as K2 writes them; out [B,N,C] f32,
+// w [B,3,N] f32, idx [B,3,N] i32; lanes and queries as dclx_interp's; unit_s
+// and off_c the per-axis affine map from voxel coordinates to metric centers.
 extern "C" int dclx_compact_interp(const void* points, const void* coords,
                                    const void* vfeats, const void* vmask,
                                    const void* occupancy, void* out, void* w, void* idx,
-                                   int b, int n, int cap, int c, float us0, float us1,
-                                   float us2, float oc0, float oc1, float oc2,
-                                   void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (b > 0 && n > 0) {
-    dim3 grid((n + kQueries - 1) / kQueries, b);
-    compact_interp_three_nn<<<grid, kQueries, 0, s>>>(
-        static_cast<const float*>(points), static_cast<const int*>(coords),
-        static_cast<const float*>(vfeats), static_cast<const float*>(vmask),
-        static_cast<const int*>(occupancy), static_cast<float*>(out),
-        static_cast<float*>(w), static_cast<int*>(idx), n, cap, c, us0, us1, us2, oc0,
-        oc1, oc2);
-  }
-  return (int)cudaGetLastError();
+                                   int b, int n, int cap, int c, int lanes, int queries,
+                                   float us0, float us1, float us2, float oc0, float oc1,
+                                   float oc2, void* stream) {
+  const three_nn_lanes::CoordRows rows{static_cast<const int*>(coords), us0, us1, us2,
+                                       oc0, oc1, oc2};
+  return three_nn_lanes::launch(static_cast<const float*>(points), rows,
+                                static_cast<const float*>(vfeats),
+                                static_cast<const float*>(vmask),
+                                static_cast<const int*>(occupancy), static_cast<float*>(out),
+                                static_cast<float*>(w), static_cast<int*>(idx), b, n, cap, c,
+                                lanes, queries, static_cast<cudaStream_t>(stream));
 }
 
 // g [B,N,C] f32, w [B,3,N] f32 and idx [B,3,N] i32 (each in [0, cap)) as K6

@@ -1,29 +1,84 @@
-// Device code of K3 (interp.cu), the masked 3-NN interpolation: S lanes of
-// one warp scan a query's centers together, from a shared-memory copy of
-// the sample's valid prefix that the copy engine brings in, then merge
-// their top 3 by warp shuffles; the whole block then writes the output
-// rows, float4 along channels, with the gathers of several rows in flight.
+// The one kernel body of the masked 3-NN interpolation, shared by K3
+// (interp.cu), which reads f32 voxel centers, and K6 (fused.cu), which reads
+// the compaction's int32 voxel coordinates and decodes them into centers in
+// shared memory. The two differ only in their row source (CenterRows,
+// CoordRows below): the scan, the merge, the weights and the epilogue are
+// this file's, so K6 is bit-equal to K3 on the centers K3 would be given.
 //
-// The selection is bit-equal to the one-thread-per-query scan of
-// three_nn.cuh (which K6, fused.cu, still uses): lane s of a query scans
-// the centers j = s, s + S, s + 2S, ... in ascending j with strict <, so it
-// keeps the three smallest (d, j) of its share in lexicographic order; the
-// merge keeps the three smallest (d, j) of the union in the same order, and
-// a sequential strict-< scan in ascending j keeps exactly those. The
-// distances are three_nn::sq_dist (no FMA contraction); tensor cores are
-// not used: the expansion form |p|^2 + |c|^2 - 2 p.c that a wgmma product
-// would need rounds differently and changes idx on near-ties.
+// Per block: the sample's valid prefix of rows is copied into shared memory
+// by the copy engine (one bulk copy of the rows, one of the mask); S lanes of
+// one warp scan a query's centers together and merge their top 3 by warp
+// shuffles; the whole block then writes the output rows, float4 along
+// channels, with the gathers of several rows in flight.
+//
+// The selection equals a sequential strict-< scan in ascending j: lane s of
+// a query scans the centers j = s, s + S, s + 2S, ... in ascending j with
+// strict <, so it keeps the three smallest (d, j) of its share in
+// lexicographic order; the merge keeps the three smallest (d, j) of the
+// union in the same order, and a sequential strict-< scan in ascending j
+// keeps exactly those. The distances are sq_dist (no FMA contraction);
+// tensor cores are not used: the expansion form |p|^2 + |c|^2 - 2 p.c that a
+// wgmma product would need rounds differently and changes idx on near-ties.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "three_nn.cuh"
-
 namespace three_nn_lanes {
 
-using three_nn::Top3;
+constexpr float kBig = 1e10f;
+constexpr int kTileRows = 2048;  // rows in shared memory at once (32 KB)
+constexpr int kGatherRows = 2;   // output rows whose gathers are in flight together
+
+// The three smallest squared distances seen so far and their indices.
+// Strict < keeps the lowest index among equal distances.
+struct Top3 {
+  float d0, d1, d2;
+  int j0, j1, j2;
+
+  __device__ __forceinline__ Top3() {
+    d0 = d1 = d2 = __int_as_float(0x7f800000);  // +inf
+    j0 = j1 = j2 = -1;
+  }
+
+  __device__ __forceinline__ void push(float d, int j) {
+    if (d < d2) {
+      if (d < d1) {
+        d2 = d1;
+        j2 = j1;
+        if (d < d0) {
+          d1 = d0;
+          j1 = j0;
+          d0 = d;
+          j0 = j;
+        } else {
+          d1 = d;
+          j1 = j;
+        }
+      } else {
+        d2 = d;
+        j2 = j;
+      }
+    }
+  }
+
+  // Missing slots: the reference's argmin over an all-1e10 row is index 0.
+  __device__ __forceinline__ void fill_missing() {
+    if (j0 < 0) { j0 = 0; d0 = kBig; }
+    if (j1 < 0) { j1 = 0; d1 = kBig; }
+    if (j2 < 0) { j2 = 0; d2 = kBig; }
+  }
+};
+
+// Squared distance by direct differences summed over axes 0, 1, 2 in that
+// order, without FMA contraction, as the plain version computes it.
+__device__ __forceinline__ float sq_dist(float px, float py, float pz, const float* c) {
+  const float e0 = px - c[0], e1 = py - c[1], e2 = pz - c[2];
+  float d = __fmul_rn(e0, e0);
+  d = __fadd_rn(d, __fmul_rn(e1, e1));
+  return __fadd_rn(d, __fmul_rn(e2, e2));
+}
 
 // (d, j) before (e, k) in lexicographic order. An empty slot is (+inf, -1)
 // and never holds a real candidate's place: a scanned d is always < +inf.
@@ -85,8 +140,7 @@ __device__ __forceinline__ void scan_share(Top3& top, const float* ctr, const fl
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       const int j = t + u * S;
-      d[u] = three_nn::sq_dist(px, py, pz,
-                               make_float4(ctr[3 * j], ctr[3 * j + 1], ctr[3 * j + 2], 0.f));
+      d[u] = sq_dist(px, py, pz, ctr + 3 * j);
       ok[u] = msk[j] > 0.f;
     }
 #pragma unroll
@@ -94,14 +148,13 @@ __device__ __forceinline__ void scan_share(Top3& top, const float* ctr, const fl
       if (ok[u]) top.push(d[u], base + t + u * S);
   }
   for (; t < len; t += S) {
-    const float d = three_nn::sq_dist(
-        px, py, pz, make_float4(ctr[3 * t], ctr[3 * t + 1], ctr[3 * t + 2], 0.f));
+    const float d = sq_dist(px, py, pz, ctr + 3 * t);
     if (msk[t] > 0.f) top.push(d, base + t);
   }
 }
 
 // The weights w_k = (1 / (d_k + 1e-8)) * (1 / sum_j 1 / (d_j + 1e-8)) of a
-// merged top 3 after fill_missing, rounded as three_nn::write_block does.
+// merged top 3 after fill_missing, each product and sum rounded once.
 __device__ __forceinline__ void weights(const Top3& top, float& w0, float& w1, float& w2) {
   const float r0 = 1.f / (top.d0 + 1e-8f);
   const float r1 = 1.f / (top.d1 + 1e-8f);
@@ -218,6 +271,161 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
 // before later async-proxy (bulk copy) writes to it.
 __device__ __forceinline__ void fence_async_shared() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---- the row sources: 3 words of 4 bytes a row, so one tile layout serves both
+
+// K3's rows: f32 centers [B, V, 3], scanned as they are.
+struct CenterRows {
+  const float* src;
+  static constexpr bool kDecode = false;
+  __device__ __forceinline__ float word(long long i) const { return src[i]; }
+};
+
+// K6's rows: K2's int32 voxel coordinates [B, cap, 3]. The tile holds their
+// bits until decode() turns each into its center in place,
+//   c_a = __fadd_rn(__fmul_rn((float)i_a, unit_s[a]), off_c[a]),
+// one rounded product then one rounded sum, which is what the two-stage
+// path's `coords * unit + shift` computes in two passes.
+struct CoordRows {
+  const int* src;
+  float us0, us1, us2, oc0, oc1, oc2;
+  static constexpr bool kDecode = true;
+  __device__ __forceinline__ float word(long long i) const { return __int_as_float(src[i]); }
+  // Rows [0, len) of the tile, row r by thread r mod blockDim.x (a stride of
+  // 3 words: no bank conflicts).
+  __device__ __forceinline__ void decode(float* ctr, int len) const {
+    for (int r = threadIdx.x; r < len; r += blockDim.x) {
+      float* x = ctr + 3 * r;
+      x[0] = __fadd_rn(__fmul_rn(__int2float_rn(__float_as_int(x[0])), us0), oc0);
+      x[1] = __fadd_rn(__fmul_rn(__int2float_rn(__float_as_int(x[1])), us1), oc1);
+      x[2] = __fadd_rn(__fmul_rn(__int2float_rn(__float_as_int(x[2])), us2), oc2);
+    }
+  }
+};
+
+// ---- the kernel: grid (query tiles of Q, B), S * Q threads, 16 B of dynamic
+// shared memory a tile row
+
+template <int S, int Q, class Rows>
+__global__ void __launch_bounds__(S * Q)
+three_nn_rows(const float* __restrict__ points, Rows rows, const float* __restrict__ feats,
+              const float* __restrict__ mask, const int* __restrict__ n_valid,
+              float* __restrict__ out, float* __restrict__ w_out, int* __restrict__ idx_out,
+              int n, int v, int c, int tile_rows, int bulk_ok, int vec) {
+  extern __shared__ __align__(128) float tile[];  // rows [tile_rows, 3], then mask
+  __shared__ __align__(8) uint64_t bar;
+  __shared__ int s_idx[3][Q];
+  __shared__ float s_w[3][Q];
+  float* ctr = tile;
+  float* msk = tile + 3 * tile_rows;
+  const int b = blockIdx.y;
+  const int q0 = blockIdx.x * Q;
+  const int lq = threadIdx.x / S;
+  const int share = threadIdx.x % S;
+  const bool active = q0 + lq < n;
+  float px = 0.f, py = 0.f, pz = 0.f;
+  if (active) {
+    const float* p = points + ((long long)b * n + q0 + lq) * 3;
+    px = p[0];
+    py = p[1];
+    pz = p[2];
+  }
+  const int nv = n_valid == nullptr ? v : max(0, min(n_valid[b], v));
+  if (threadIdx.x == 0) mbar_init(&bar, 1);
+  __syncthreads();
+  const long long row0 = (long long)b * v;
+  Top3 top;
+  uint32_t phase = 0;
+  for (int base = 0; base < nv; base += tile_rows) {
+    const int len = min(tile_rows, nv - base);
+    const int len4 = (len + 3) & ~3;
+    if (base > 0) __syncthreads();  // every lane is done with the last tile
+    if (bulk_ok && ((row0 + base) & 3) == 0 && base + len4 <= v) {
+      if (threadIdx.x == 0) {
+        if (base > 0) fence_async_shared();
+        mbar_expect_bytes(&bar, 16u * len4);
+        bulk_load(ctr, rows.src + (row0 + base) * 3, 12u * len4, &bar);
+        bulk_load(msk, mask + row0 + base, 4u * len4, &bar);
+      }
+      mbar_wait(&bar, phase);
+      phase ^= 1u;
+    } else {
+      const long long w0 = (row0 + base) * 3;
+      for (int i = threadIdx.x; i < 3 * len; i += S * Q) ctr[i] = rows.word(w0 + i);
+      for (int i = threadIdx.x; i < len; i += S * Q) msk[i] = mask[row0 + base + i];
+      __syncthreads();
+    }
+    if constexpr (Rows::kDecode) {
+      rows.decode(ctr, len);
+      // the decode's generic-proxy writes before the next tile's bulk copy
+      if (base + tile_rows < nv) fence_async_shared();
+      __syncthreads();
+    }
+    scan_share<S>(top, ctr, msk, len, base, share, px, py, pz);
+  }
+  merge_lanes<S>(top);
+  if (active && share == 0) {
+    top.fill_missing();
+    float w0, w1, w2;
+    weights(top, w0, w1, w2);
+    s_idx[0][lq] = top.j0;
+    s_idx[1][lq] = top.j1;
+    s_idx[2][lq] = top.j2;
+    s_w[0][lq] = w0;
+    s_w[1][lq] = w1;
+    s_w[2][lq] = w2;
+    const long long wb = (long long)b * 3 * n + q0 + lq;
+    w_out[wb] = w0;
+    w_out[wb + n] = w1;
+    w_out[wb + 2LL * n] = w2;
+    idx_out[wb] = top.j0;
+    idx_out[wb + n] = top.j1;
+    idx_out[wb + 2LL * n] = top.j2;
+  }
+  __syncthreads();
+  write_rows<Q, S * Q, kGatherRows>(s_idx, s_w, min(Q, n - q0), c, vec, feats + row0 * c,
+                                out + ((long long)b * n + q0) * c);
+}
+
+template <int S, int Q, class Rows>
+int launch_shape(const float* points, Rows rows, const float* feats, const float* mask,
+                 const int* n_valid, float* out, float* w, int* idx, int b, int n, int v,
+                 int c, cudaStream_t s) {
+  constexpr int kThreads = S * Q;
+  const int tile_rows = min(kTileRows, (v + 3) & ~3);
+  const auto aligned = [](const void* p) {
+    return reinterpret_cast<unsigned long long>(p) % 16 == 0;
+  };
+  const int bulk_ok = aligned(rows.src) && aligned(mask);
+  const int vec = c > 0 && c % 4 == 0 && kThreads % (c / 4) == 0 && aligned(feats) &&
+                  aligned(out);
+  const dim3 grid((unsigned)((n + Q - 1) / Q), (unsigned)b);
+  three_nn_rows<S, Q, Rows><<<grid, kThreads, (size_t)16 * tile_rows, s>>>(
+      points, rows, feats, mask, n_valid, out, w, idx, n, v, c, tile_rows, bulk_ok, vec);
+  return (int)cudaGetLastError();
+}
+
+// points [B,N,3] f32, rows [B,V,3] (the source's type), feats [B,V,C] f32,
+// mask [B,V] f32; n_valid [B] i32 or null (scan rows [0, min(n_valid[b], V)),
+// which must hold every row with mask > 0; null: all V rows); out [B,N,C]
+// f32, w [B,3,N] f32, idx [B,3,N] i32. lanes (S) in {2, 4, 8} and queries
+// (Q) in {32, 64, 128}: the block's shape; another pair returns
+// cudaErrorInvalidValue.
+template <class Rows>
+int launch(const float* points, Rows rows, const float* feats, const float* mask,
+           const int* n_valid, float* out, float* w, int* idx, int b, int n, int v, int c,
+           int lanes, int queries, cudaStream_t s) {
+  if (b <= 0 || n <= 0) return (int)cudaGetLastError();
+#define DCLX_THREE_NN_CASE(S, Q)                                                        \
+  if (lanes == S && queries == Q)                                                       \
+    return launch_shape<S, Q>(points, rows, feats, mask, n_valid, out, w, idx, b, n, v, \
+                              c, s);
+  DCLX_THREE_NN_CASE(2, 32) DCLX_THREE_NN_CASE(2, 64) DCLX_THREE_NN_CASE(2, 128)
+  DCLX_THREE_NN_CASE(4, 32) DCLX_THREE_NN_CASE(4, 64) DCLX_THREE_NN_CASE(4, 128)
+  DCLX_THREE_NN_CASE(8, 32) DCLX_THREE_NN_CASE(8, 64) DCLX_THREE_NN_CASE(8, 128)
+#undef DCLX_THREE_NN_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace three_nn_lanes

@@ -3,10 +3,11 @@ hand-written CUDA kernels (csrc/fused.cu, with csrc/inverse_index.cuh).
 
 Replace the Pallas kernels of dcl_net_tpu/ops/pallas_fused.py (forward and
 custom-VJP backward). The forward runs the compaction K2
-(ops/cuda_compact.py), then K6, which interpolates straight from K2's
-coords, decoding each voxel center in the kernel, so the [B, cap, 3]
-centers tensor and the pass that writes it are never made. Its results are
-bit-equal to K2 -> voxel_centers -> K3. The backward K7 computes what
+(ops/cuda_compact.py), then K6, which is K3's kernel (ops/cuda_interp.py,
+the same block shape: SCAN_LANES, QUERIES) reading K2's coords and decoding
+each voxel center in shared memory, so the [B, cap, 3] centers tensor and
+the pass that writes it are never made. Its results are bit-equal to K2 ->
+voxel_centers -> K3. The backward K7 computes what
 pallas_fused._vjp_bwd does, the interpolation's backward into the
 compacted rows and then the compaction's backward onto the grid, with the
 gradient w.r.t. the features only, in one entry point that writes the grid
@@ -67,7 +68,9 @@ def compact_interpolate_cuda(
     """3-NN inverse-squared-distance interpolation onto [B, N, 3] points of
     the compaction's output: coords [B, cap, 3] int32, vfeats [B, cap, C]
     f32, vmask [B, cap] f32 and occupancy [B] int32, as K2 writes them. The
-    center of slot j is coords[j] * unit_s + off_c per axis (f32).
+    center of slot j is coords[j] * unit_s + off_c per axis (f32). The
+    kernel scans only the slots [0, min(occupancy[b], cap)), K3's n_valid,
+    so vmask must be 0 from there on (K2's output meets that).
 
     Returns out [B, N, C] and, for the backward, w [B, 3, N] and idx
     [B, 3, N] int32."""
@@ -90,6 +93,7 @@ def compact_interpolate_cuda(
     req(occupancy.dtype == torch.int32 and tuple(occupancy.shape) == (b,), name,
         lambda: f"occupancy must be int32 [{b}]")
     req(tuple(vmask.shape) == (b, cap), name, lambda: f"vmask must be [{b}, {cap}]")
+    req(b <= 65535, name, lambda: f"batch {b} above 65535 (the kernel's grid y)")
     for t in (points, vfeats, vmask):
         req(t.dtype == torch.float32, name,
             lambda: f"points, vfeats, vmask must be f32, got {t.dtype}")
@@ -97,6 +101,7 @@ def compact_interpolate_cuda(
         req(t.device == points.device, name, "inputs on different devices")
         req(t.is_contiguous(), name, "inputs must be contiguous")
     req(len(unit_s) == 3 and len(off_c) == 3, name, "unit_s and off_c take 3 values")
+    lanes, queries = cuda_interp.block_shape(name)
     dev = points.device
     out = torch.empty((b, n, c), dtype=torch.float32, device=dev)
     w = torch.empty((b, 3, n), dtype=torch.float32, device=dev)
@@ -105,7 +110,8 @@ def compact_interpolate_cuda(
         "dclx_compact_interp", name, dev,
         points.data_ptr(), coords.data_ptr(), vfeats.data_ptr(), vmask.data_ptr(),
         occupancy.data_ptr(), out.data_ptr(), w.data_ptr(), idx.data_ptr(),
-        b, n, cap, c, *(float(u) for u in unit_s), *(float(o) for o in off_c))
+        b, n, cap, c, lanes, queries, *(float(u) for u in unit_s),
+        *(float(o) for o in off_c))
     launches += 1
     return out, w, idx
 

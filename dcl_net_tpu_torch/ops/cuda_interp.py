@@ -29,8 +29,8 @@ launches = 0
 bwd_launches = 0
 index_launches = 0
 
-# K3's block: QUERIES queries, each scanned by SCAN_LANES lanes of a warp
-# (csrc/interp.cu; swept by scripts/sweep_interp_compact.py).
+# The block of K3 and K6: QUERIES queries, each scanned by SCAN_LANES lanes of
+# a warp (csrc/three_nn_lanes.cuh; swept by scripts/sweep_interp_compact.py).
 SCAN_LANES = 4
 QUERIES = 128
 LANE_CHOICES = (2, 4, 8)
@@ -77,6 +77,16 @@ def nn_interpolate_reference(
     terms = feats[batch, idx.long()] * w[..., None]  # [B, N, 3, C]
     out = (terms[:, :, 0] + terms[:, :, 1]) + terms[:, :, 2]
     return out, w.transpose(1, 2).contiguous(), idx.transpose(1, 2).contiguous()
+
+
+def block_shape(name: str) -> Tuple[int, int]:
+    """(SCAN_LANES, QUERIES): the block shape K3 and K6 launch with; raise
+    ValueError unless it is one the library was built for."""
+    lanes, queries = SCAN_LANES, QUERIES
+    cuda_build.require(lanes in LANE_CHOICES and queries in QUERY_CHOICES, name,
+                       lambda: f"SCAN_LANES {lanes} / QUERIES {queries} not in "
+                       f"{LANE_CHOICES} / {QUERY_CHOICES}")
+    return lanes, queries
 
 
 def check_n_valid(name: str, n_valid: Optional[torch.Tensor], b: int, device) -> None:
@@ -126,10 +136,7 @@ def nn_interpolate_cuda(
         req(t.dtype == torch.float32, name, lambda: f"inputs must be f32, got {t.dtype}")
         req(t.device == points.device, name, "inputs on different devices")
         req(t.is_contiguous(), name, "inputs must be contiguous")
-    lanes, queries = SCAN_LANES, QUERIES
-    req(lanes in LANE_CHOICES and queries in QUERY_CHOICES, name,
-        lambda: f"SCAN_LANES {lanes} / QUERIES {queries} not in {LANE_CHOICES} / "
-        f"{QUERY_CHOICES}")
+    lanes, queries = block_shape(name)
     dev = points.device
     out = torch.empty((b, n, c), dtype=torch.float32, device=dev)
     w = torch.empty((b, 3, n), dtype=torch.float32, device=dev)

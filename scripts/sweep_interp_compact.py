@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Block shapes of the main path's 3-NN interpolation K3 and compaction K2 on
-one GPU.
+"""Block shapes of the main path's 3-NN interpolation K3, of the fused
+compaction -> interpolation K6 that runs K3's kernel, and tile sizes of the
+compaction K2, on one GPU.
 
 Usage, from the root of the repository:  python3 scripts/sweep_interp_compact.py
 
@@ -12,10 +13,12 @@ below the occupancy and with an empty sample; and for each of K3's block
 shapes (cuda_interp.SCAN_LANES lanes a query, cuda_interp.QUERIES queries a
 block) it holds K3 with and without n_valid torch.equal to each other, idx
 equal to the plain version's and out, w within chip_smoke.INTERP_ATOL, on
-the main-path inputs and chip_smoke's adversarial set. Then it prints each
+the main-path inputs and chip_smoke's adversarial set, and K6 (the same
+block shape) torch.equal to K3 with n_valid on the main-path levels and
+on chip_smoke's adversarial set in coords form. Then it prints each
 variant's device time per level (CUDA-graph replay, chip_smoke.graph_ms),
-K3 with n_valid (the main path's call) and without. Needs a CUDA card;
-exits non-zero without one.
+K3 with n_valid (the main path's call) and without, and K6. Needs a CUDA
+card; exits non-zero without one.
 """
 
 from __future__ import annotations
@@ -36,14 +39,15 @@ def main() -> int:
         print("sweep_interp_compact: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    from chip_smoke import (INTERP_ATOL, check, check_interp_adversarial, check_slot_prefix,
-                            graph_ms, max_err)
+    from chip_smoke import (INTERP_ATOL, check, check_fused_adversarial,
+                            check_interp_adversarial, check_slot_prefix, graph_ms, max_err)
     from dcl_net_tpu_torch import strict_f32
     from dcl_net_tpu_torch.config import Config
     from dcl_net_tpu_torch.data.schema import batch_to_torch, make_batch
     from dcl_net_tpu_torch.data.synthetic import SyntheticPoseDataset
     from dcl_net_tpu_torch.models.dcl_net import DCLNet
-    from dcl_net_tpu_torch.ops import cuda_build, cuda_compact, cuda_interp, cuda_voxelize
+    from dcl_net_tpu_torch.ops import (cuda_build, cuda_compact, cuda_fused, cuda_interp,
+                                       cuda_voxelize)
     from dcl_net_tpu_torch.ops.sparse_conv import voxel_centers
 
     smi = subprocess.run(
@@ -79,7 +83,7 @@ def main() -> int:
         ref = cuda_compact.dense_to_sparse_reference(lf, lm, cap)
         occ = ref[3]
         centers = voxel_centers(ref[0], pf.unit, pf.scale_list[level], pf.offset)
-        levels.append((lf, lm, cap, dims, ref, centers))
+        levels.append((lf, lm, cap, dims, ref, centers, pf.center_affine[level]))
         print(f"level {level} {dims} C {lf.shape[-1]} cap {cap}: occupancy min "
               f"{int(occ.min())} mean {float(occ.float().mean()):.1f} max {int(occ.max())}",
               flush=True)
@@ -89,7 +93,7 @@ def main() -> int:
     try:
         for tile in cuda_compact.TILE_CHOICES:
             cuda_compact.TILE_CELLS = tile
-            for level, (lf, lm, cap, dims, ref, _) in enumerate(levels):
+            for level, (lf, lm, cap, dims, ref, _, _) in enumerate(levels):
                 lm_e = lm.clone()
                 lm_e[0] = 0.0  # an empty sample
                 for cp, m in ((cap, lm), (max(1, int(ref[3].min()) // 2), lm), (cap, lm_e)):
@@ -102,7 +106,7 @@ def main() -> int:
                     check_slot_prefix(got[0], got[2], got[3], cp, dims,
                                       f"K2 tile {tile} level {level} cap {cp}")
             t2 = [graph_ms(lambda: cuda_compact.dense_to_sparse_cuda(lf, lm, cap))
-                  for lf, lm, cap, _, _, _ in levels]
+                  for lf, lm, cap, *_ in levels]
             print(f"K2 tile {tile} cells on {card}: bit-equal at every level, with overflow "
                   f"and an empty sample; device {sum(t2):.4f} ms "
                   f"({', '.join(f'{t:.4f}' for t in t2)})", flush=True)
@@ -110,7 +114,7 @@ def main() -> int:
             for queries in cuda_interp.QUERY_CHOICES:
                 cuda_interp.SCAN_LANES, cuda_interp.QUERIES = lanes, queries
                 args = []
-                for level, (lf, lm, cap, dims, ref, centers) in enumerate(levels):
+                for level, (lf, lm, cap, dims, ref, centers, affine) in enumerate(levels):
                     coords, vfeats, vmask, occ = ref
                     a = (points, centers, vfeats, vmask)
                     got = cuda_interp.nn_interpolate_cuda(*a, occ)
@@ -125,15 +129,24 @@ def main() -> int:
                         e = max_err(x, y)
                         check(e <= INTERP_ATOL,
                               f"K3 S {lanes} Q {queries} level {level}: {name} differs by {e}")
-                    args.append((a, occ))
+                    a6 = (points, coords, vfeats, vmask, occ, *affine)
+                    for x, y, name in zip(cuda_fused.compact_interpolate_cuda(*a6), got,
+                                          ("out", "w", "idx")):
+                        check(torch.equal(x, y), f"K6 S {lanes} Q {queries} level {level}: "
+                              f"{name} differs from K3 with n_valid")
+                    args.append((a, occ, a6))
                 check_interp_adversarial(dev)
+                check_fused_adversarial(dev)
                 t3 = [graph_ms(lambda: cuda_interp.nn_interpolate_cuda(*a, occ))
-                      for a, occ in args]
+                      for a, occ, _ in args]
                 t3_all = [graph_ms(lambda: cuda_interp.nn_interpolate_cuda(*a))
-                          for a, _ in args]
+                          for a, _, _ in args]
+                t6 = [graph_ms(lambda: cuda_fused.compact_interpolate_cuda(*a6))
+                      for _, _, a6 in args]
                 print(f"K3 S {lanes} Q {queries} on {card}: checks passed; device with "
                       f"n_valid {sum(t3):.4f} ms ({', '.join(f'{t:.4f}' for t in t3)}), all "
-                      f"rows {sum(t3_all):.4f} ms ({', '.join(f'{t:.4f}' for t in t3_all)})",
+                      f"rows {sum(t3_all):.4f} ms ({', '.join(f'{t:.4f}' for t in t3_all)}); "
+                      f"K6 {sum(t6):.4f} ms ({', '.join(f'{t:.4f}' for t in t6)})",
                       flush=True)
     finally:
         cuda_compact.TILE_CELLS = k2_default
