@@ -63,7 +63,19 @@ Phases, any failure exits non-zero:
     configs/config_YCBV_bs40.yaml's optimizer at batch 40 // ITERATIONS, a
     warm-up and STAGE2_TRAIN_STEPS timed steps (stage 1 frozen: no
     backward kernel runs, its weights and BN statistics stay);
- 9. prints the per-kernel JSON line, then the result line
+ 9. the YCB-V eval CLIs from PNG files on disk: writes a 21-class,
+    26-frame tree without PIL (scripts/ycbv_tree.py: 546 instances, 26 of
+    them lost detections), builds the PNG host library, and runs
+    tools/test_ycbv_stage1.main at the config's eval batch of 512 (or the
+    largest power of two that fits, the out-of-memory point printed) with a
+    checkpoint of the seeded model: timed with the config's loader threads
+    (instances/s end to end and of the evaluate loop, the loader's and
+    reader's share, peak device memory), then two-stage and fused on the
+    same inputs (poses per instance within POSE_ATOL), then at batch 32;
+    then tools/test_ycbv_stage2.main with a refiner checkpoint. Each run's
+    scored and lost rows, results file and launch counts (one template-bank
+    encode, then one observed encode a batch) are checked;
+10. prints the per-kernel JSON line, then the result line
     {"ok": true, "device": {...}} last.
 """
 
@@ -745,6 +757,245 @@ def stage2_train_phase(card, model_f, model_points, grid_shape, n_points,
           f"{avg['grad_norm']:.3f}", flush=True)
 
 
+YCBV_FRAMES = 26  # 26 frames x 21 classes = 546 rows: one full batch of 512 and one padded
+# launches per encode of the stage-1 CLI: the config's point-feature path
+# (two-stage) and model.interp_mode=pallas_fused
+CLI_KERNELS = {None: {"voxelize": 1, "compact": 4, "interp": 4},
+               "pallas_fused": {"voxelize": 1, "compact": 4, "fused": 4}}
+
+
+class CliProbe:
+    """Hooks on the port's Evaluator and YCB-V test reader for the CLI runs
+    of the YCB-V phase (set up and taken down by the phase): the poses of
+    every batch Evaluator._run scores, with its valid and pad flags; the
+    seconds of Evaluator.evaluate (the evaluate loop, loader waits
+    included) and of the _run calls in it (each ends in a synchronise:
+    evaluate copies their ADD-S to the host right after); and the reader's
+    seconds summed over the frames its threads read."""
+
+    def __init__(self):
+        import threading
+
+        self.lock = threading.Lock()
+        self.reset()
+
+    def reset(self):
+        self.rows, self.t_evaluate, self.t_run, self.t_read, self.frames = [], 0.0, 0.0, 0.0, 0
+
+    def __enter__(self):
+        import torch
+
+        from dcl_net_tpu_torch.data.ycbv import YCBVTestDataset
+        from dcl_net_tpu_torch.eval.evaluator import Evaluator
+
+        self.saved = (Evaluator.evaluate, Evaluator._run, YCBVTestDataset.__getitem__)
+        evaluate, run, getitem = self.saved
+        probe = self
+
+        def timed_evaluate(ev, loader):
+            t0 = time.perf_counter()
+            res = evaluate(ev, loader)
+            torch.cuda.synchronize()
+            probe.t_evaluate += time.perf_counter() - t0
+            return res
+
+        def timed_run(ev, batch):
+            t0 = time.perf_counter()
+            res = run(ev, batch)
+            torch.cuda.synchronize()
+            probe.t_run += time.perf_counter() - t0
+            probe.rows.append((res["rot_pred"].cpu(), res["trans_pred"].cpu(),
+                               batch["valid"].cpu(), batch["pad"].cpu()))
+            return res
+
+        def timed_getitem(ds, index):
+            t0 = time.perf_counter()
+            frame = getitem(ds, index)
+            with probe.lock:
+                probe.t_read += time.perf_counter() - t0
+                probe.frames += 1
+            return frame
+
+        Evaluator.evaluate, Evaluator._run = timed_evaluate, timed_run
+        YCBVTestDataset.__getitem__ = timed_getitem
+        return self
+
+    def __exit__(self, *exc):
+        from dcl_net_tpu_torch.data.ycbv import YCBVTestDataset
+        from dcl_net_tpu_torch.eval.evaluator import Evaluator
+
+        Evaluator.evaluate, Evaluator._run, YCBVTestDataset.__getitem__ = self.saved
+        return False
+
+    def scored_poses(self):
+        """(rot [R, 3, 3], trans [R, 3]) of the scored rows, in loader order."""
+        import torch
+
+        rot, trans, valid, pad = (torch.cat(x) for x in zip(*self.rows))
+        keep = (valid > 0) & ~(pad > 0)
+        return rot[keep], trans[keep]
+
+
+def ycbv_cli_phase(card: str, model, n_points: int, entries: dict) -> None:
+    """The YCB-V eval CLIs at full width on a 21-class tree written here
+    (scripts/ycbv_tree.py, no PIL): stage 1 at the config's eval batch of
+    512 (or the largest power of two that fits, the failing batch's
+    out-of-memory point printed) through tools/test_ycbv_stage1.main, on
+    the two-stage and the fused path, then at batch 32, then stage 2 through
+    tools/test_ycbv_stage2.main. Checks the scored and lost rows against the
+    tree, the launch counts (one template-bank encode, then one observed
+    encode a batch), the results file, finite poses, and the two paths'
+    poses per instance within POSE_ATOL on the same inputs (one loader
+    thread, so both runs draw the same points)."""
+    import importlib.util
+    import itertools
+    import tempfile
+    import traceback
+
+    import numpy as np
+    import torch
+
+    from dcl_net_tpu_torch.data import png
+    from dcl_net_tpu_torch.models.refiner import Refiner
+    from dcl_net_tpu_torch.tools import test_ycbv_stage1, test_ycbv_stage2
+    from dcl_net_tpu_torch.train.checkpoints import save_checkpoint
+    from dcl_net_tpu_torch.train.solver import TrainState
+
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.benchmark = False  # a fresh CLI process's setting
+    t0 = time.perf_counter()
+    so = png.build()
+    print(f"PNG host library {so.name} ready in {time.perf_counter() - t0:.2f} s", flush=True)
+    spec = importlib.util.spec_from_file_location("ycbv_tree", ROOT / "scripts" / "ycbv_tree.py")
+    writer = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(writer)
+
+    with tempfile.TemporaryDirectory(prefix="dclx_ycbv_") as tmp, CliProbe() as probe:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        tree = writer.write_tree(str(tmp / "data"), n_classes=21, n_frames=YCBV_FRAMES)
+        rows, lost = tree["instances"], tree["lost"]
+        print(f"YCB-V tree: {YCBV_FRAMES} frames, {rows} instances ({lost} lost) written in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        stage1_ckpt = save_checkpoint(str(tmp / "stage1"), model, TrainState(opt_state={}), 1)
+        refiner_ckpt = save_checkpoint(str(tmp / "refiner"), Refiner(n_inp=n_points, seed=0),
+                                       TrainState(opt_state={}), 1)
+        runs = itertools.count()
+
+        def cli(tool, config, bs, workers=None, mode=None, extra=()):
+            """One CLI run at eval batch bs, with `workers` loader threads
+            (default: the config's) and model.interp_mode `mode` (default:
+            the config's); returns (result, seconds of main, launch counts)."""
+            log_root = tmp / f"log{next(runs)}"
+            over = [f"hyper_dataloader_test.bs={bs}"]
+            if mode is not None:
+                over.append(f"model.interp_mode={mode}")
+            if workers is not None:
+                over.append(f"hyper_dataloader_test.num_workers={workers}")
+            probe.reset()
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            res = tool.main(["--config", str(ROOT / "configs" / config), "--path_data",
+                             tree["path_data"], "--log_root", str(log_root), *extra,
+                             "--override", *over])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = read_counts()
+            name = "test_ycbv_stage2" if tool is test_ycbv_stage2 else "test_ycbv_stage1"
+            (saved,) = log_root.glob(f"*/results_{name}.json")
+            check(json.loads(saved.read_text())["auc_mean"] == res["auc_mean"],
+                  f"{saved} does not hold the run's auc_mean")
+            check((res["n_scored"], res["n_lost"]) == (rows, lost),
+                  f"{name} bs {bs} {mode}: n_scored {res['n_scored']} n_lost {res['n_lost']}, "
+                  f"the tree holds {rows} and {lost}")
+            check(bool(np.isfinite(res["auc_mean"])), f"{name}: auc_mean not finite")
+            rot, trans = probe.scored_poses()
+            check(rot.shape[0] == rows - lost and bool(torch.isfinite(rot).all())
+                  and bool(torch.isfinite(trans).all()), f"{name}: poses not finite")
+            encodes = 1 + -(-rows // bs)
+            expect_counts(counts, CLI_KERNELS[mode], encodes, f"{name} bs {bs} {mode}")
+            return res, seconds, counts
+
+        stage1 = ["--checkpoint", stage1_ckpt]
+        # the config's batch, halved until it fits on the card
+        bs = 512
+        while True:
+            try:
+                cli(test_ycbv_stage1, "config_YCBV_bs32.yaml", bs, extra=stage1)  # warm-up
+                break
+            except torch.cuda.OutOfMemoryError:
+                where = traceback.format_exc().strip().splitlines()[-8:]
+                print(f"stage-1 CLI at batch {bs} ran out of device memory on {card}:\n  "
+                      + "\n  ".join(where), flush=True)
+                torch.cuda.empty_cache()
+                check(bs > 32, "the stage-1 CLI does not fit at batch 32")
+                bs //= 2
+        if bs < 512:
+            print(f"stage-1 CLI: batch 512 does not fit in f32; largest power of two that "
+                  f"fits: {bs}", flush=True)
+
+        # timed: the config's loader threads, peak memory over the run
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        res, t_main, counts = cli(test_ycbv_stage1, "config_YCBV_bs32.yaml", bs, extra=stage1)
+        peak = torch.cuda.max_memory_allocated()
+        for key in ("voxelize", "compact", "interp"):
+            entries[key]["ycbv_cli_launches"] = counts[key]
+        print(f"stage-1 CLI two-stage at batch {bs} on {card}: auc_mean {res['auc_mean']} "
+              f"n_scored {res['n_scored']} n_lost {res['n_lost']} n_overflow "
+              f"{res['n_overflow']}; launches {counts}", flush=True)
+        print(f"stage-1 CLI at batch {bs} on {card}: main {t_main:.3f} s = "
+              f"{rows / t_main:.1f} instances/s end to end; evaluate loop "
+              f"{probe.t_evaluate:.3f} s = {rows / probe.t_evaluate:.1f} instances/s, of which "
+              f"{probe.t_run:.3f} s in the model and ADD-S and "
+              f"{probe.t_evaluate - probe.t_run:.3f} s waiting on the loader; reader "
+              f"{probe.t_read:.3f} s over {probe.frames} frames summed over its threads "
+              f"({probe.t_read / probe.frames * 1e3:.1f} ms a frame); peak device memory "
+              f"{peak / 2 ** 30:.2f} GiB ({(peak - base) / 2 ** 30:.2f} GiB above the "
+              f"{base / 2 ** 30:.2f} GiB held before the run)", flush=True)
+
+        # the two paths on the same inputs: one loader thread, same seed
+        poses, aucs = {}, {}
+        for mode in (None, "pallas_fused"):
+            res_m, t_m, counts = cli(test_ycbv_stage1, "config_YCBV_bs32.yaml", bs, workers=1,
+                                     mode=mode, extra=stage1)
+            poses[mode], aucs[mode] = probe.scored_poses(), res_m["auc_mean"]
+            if mode == "pallas_fused":
+                entries["fused"]["ycbv_cli_launches"] = counts["fused"]
+            print(f"stage-1 CLI {mode or 'two-stage'} at batch {bs}, 1 loader thread: "
+                  f"auc_mean {res_m['auc_mean']}, main {t_m:.3f} s = {rows / t_m:.1f} "
+                  f"instances/s, evaluate loop {probe.t_evaluate:.3f} s", flush=True)
+        e_rot = max_err(poses[None][0], poses["pallas_fused"][0])
+        e_trans = max_err(poses[None][1], poses["pallas_fused"][1])
+        print(f"stage-1 CLI fused vs two-stage, {rows - lost} scored instances: rot_pred "
+              f"{e_rot:.3g} trans_pred {e_trans:.3g}", flush=True)
+        check(e_rot <= POSE_ATOL and e_trans <= POSE_ATOL,
+              "the CLI's fused and two-stage poses disagree")
+
+        # batch 32 on the same inputs as the two-stage run above
+        res32, t32, _ = cli(test_ycbv_stage1, "config_YCBV_bs32.yaml", 32, workers=1,
+                            extra=stage1)
+        rot32, trans32 = probe.scored_poses()
+        e32 = max(max_err(rot32, poses[None][0]), max_err(trans32, poses[None][1]))
+        print(f"stage-1 CLI at batch 32, 1 loader thread: auc_mean {res32['auc_mean']} "
+              f"(batch {bs}: {aucs[None]}), poses within {e32:.3g} of batch {bs}'s, "
+              f"main {t32:.3f} s = {rows / t32:.1f} instances/s", flush=True)
+        check(abs(res32["auc_mean"] - aucs[None]) < 0.2,
+              "stage-1 CLI: batch 32 and the large batch disagree")
+
+        # stage 2 at its config's eval batch, the refiner from a checkpoint
+        res2, t2, counts2 = cli(test_ycbv_stage2, "config_YCBV_bs40.yaml", bs,
+                                extra=["--checkpoint_stage1", stage1_ckpt,
+                                       "--checkpoint", refiner_ckpt,
+                                       "--iteration", str(ITERATIONS)])
+        print(f"stage-2 CLI at batch {bs} on {card}: {ITERATIONS} refinement steps, "
+              f"auc_mean {res2['auc_mean']} n_scored {res2['n_scored']} n_lost "
+              f"{res2['n_lost']}, main {t2:.3f} s = {rows / t2:.1f} instances/s, evaluate "
+              f"loop {probe.t_evaluate:.3f} s; launches {counts2}", flush=True)
+    print(f"YCB-V CLI phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1369,7 +1620,11 @@ def main() -> int:
     # ---- 8b. stage-2 training at full width ---------------------------------------
     stage2_train_phase(card, model_f, model_points, grid_shape, n_points)
 
-    # ---- 9. result lines ------------------------------------------------------
+    # ---- 9. the YCB-V eval CLIs at full width, from PNG files on disk ------------
+    torch.cuda.empty_cache()
+    ycbv_cli_phase(card, model, n_points, entries)
+
+    # ---- 10. result lines -----------------------------------------------------
     print(json.dumps({"kernels": [entries[k] for k in KERNEL_ORDER]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,14 +1,15 @@
 """Synthetic pose dataset: procedurally generated CAD-like objects.
 
 The port's own copy of dcl_net_tpu/data/synthetic.py (same draws from the
-same seeds), without the on-disk CAD branch and the frame mode: a template
-cloud on a superquadric surface, an observed cloud = the visible part under
-a random rigid transform with depth-like noise, and sym flags.
+same seeds), without the frame mode: a template cloud on a superquadric
+surface or on an on-disk CAD cloud (cad_dir), an observed cloud = the
+visible part under a random rigid transform with depth-like noise, and sym
+flags.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 
@@ -48,7 +49,12 @@ class SyntheticPoseDataset:
         length: int = 10000,
         seed: int = 0,
         noise: float = 0.002,
+        cad_dir: Optional[str] = None,
     ):
+        """cad_dir: read the objects from its *_pc.ply clouds (xyz + rgb,
+        e.g. the 21 YCB-V object clouds) instead of drawing superquadrics;
+        n_objects then keeps the first n of the sorted files (0: all). The
+        sym flags follow the YCB-V table when there are 21 files."""
         self.n_points = n_points
         self.unit = np.asarray(unit_voxel_extent, np.float32)
         self.limit = np.asarray(voxel_num_limit, np.int32)
@@ -60,6 +66,28 @@ class SyntheticPoseDataset:
         self.cad_colors = []
         self.sym_flags = []
         imagenet_mean = np.array([0.485, 0.456, 0.406], np.float32)
+        if cad_dir is not None:
+            import glob
+            import os
+
+            from dcl_net_tpu_torch.data.ply import read_ply
+            from dcl_net_tpu_torch.data.ycbv import NUM_CLASSES, SYMMETRY_OBJ_IDX
+
+            all_paths = sorted(glob.glob(os.path.join(cad_dir, "*_pc.ply")))
+            if not all_paths:
+                raise FileNotFoundError(f"no *_pc.ply in {cad_dir}")
+            # sym flags index the FULL sorted class list, so detect the
+            # YCB-V set before any truncation
+            is_ycbv = len(all_paths) == NUM_CLASSES
+            paths = all_paths[:n_objects] if n_objects else all_paths
+            for i, p in enumerate(paths):
+                ply = read_ply(p)
+                pts = ply["points"].astype(np.float32)
+                cols = ply.get("colors", np.full_like(pts, 0.5)).astype(np.float32)
+                self.cad_points.append(pts)
+                self.cad_colors.append(cols - imagenet_mean)
+                self.sym_flags.append(1.0 if (is_ycbv and i in SYMMETRY_OBJ_IDX) else 0.0)
+            return
         for _ in range(n_objects):
             pts, cols = _sample_superquadric(rng, 4096)
             self.cad_points.append(pts)

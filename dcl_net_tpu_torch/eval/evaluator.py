@@ -76,10 +76,12 @@ class Evaluator:
 
     def evaluate(self, loader: Iterable[Dict[str, Any]]) -> Dict[str, object]:
         """One pass over host batches (make_batch(...).to_dict()); returns
-        the per-class report plus n_overflow and n_scored."""
+        the per-class report plus n_overflow, n_scored and n_lost (the lost
+        detections among the n_scored rows)."""
         distances: List[float] = []
         class_ids: List[int] = []
         n_overflow = 0
+        n_lost = 0
         for batch in loader:
             res = self._run(batch_to_torch(batch, self.device))
             adds = res["adds"].cpu().numpy()
@@ -88,12 +90,14 @@ class Evaluator:
             pad = np.asarray(batch.get("pad", np.zeros_like(valid)))
             cls = np.asarray(batch["labels"]["obj_idx"], np.int64)
             n_overflow += int((ovf & (valid > 0) & ~(pad > 0)).sum())
+            n_lost += int(((valid <= 0) & ~(pad > 0)).sum())
             self._score_batch(adds, valid, cls, pad, distances, class_ids)
         result = per_class_auc_acc(
             distances, class_ids, num_classes=int(self.model_points.shape[0]),
             logger=self.logger)
         result["n_overflow"] = n_overflow
         result["n_scored"] = len(distances)
+        result["n_lost"] = n_lost
         return result
 
     @staticmethod

@@ -97,7 +97,8 @@ class SparseConvBlock(nn.Module):
 
     In eval mode the BN running statistics fold into the conv
     (w' = w * s, b' = beta - mean * s, s = gamma / sqrt(var + eps)): one
-    conv, then ReLU, then the re-mask that keeps inactive voxels at zero.
+    conv, then ReLU, then the re-mask that keeps inactive voxels at zero,
+    done in place on the conv's output.
     In train mode the conv output is normalised by MaskedBatchNorm over the
     voxels active after the conv (dcl_net_tpu/models/blocks.py:130-145).
     Input invariant: x is zero at inactive voxels."""
@@ -118,13 +119,14 @@ class SparseConvBlock(nn.Module):
         if self.training:
             y = F.conv3d(x.permute(0, 4, 1, 2, 3), self.conv.weight, padding=k // 2)
             y = self.bn(y.permute(0, 2, 3, 4, 1), new_mask)
-        else:
-            s = self.bn.weight / torch.sqrt(self.bn.running_var + self.bn.eps)
-            w_eff = self.conv.weight * s[:, None, None, None, None]
-            b_eff = self.bn.bias - self.bn.running_mean * s
-            y = F.conv3d(x.permute(0, 4, 1, 2, 3), w_eff, padding=k // 2)
-            y = y.permute(0, 2, 3, 4, 1) + b_eff
-        y = torch.relu(y) * new_mask[..., None].to(y.dtype)
+            return torch.relu(y) * new_mask[..., None].to(y.dtype), new_mask
+        s = self.bn.weight / torch.sqrt(self.bn.running_var + self.bn.eps)
+        w_eff = self.conv.weight * s[:, None, None, None, None]
+        b_eff = self.bn.bias - self.bn.running_mean * s
+        y = F.conv3d(x.permute(0, 4, 1, 2, 3), w_eff, padding=k // 2).permute(0, 2, 3, 4, 1)
+        # in place on the conv's fresh output: the values of y + b_eff, relu
+        # and the re-mask, in one grid buffer instead of three
+        y.add_(b_eff).relu_().mul_(new_mask[..., None].to(y.dtype))
         return y, new_mask
 
 

@@ -10,7 +10,7 @@ statistics run over occupied voxels only. Grids are channel-last
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,12 +26,25 @@ def _ndhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 4, 1)
 
 
-def window_sum(x: torch.Tensor, kernel: int, stride: int, padding: int) -> torch.Tensor:
-    """k^3 box sum with zero padding of a channel-last grid [B, D0, D1, D2, C].
+def window_sum(x: torch.Tensor, kernel: int, stride: int, padding: int,
+               mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """k^3 box sum with zero padding of a channel-last grid [B, D0, D1, D2, C],
+    of x * mask[..., None] where a mask [B, D0, D1, D2] is given.
 
     The zero padding is explicit because avg_pool3d refuses inputs smaller
-    than the kernel (the 2^3 level of a 16^3 grid) even when padded."""
-    xp = F.pad(_ncdhw(x), (padding,) * 6)
+    than the kernel (the 2^3 level of a 16^3 grid) even when padded. x (and
+    the mask) are written straight into the interior of one zero-filled
+    contiguous [B, C, ...] buffer, which avg_pool3d reads without a copy:
+    one grid-sized temporary instead of three (the product, the pad and
+    avg_pool3d's contiguous copy), which had been the largest of eval's
+    temporaries at the configs' batch of 512 (PERF.md, section 6)."""
+    b, d0, d1, d2, c = x.shape
+    p = padding
+    xp = x.new_zeros((b, c, d0 + 2 * p, d1 + 2 * p, d2 + 2 * p))
+    inner = xp[:, :, p:p + d0, p:p + d1, p:p + d2]
+    inner.copy_(_ncdhw(x))
+    if mask is not None:
+        inner.mul_(mask[:, None])
     return _ndhwc(F.avg_pool3d(xp, kernel, stride, divisor_override=1))
 
 
@@ -50,7 +63,7 @@ def sparse_avg_pool(feats: torch.Tensor, mask: torch.Tensor, kernel: int = 3,
     pooled features [B, D', D', D', C] (zero where empty) and mask."""
     pad = kernel // 2
     m = mask.to(feats.dtype)
-    s = window_sum(feats * m[..., None], kernel, stride, pad)
+    s = window_sum(feats, kernel, stride, pad, mask=m)
     cnt = window_sum(m[..., None], kernel, stride, pad)[..., 0]
     new_mask = (cnt > 0).to(mask.dtype)
     out = s / torch.clamp(cnt, min=1.0)[..., None]

@@ -1,8 +1,9 @@
 """Shared CLI scaffolding for the port's tools.
 
 Counterpart of dcl_net_tpu/tools/common.py: argparse -> Config.fromfile ->
-overrides -> run directory, logger, source backup and seeds; the model and
-the training dataset from the config.
+overrides -> run directory, logger, source backup and seeds; the model, the
+training dataset, the YCB-V eval dataset and loader from the config; model
+weights from a checkpoint of the port; the eval tools' result file.
 """
 
 from __future__ import annotations
@@ -86,6 +87,83 @@ def build_train_dataset(cfg: Config):
             voxel_num_limit=tuple(int(v) for v in ds_cfg.voxel_num_limit),
             length=int(ds_cfg.get("length", 10000)),
         )
-    if name in ("ycbv_train", "linemod"):
+    if name == "ycbv_train":
+        from dcl_net_tpu_torch.data.ycbv import YCBVTrainDataset
+
+        root, assets = ycbv_dirs(cfg)
+        return YCBVTrainDataset(ds_cfg, root, assets_dir=assets)
+    if name == "linemod":
         raise NotImplementedError(f"dataset {name}: its readers are not ported yet")
     raise KeyError(name)
+
+
+def ycbv_dirs(cfg: Config) -> Tuple[str, str]:
+    """(frames root, assets directory) of YCB-V under cfg.path_data."""
+    assets = os.path.join(cfg.path_data, "YCB_Video_Dataset")
+    return os.path.join(assets, "root"), assets
+
+
+def build_ycbv_eval(cfg: Config):
+    """The YCB-V test dataset of cfg.hyper_dataset_test and its
+    EvalFrameLoader at hyper_dataloader_test's bs and num_workers.
+    device_preprocess and process workers raise: not ported yet."""
+    from dcl_net_tpu_torch.data.loader import EvalFrameLoader
+    from dcl_net_tpu_torch.data.ycbv import YCBVTestDataset
+
+    ds_cfg = cfg.hyper_dataset_test
+    if ds_cfg.get("device_preprocess", False):
+        raise NotImplementedError(
+            "hyper_dataset_test.device_preprocess: device-side preprocessing "
+            "is not ported yet")
+    root, assets = ycbv_dirs(cfg)
+    dataset = YCBVTestDataset(ds_cfg, root, assets_dir=assets)
+    dl = cfg.hyper_dataloader_test
+    loader = EvalFrameLoader(
+        dataset, batch_size=int(dl.get("bs", 256)),
+        num_workers=int(dl.get("num_workers", 8)),
+        worker_type=str(dl.get("worker_type", "thread")))
+    return dataset, loader
+
+
+def load_model_weights(path: str):
+    """The "model" state dict of a checkpoint directory of the port
+    (train/checkpoints.py). A reference .pth / .pt raises: converting the
+    reference's weights is not ported yet."""
+    from dcl_net_tpu_torch.train.checkpoints import load_checkpoint
+
+    if path.endswith((".pth", ".pt")):
+        raise NotImplementedError(
+            f"{path}: loading the reference's .pth weights is not ported yet")
+    return load_checkpoint(path)["model"]
+
+
+def refuse_data_parallel(args) -> None:
+    if args.n_devices is not None and args.n_devices > 1:
+        raise NotImplementedError("--n_devices > 1: data parallelism is not ported yet")
+
+
+def write_result_json(cfg: Config, tool_name: str, result: dict) -> str:
+    """Persist an eval CLI's metric dict as `<log_dir>/results_<tool>.json`.
+
+    The reference tools only print metrics into their logs
+    (tools/test_YCBV_stage1.py:199-205); this is the machine-readable
+    artifact. numpy scalars/arrays are converted to plain JSON types."""
+    import json
+
+    import numpy as np
+
+    def clean(x):
+        if isinstance(x, dict):
+            return {k: clean(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return [clean(v) for v in x]
+        if isinstance(x, np.ndarray):
+            return x.tolist()
+        if isinstance(x, (np.floating, np.integer, np.bool_)):
+            return x.item()
+        return x
+
+    path = os.path.join(cfg.log_dir, f"results_{tool_name}.json")
+    with open(path, "w") as f:
+        json.dump(clean(result), f, indent=1)
+    return path

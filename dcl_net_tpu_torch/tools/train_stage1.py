@@ -20,16 +20,14 @@ def main(argv=None) -> None:
     from dcl_net_tpu_torch.data.loader import BatchLoader
     from dcl_net_tpu_torch.models.dcl_net import dcl_losses
     from dcl_net_tpu_torch.tools.common import (
-        base_parser, build_model, build_train_dataset, init,
+        base_parser, build_model, build_train_dataset, init, refuse_data_parallel,
     )
     from dcl_net_tpu_torch.train.checkpoints import latest_checkpoint
     from dcl_net_tpu_torch.train.logging import ScalarWriter, parameter_count
     from dcl_net_tpu_torch.train.solver import Solver
 
     args = base_parser("DCL-Net stage-1 training (PyTorch)").parse_args(argv)
-    n_devices = args.n_devices
-    if n_devices is not None and n_devices > 1:
-        raise NotImplementedError("--n_devices > 1: data parallelism is not ported yet")
+    refuse_data_parallel(args)
     logger, cfg = init(args, "train_stage1")
     logger.warning("*" * 20 + " Start Logging " + "*" * 20)
     logger.info(str(cfg.to_dict()))

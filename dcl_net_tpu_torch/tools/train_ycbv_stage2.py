@@ -31,9 +31,10 @@ def main(argv=None) -> None:
     from dcl_net_tpu_torch.eval.metrics import add_s_batch
     from dcl_net_tpu_torch.models.refiner import Refiner, refine_pose
     from dcl_net_tpu_torch.tools.common import (
-        base_parser, build_model, build_train_dataset, init,
+        base_parser, build_model, build_train_dataset, init, load_model_weights,
+        refuse_data_parallel,
     )
-    from dcl_net_tpu_torch.train.checkpoints import latest_checkpoint, load_checkpoint
+    from dcl_net_tpu_torch.train.checkpoints import latest_checkpoint
     from dcl_net_tpu_torch.train.logging import ScalarWriter, parameter_count
     from dcl_net_tpu_torch.train.solver import Solver
     from dcl_net_tpu_torch.train.stage2 import make_stage2_train_step
@@ -44,11 +45,8 @@ def main(argv=None) -> None:
     parser.add_argument("--checkpoint_stage1", required=True,
                         help="epoch_<n> directory of a stage-1 run of the port")
     args = parser.parse_args(argv)
-    if args.n_devices is not None and args.n_devices > 1:
-        raise NotImplementedError("--n_devices > 1: data parallelism is not ported yet")
-    if args.checkpoint_stage1.endswith(".pth"):
-        raise NotImplementedError(
-            "--checkpoint_stage1 .pth: loading the reference's weights is not ported yet")
+    refuse_data_parallel(args)
+    stage1_weights = load_model_weights(args.checkpoint_stage1)
     logger, cfg = init(args, "train_ycbv_stage2")
     strict_f32()
     device = resolve_device(args.device)
@@ -56,7 +54,7 @@ def main(argv=None) -> None:
 
     cfg_stage1 = Config.fromfile(args.config_stage1) if args.config_stage1 else cfg
     main_model = build_model(cfg_stage1, device=device, seed=seed)
-    main_model.load_state_dict(load_checkpoint(args.checkpoint_stage1)["model"])
+    main_model.load_state_dict(stage1_weights)
     main_model.eval()
 
     dataset = build_train_dataset(cfg)
@@ -66,10 +64,18 @@ def main(argv=None) -> None:
         dataset, batch_size=bs, shuffle=bool(dl.get("shuffle", True)),
         drop_last=bool(dl.get("drop_last", True)),
         num_workers=int(dl.get("num_workers", 8)), seed=seed)
-    n_tmp = int(cfg.model.n_tmp)
-    cld = torch.as_tensor(np.stack([dataset.model_points(c, n_tmp)
-                                    for c in range(len(dataset.cad_points))]),
-                          dtype=torch.float32, device=device)
+    # the CAD clouds of the ADD-S loss, as the JAX tool takes them: the
+    # eval clouds where the dataset has them, else the YCB-V training
+    # reader's CAD draws (mm -> m), else the synthetic clouds
+    if hasattr(dataset, "model_points_array"):
+        cld = dataset.model_points_array()
+    elif hasattr(dataset, "pc_cad"):
+        cld = np.stack([dataset.pc_cad[c] / 1000.0 for c in sorted(dataset.pc_cad)])
+    else:
+        n_tmp = int(cfg.model.n_tmp)
+        cld = np.stack([dataset.model_points(c, n_tmp)
+                        for c in range(len(dataset.cad_points))])
+    cld = torch.as_tensor(np.asarray(cld, np.float32), device=device)
     refiner = Refiner(n_inp=int(cfg.model.n_inp), device=device, seed=seed)
 
     probe_idx = np.random.RandomState(seed + 977).choice(

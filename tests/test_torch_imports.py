@@ -1,11 +1,13 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX package.
 
 An AST scan of every module of dcl_net_tpu_torch (the stage-2 refiner,
-evaluator, train step and CLI and the fused kernel's wrapper among them;
-and of chip_smoke.py and the scripts/profile_torch_*.py), then
-a fresh interpreter that imports them all with jax, flax and dcl_net_tpu
-blocked in sys.modules. Importing builds nothing: the kernels are compiled
-at first use only.
+evaluator, train step and CLI, the fused kernel's wrapper, the YCB-V
+readers, the PNG decoder's wrapper and the YCB-V eval CLIs among them; and
+of chip_smoke.py, the scripts/profile_torch_*.py and the tree writer
+scripts/ycbv_tree.py), then a fresh interpreter that imports them all with
+jax, flax and dcl_net_tpu blocked in sys.modules. Importing builds nothing:
+the kernels and the PNG host library are compiled at first use only, so
+the import runs with subprocess creation blocked.
 """
 
 import ast
@@ -20,7 +22,8 @@ PACKAGE = ROOT / "dcl_net_tpu_torch"
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "dcl_net_tpu"}
 FILES = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                          ROOT / "scripts" / "profile_torch_stage1.py",
-                                         ROOT / "scripts" / "profile_torch_train.py"]
+                                         ROOT / "scripts" / "profile_torch_train.py",
+                                         ROOT / "scripts" / "ycbv_tree.py"]
 
 
 def _imported_roots(path: Path):
@@ -40,7 +43,6 @@ def test_no_jax_imports_in_source(path):
 
 
 def test_package_imports_with_jax_blocked():
-    built_before = (PACKAGE / "build").exists()
     modules = sorted(
         ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(".__init__")
         for p in PACKAGE.rglob("*.py"))
@@ -48,17 +50,21 @@ def test_package_imports_with_jax_blocked():
         "import sys",
         f"for name in {sorted(FORBIDDEN)!r}:",
         "    sys.modules[name] = None  # any import of these raises",
+        "import subprocess",
+        "def no_build(*a, **k):",
+        "    raise AssertionError(f'a subprocess was started while importing: {a}')",
+        "subprocess.Popen = no_build  # nvcc and g++ run only at first use",
         "import importlib",
         f"for m in {modules!r}:",
         "    importlib.import_module(m)",
         "import chip_smoke",
+        "sys.path.insert(0, 'scripts')",
+        "import ycbv_tree",
     ])
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert len(modules) >= 20
-    if not built_before:  # importing compiled nothing
-        assert not (PACKAGE / "build").exists()
+    assert len(modules) >= 30
 
 
 def test_every_kernel_source_names_what_it_replaces():

@@ -172,6 +172,28 @@ def test_sparse_conv_ops_match_jax():
         rtol=0, atol=1e-7)
 
 
+@pytest.mark.parametrize("d, c", [(8, 5), (2, 3)])
+def test_window_sum_in_one_padded_buffer_equals_pad_then_pool(d, c):
+    """window_sum writes x * mask into one zero-padded buffer: the same
+    values as multiplying, padding with F.pad and pooling, and the same
+    gradient, on a grid of the kernel's size (the 2^3 level of 16^3) too."""
+    rng = np.random.RandomState(d)
+    x = torch.tensor(rng.randn(2, d, d, d, c).astype(np.float32), requires_grad=True)
+    m = torch.tensor((rng.rand(2, d, d, d) > 0.4).astype(np.float32))
+
+    def pad_then_pool(x):
+        xp = torch.nn.functional.pad((x * m[..., None]).permute(0, 4, 1, 2, 3), (1,) * 6)
+        return torch.nn.functional.avg_pool3d(xp, 3, 2, divisor_override=1).permute(0, 2, 3, 4, 1)
+
+    got, want = tsc.window_sum(x, 3, 2, 1, mask=m), pad_then_pool(x)
+    assert torch.equal(got, want)
+    g = torch.tensor(rng.randn(*want.shape).astype(np.float32))
+    (gx,) = torch.autograd.grad(got, x, g)
+    (wx,) = torch.autograd.grad(want, x, g)
+    assert torch.equal(gx, wx)
+    with torch.inference_mode():
+        assert torch.equal(tsc.window_sum(x.detach(), 3, 2, 1, mask=m), want.detach())
+
 # ---------------------------------------------------------------- K3 interpolation
 def _interp_inputs(rng, v=256, c=8):
     b = 3

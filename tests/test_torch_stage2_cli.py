@@ -75,7 +75,7 @@ def test_train_stage2_writes_checkpoint_eval_and_resumes(tmp_path, stage1_checkp
 @pytest.mark.parametrize("ckpt, extra, match", [
     ("reference.pth", [], "not ported"),
     (None, ["--n_devices", "2"], "data parallelism"),
-    (None, ["--override", "hyper_dataset_train.name=ycbv_train"], "not ported"),
+    (None, ["--override", "hyper_dataset_train.name=linemod"], "not ported"),
 ])
 def test_train_stage2_refuses_what_is_not_ported(tmp_path, stage1_checkpoint, ckpt,
                                                  extra, match):
