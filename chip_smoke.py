@@ -75,7 +75,23 @@ Phases, any failure exits non-zero:
     then tools/test_ycbv_stage2.main with a refiner checkpoint. Each run's
     scored and lost rows, results file and launch counts (one template-bank
     encode, then one observed encode a batch) are checked;
-10. prints the per-kernel JSON line, then the result line
+10. the LineMOD family and reference weights: writes a LineMOD tree (13
+    objects, spheres 10-28 cm across, 520 eval rows of which 65 have an
+    empty SegNet label; 104 train rows) and an Occlusion-LineMOD tree (8
+    objects, 520 rows, 40 with an empty mask) without PIL
+    (scripts/lm_tree.py), and runs tools/test_lm.main and
+    tools/test_lmo.main with configs/config_LM.yaml (5 mm voxels) at its
+    eval batch of 512 and a checkpoint of a seeded model: timed with the
+    config's loader threads, then two-stage and fused with one loader
+    thread (poses per instance within POSE_ATOL), K2's rows per level and
+    n_overflow printed, and test_lm again with model.capacities above
+    those rows (n_overflow 0); then test_lm from a reference .pth of seeded
+    weights and from the port checkpoint converted from it (poses
+    torch.equal); then tools/train_stage1.main on the LineMOD tree, one
+    epoch of 3 steps at batch 32. Each run's scored, lost and counted rows,
+    results file and launch counts are checked, and the training's losses,
+    changed parameters and launches (K1 2, K2-K5 8 a step);
+11. prints the per-kernel JSON line, then the result line
     {"ok": true, "device": {...}} last.
 """
 
@@ -765,17 +781,19 @@ CLI_KERNELS = {None: {"voxelize": 1, "compact": 4, "interp": 4},
 
 
 class CliProbe:
-    """Hooks on the port's Evaluator and YCB-V test reader for the CLI runs
-    of the YCB-V phase (set up and taken down by the phase): the poses of
+    """Hooks on the port's Evaluator and on the readers named (classes whose
+    __getitem__ reads one item: a YCB-V frame, a LineMOD row) for the CLI
+    runs of a phase (set up and taken down by the phase): the poses of
     every batch Evaluator._run scores, with its valid and pad flags; the
     seconds of Evaluator.evaluate (the evaluate loop, loader waits
     included) and of the _run calls in it (each ends in a synchronise:
-    evaluate copies their ADD-S to the host right after); and the reader's
-    seconds summed over the frames its threads read."""
+    evaluate copies their distances to the host right after); and the
+    readers' seconds summed over the items their threads read."""
 
-    def __init__(self):
+    def __init__(self, *readers):
         import threading
 
+        self.readers = readers
         self.lock = threading.Lock()
         self.reset()
 
@@ -785,11 +803,11 @@ class CliProbe:
     def __enter__(self):
         import torch
 
-        from dcl_net_tpu_torch.data.ycbv import YCBVTestDataset
         from dcl_net_tpu_torch.eval.evaluator import Evaluator
 
-        self.saved = (Evaluator.evaluate, Evaluator._run, YCBVTestDataset.__getitem__)
-        evaluate, run, getitem = self.saved
+        self.saved = (Evaluator.evaluate, Evaluator._run)
+        self.saved_getitem = [r.__getitem__ for r in self.readers]
+        evaluate, run = self.saved
         probe = self
 
         def timed_evaluate(ev, loader):
@@ -808,23 +826,27 @@ class CliProbe:
                                batch["valid"].cpu(), batch["pad"].cpu()))
             return res
 
-        def timed_getitem(ds, index):
-            t0 = time.perf_counter()
-            frame = getitem(ds, index)
-            with probe.lock:
-                probe.t_read += time.perf_counter() - t0
-                probe.frames += 1
-            return frame
+        def timed(getitem):
+            def timed_getitem(ds, index):
+                t0 = time.perf_counter()
+                item = getitem(ds, index)
+                with probe.lock:
+                    probe.t_read += time.perf_counter() - t0
+                    probe.frames += 1
+                return item
+            return timed_getitem
 
         Evaluator.evaluate, Evaluator._run = timed_evaluate, timed_run
-        YCBVTestDataset.__getitem__ = timed_getitem
+        for reader, getitem in zip(self.readers, self.saved_getitem):
+            reader.__getitem__ = timed(getitem)
         return self
 
     def __exit__(self, *exc):
-        from dcl_net_tpu_torch.data.ycbv import YCBVTestDataset
         from dcl_net_tpu_torch.eval.evaluator import Evaluator
 
-        Evaluator.evaluate, Evaluator._run, YCBVTestDataset.__getitem__ = self.saved
+        Evaluator.evaluate, Evaluator._run = self.saved
+        for reader, getitem in zip(self.readers, self.saved_getitem):
+            reader.__getitem__ = getitem
         return False
 
     def scored_poses(self):
@@ -856,6 +878,7 @@ def ycbv_cli_phase(card: str, model, n_points: int, entries: dict) -> None:
     import torch
 
     from dcl_net_tpu_torch.data import png
+    from dcl_net_tpu_torch.data.ycbv import YCBVTestDataset
     from dcl_net_tpu_torch.models.refiner import Refiner
     from dcl_net_tpu_torch.tools import test_ycbv_stage1, test_ycbv_stage2
     from dcl_net_tpu_torch.train.checkpoints import save_checkpoint
@@ -870,7 +893,8 @@ def ycbv_cli_phase(card: str, model, n_points: int, entries: dict) -> None:
     writer = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(writer)
 
-    with tempfile.TemporaryDirectory(prefix="dclx_ycbv_") as tmp, CliProbe() as probe:
+    with tempfile.TemporaryDirectory(prefix="dclx_ycbv_") as tmp, \
+            CliProbe(YCBVTestDataset) as probe:
         tmp = Path(tmp)
         t0 = time.perf_counter()
         tree = writer.write_tree(str(tmp / "data"), n_classes=21, n_frames=YCBV_FRAMES)
@@ -994,6 +1018,298 @@ def ycbv_cli_phase(card: str, model, n_points: int, entries: dict) -> None:
               f"{res2['n_lost']}, main {t2:.3f} s = {rows / t2:.1f} instances/s, evaluate "
               f"loop {probe.t_evaluate:.3f} s; launches {counts2}", flush=True)
     print(f"YCB-V CLI phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+LM_FRAMES, LM_REPEATS = 8, 5     # 13 objects x 8 frames x 5 = 520 eval rows (65 lost), 104 train
+LMO_IMAGES, LMO_REPEATS = 5, 13  # 8 objects x 5 images x 13 = 520 rows, 40 lost
+LM_TRAIN_STEPS = 3               # one epoch of the 104 train rows at batch 32
+LM_CAPACITIES = (8192, 4096, 512, 64)  # above the trees' K2 rows at 5 mm; 512, 64: whole grids
+LEVEL_SIDES = (32, 16, 8, 4)     # the grids of the 4 pyramid levels at 64^3
+
+
+class OccupancyProbe:
+    """Records K2's occupancy (rows kept) of every dense_to_sparse call on
+    the two-stage path: (batch size, grid side, occupancy [B])."""
+
+    def __enter__(self):
+        from dcl_net_tpu_torch.ops import cuda_compact
+
+        self.calls = []
+        self.saved = cuda_compact.dense_to_sparse
+        saved, calls = self.saved, self.calls
+
+        def probe(feats, mask, capacity):
+            out = saved(feats, mask, capacity)
+            calls.append((int(feats.shape[0]), int(feats.shape[1]), out[3].cpu()))
+            return out
+
+        cuda_compact.dense_to_sparse = probe
+        return self
+
+    def __exit__(self, *exc):
+        from dcl_net_tpu_torch.ops import cuda_compact
+
+        cuda_compact.dense_to_sparse = self.saved
+        return False
+
+    def levels(self, batch: int, keep=None, caps=(2048, 1024, 512, 64)) -> str:
+        """Mean / max occupancy per level over the first encode of `batch`
+        rows (its rows where keep is true), with each level's capacity."""
+        first = [c for c in self.calls if c[0] == batch][:4]
+        check([side for _, side, _ in first] == list(LEVEL_SIDES),
+              f"K2 calls at batch {batch}: {[c[:2] for c in first]}")
+        parts = []
+        for (_, side, occ), cap in zip(first, caps):
+            occ = occ[keep] if keep is not None else occ
+            parts.append(f"{side}^3 {occ.float().mean().item():.1f} / {int(occ.max())} "
+                         f"(cap {cap}, {int((occ > cap).sum())} over)")
+        return ", ".join(parts)
+
+
+def seeded_reference_state_dict(shapes: dict, seed: int) -> dict:
+    """A reference-layout state dict (the keys and shapes given) of seeded
+    random numpy weights at trainable scales: spconv kernels and 1x1 convs
+    N(0, 2 / fan_in), BN weights 1 + N(0, 0.01), biases and running means
+    N(0, 0.01), running variances U(0.5, 1.5)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    sd = {}
+    for key, shape in sorted(shapes.items()):
+        if key.endswith("num_batches_tracked"):
+            sd[key] = np.array(100, np.int64)
+        elif key.endswith("running_var"):
+            sd[key] = rng.uniform(0.5, 1.5, shape).astype(np.float32)
+        elif key.endswith(("running_mean", "bias")):
+            sd[key] = (0.1 * rng.randn(*shape)).astype(np.float32)
+        elif len(shape) == 1:  # a BN weight
+            sd[key] = (1.0 + 0.1 * rng.randn(*shape)).astype(np.float32)
+        else:  # spconv [kz,ky,kx,Cin,Cout], Conv3d 1x1 [Cout,Cin,1,1,1], Conv1d [Cout,Cin,1]
+            fan_in = shape[1] if shape[-1] == 1 else int(np.prod(shape[:-1]))
+            sd[key] = (rng.randn(*shape) * np.sqrt(2.0 / fan_in)).astype(np.float32)
+    return sd
+
+
+def lm_phase(card: str, entries: dict) -> None:
+    """The LineMOD family and reference weights at full width: writes a
+    LineMOD and an Occlusion-LineMOD tree (scripts/lm_tree.py, no PIL), runs
+    tools/test_lm.main and tools/test_lmo.main with configs/config_LM.yaml
+    (5 mm voxels) at its eval batch of 512 and a checkpoint of a seeded
+    model: timed with the config's loader threads (instances/s, the loop's
+    wait on the loader, peak memory), then on the two-stage and the fused
+    path with one loader thread (poses per instance within POSE_ATOL), K2's
+    rows per level printed, and test_lm with capacities above those rows
+    (no overflow). Then test_lm through a reference .pth of seeded
+    weights and through the port checkpoint converted from it (poses
+    torch.equal), and 3 training steps of tools/train_stage1.main on the LM
+    tree at batch 32. Checks the scored and lost rows against the trees,
+    the results files and the launch counts."""
+    import importlib.util
+    import itertools
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from dcl_net_tpu_torch.config import Config
+    from dcl_net_tpu_torch.data.linemod import LineMODDataset, OcclusionLineMODDataset
+    from dcl_net_tpu_torch.models.dcl_net import DCLNet
+    from dcl_net_tpu_torch.tools import test_lm, test_lmo, train_stage1
+    from dcl_net_tpu_torch.train.checkpoints import (
+        load_reference_weights, save_checkpoint, to_reference_state_dict,
+    )
+    from dcl_net_tpu_torch.train.solver import TrainState
+
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.benchmark = False  # a fresh CLI process's setting
+    config = str(ROOT / "configs" / "config_LM.yaml")
+    cfg = Config.fromfile(config)
+    spec = importlib.util.spec_from_file_location("lm_tree", ROOT / "scripts" / "lm_tree.py")
+    writer = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(writer)
+
+    with tempfile.TemporaryDirectory(prefix="dclx_lm_") as tmp, \
+            CliProbe(LineMODDataset, OcclusionLineMODDataset) as probe:
+        tmp = Path(tmp)
+        data = str(tmp / "data")
+        t0 = time.perf_counter()
+        lm_info = writer.write_lm_tree(data, frames=LM_FRAMES, repeats=LM_REPEATS)
+        lmo_info = writer.write_lmo_tree(data, images=LMO_IMAGES, repeats=LMO_REPEATS)
+        trees = {"test_lm": lm_info, "test_lmo": lmo_info}
+        print(f"LineMOD tree: {lm_info['eval_rows']} eval rows ({lm_info['lost']} lost), "
+              f"{lm_info['train_rows']} train rows; Occlusion-LineMOD tree: "
+              f"{lmo_info['eval_rows']} rows ({lmo_info['lost']} lost); written in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        model = DCLNet.from_config(cfg.model, seed=0)
+        ckpt = save_checkpoint(str(tmp / "lm_model"), model, TrainState(opt_state={}), 1)
+        del model
+        runs = itertools.count()
+
+        def cli(tool, bs, workers=None, mode=None, checkpoint=ckpt, extra=()):
+            """One eval CLI run (`extra`: more config overrides); returns
+            (result, seconds of main, launch counts)."""
+            name = tool.__name__.rsplit(".", 1)[-1]
+            rows, lost = trees[name]["eval_rows"], trees[name]["lost"]
+            log_root = tmp / f"log{next(runs)}"
+            over = [f"hyper_dataloader_test.bs={bs}", *extra]
+            if mode is not None:
+                over.append(f"model.interp_mode={mode}")
+            if workers is not None:
+                over.append(f"hyper_dataloader_test.num_workers={workers}")
+            probe.reset()
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            res = tool.main(["--config", config, "--path_data", data, "--log_root",
+                             str(log_root), "--checkpoint", checkpoint, "--override", *over])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = read_counts()
+            (saved,) = log_root.glob(f"*/results_{name}.json")
+            saved = json.loads(saved.read_text())
+            check(saved["success_mean"] == res["success_mean"]
+                  and saved["count_per_class"] == res["count_per_class"],
+                  f"{name}: the results file does not hold the run's scores")
+            # LM skips a lost row; LMO counts it in its object's denominator
+            counted = rows - lost if name == "test_lm" else rows
+            check((res["n_scored"], res["n_lost"], sum(res["count_per_class"]))
+                  == (rows - lost, lost, counted),
+                  f"{name} bs {bs} {mode}: n_scored {res['n_scored']} n_lost {res['n_lost']} "
+                  f"counted {sum(res['count_per_class'])}; the tree holds {rows}, {lost} lost")
+            check(0.0 <= res["success_mean"] <= 1.0, f"{name}: success_mean {res['success_mean']}")
+            rot, trans = probe.scored_poses()
+            check(rot.shape[0] == rows - lost and bool(torch.isfinite(rot).all())
+                  and bool(torch.isfinite(trans).all()), f"{name}: poses not finite")
+            expect_counts(counts, CLI_KERNELS[mode], 1 + -(-rows // bs), f"{name} bs {bs} {mode}")
+            return res, seconds, counts
+
+        for tool in (test_lm, test_lmo):
+            name = tool.__name__.rsplit(".", 1)[-1]
+            rows, lost = trees[name]["eval_rows"], trees[name]["lost"]
+            # timed: the config's loader threads, peak memory over the run
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            res, t_main, counts = cli(tool, 512)
+            peak = torch.cuda.max_memory_allocated()
+            for key in ("voxelize", "compact", "interp"):
+                entries[key][f"{name}_cli_launches"] = counts[key]
+            print(f"{name} CLI two-stage at batch 512 on {card}: success_mean "
+                  f"{res['success_mean']:.4f} n_scored {res['n_scored']} n_lost "
+                  f"{res['n_lost']} n_overflow {res['n_overflow']}; launches {counts}", flush=True)
+            print(f"{name} CLI at batch 512 on {card}: main {t_main:.3f} s = "
+                  f"{rows / t_main:.1f} instances/s end to end; evaluate loop "
+                  f"{probe.t_evaluate:.3f} s = {rows / probe.t_evaluate:.1f} instances/s, of "
+                  f"which {probe.t_run:.3f} s in the model and distances and "
+                  f"{probe.t_evaluate - probe.t_run:.3f} s waiting on the loader; reader "
+                  f"{probe.t_read:.3f} s over {probe.frames} rows summed over its threads "
+                  f"({probe.t_read / probe.frames * 1e3:.1f} ms a row); peak device memory "
+                  f"{peak / 2 ** 30:.2f} GiB ({(peak - base) / 2 ** 30:.2f} GiB above the "
+                  f"{base / 2 ** 30:.2f} GiB held before the run)", flush=True)
+
+            # the two paths on the same draws: one loader thread, same seed
+            poses = {}
+            for mode in (None, "pallas_fused"):
+                with OccupancyProbe() as occ:
+                    res_m, t_m, counts = cli(tool, 512, workers=1, mode=mode)
+                poses[mode] = probe.scored_poses()
+                if mode is None:
+                    valid = probe.rows[0][2] > 0
+                    n_classes = 13 if name == "test_lm" else 8
+                    print(f"{name} K2 rows per level (mean / max), observed branch, the "
+                          f"{int(valid.sum())} valid rows of the first batch of 512: "
+                          f"{occ.levels(512, valid)}; template branch, {n_classes} "
+                          f"objects: {occ.levels(n_classes)}; n_overflow "
+                          f"{res_m['n_overflow']}", flush=True)
+                else:
+                    entries["fused"][f"{name}_cli_launches"] = counts["fused"]
+                check(res_m["n_overflow"] == res["n_overflow"], f"{name}: n_overflow differs")
+                print(f"{name} CLI {mode or 'two-stage'} at batch 512, 1 loader thread: "
+                      f"success_mean {res_m['success_mean']:.4f}, main {t_m:.3f} s = "
+                      f"{rows / t_m:.1f} instances/s, evaluate loop {probe.t_evaluate:.3f} s",
+                      flush=True)
+            e_rot = max_err(poses[None][0], poses["pallas_fused"][0])
+            e_trans = max_err(poses[None][1], poses["pallas_fused"][1])
+            print(f"{name} CLI fused vs two-stage, {rows - lost} scored instances: rot_pred "
+                  f"{e_rot:.3g} trans_pred {e_trans:.3g}", flush=True)
+            check(e_rot <= POSE_ATOL and e_trans <= POSE_ATOL,
+                  f"{name}: the fused and two-stage poses disagree")
+
+        # the default capacities overflow at 5 mm on LineMOD-sized objects:
+        # capacities above the rows K2 was asked for keep every voxel
+        caps = LM_CAPACITIES
+        with OccupancyProbe() as occ:
+            res_c, t_c, _ = cli(test_lm, 512, workers=1,
+                                extra=[f"model.capacities=[{','.join(map(str, caps))}]"])
+        print(f"test_lm CLI with model.capacities {list(caps)}, 1 loader thread: success_mean "
+              f"{res_c['success_mean']:.4f} n_overflow {res_c['n_overflow']}, main {t_c:.3f} s "
+              f"= {lm_info['eval_rows'] / t_c:.1f} instances/s; K2 rows per level, observed "
+              f"branch: {occ.levels(512, probe.rows[0][2] > 0, caps)}", flush=True)
+        check(res_c["n_overflow"] == 0, f"test_lm overflows capacities {caps}")
+
+        # a reference .pth of seeded weights, then the port checkpoint converted from it
+        shapes = {k: v.shape for k, v in
+                  to_reference_state_dict(DCLNet.from_config(cfg.model, seed=0)).items()}
+        pth = str(tmp / "reference.pth")
+        torch.save({"model_state_dict": {k: torch.from_numpy(v) for k, v in
+                                         seeded_reference_state_dict(shapes, seed=7).items()}},
+                   pth)
+        res_pth, t_pth, _ = cli(test_lm, 512, workers=1, checkpoint=pth)
+        poses_pth = probe.scored_poses()
+        converted = load_reference_weights(DCLNet.from_config(cfg.model, seed=1), pth)
+        ckpt_conv = save_checkpoint(str(tmp / "converted"), converted, TrainState(opt_state={}), 1)
+        del converted
+        res_conv, _, _ = cli(test_lm, 512, workers=1, checkpoint=ckpt_conv)
+        poses_conv = probe.scored_poses()
+        same = (torch.equal(poses_pth[0], poses_conv[0])
+                and torch.equal(poses_pth[1], poses_conv[1]))
+        print(f"test_lm CLI from a reference .pth on {card}: success_mean "
+              f"{res_pth['success_mean']:.4f}, main {t_pth:.3f} s; the converted port "
+              f"checkpoint's poses torch.equal: {same}", flush=True)
+        check(same and res_pth == res_conv,
+              "the .pth run and the converted checkpoint's run disagree")
+
+        # training: one epoch of the LM train rows at the config's batch
+        bs = int(cfg.hyper_dataloader_train.bs)
+        log_root = tmp / "train"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        train_stage1.main(["--config", config, "--path_data", data, "--log_root", str(log_root),
+                           "--override", "max_epoch=1", "per_write=1"])
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t0
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        (exp_dir,) = log_root.glob("*")
+        records = [json.loads(line) for line in
+                   (exp_dir / "scalars.jsonl").read_text().strip().splitlines()]
+        check(len(records) == LM_TRAIN_STEPS == lm_info["train_rows"] // bs,
+              f"LM training wrote {len(records)} step records")
+        for rec in records:
+            for key in ("loss_all", "loss_pose", "loss_Xo", "loss_Yc", "loss_conf", "grad_norm"):
+                check(bool(np.isfinite(rec[key])), f"LM training {key} not finite: {rec[key]}")
+            check(rec["skipped_nonfinite"] == 0.0, "an LM training step was skipped")
+        expect_counts(counts, TWO_STAGE_TRAIN, LM_TRAIN_STEPS, "LM training")
+        for key, n in counts.items():
+            if n:
+                entries[key]["lm_train_launches"] = n
+        state = torch.load(exp_dir / "epoch_1" / "state.pt", map_location="cpu",
+                           weights_only=True)
+        init = DCLNet.from_config(cfg.model, seed=int(cfg.get("rd_seed", 1)), device="cpu")
+        names = dict(init.named_parameters())
+        unchanged = [k for k, v in init.state_dict().items() if k in names
+                     and torch.equal(v, state["model"][k])]
+        check(state["step"] == LM_TRAIN_STEPS and not unchanged,
+              f"LM training: step {state['step']}, parameters unchanged: {unchanged[:4]}")
+        print(f"LM training on {card}: {LM_TRAIN_STEPS} steps of batch {bs} in {t_train:.3f} s "
+              f"(the reader, cuDNN's autotuning and a checkpoint included); losses "
+              f"{[round(r['loss_all'], 5) for r in records]}, grad_norm "
+              f"{[round(r['grad_norm'], 3) for r in records]}, overflow_frac "
+              f"{[r['overflow_frac'] for r in records]}, T_step "
+              f"{[round(r['T_step'], 4) for r in records]} s; peak memory {peak:.2f} GiB; "
+              f"launches {counts}", flush=True)
+    print(f"LineMOD phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 def main() -> int:
@@ -1624,7 +1940,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     ycbv_cli_phase(card, model, n_points, entries)
 
-    # ---- 10. result lines -----------------------------------------------------
+    # ---- 10. the LineMOD family and reference weights ---------------------------
+    torch.cuda.empty_cache()
+    lm_phase(card, entries)
+
+    # ---- 11. result lines -----------------------------------------------------
     print(json.dumps({"kernels": [entries[k] for k in KERNEL_ORDER]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

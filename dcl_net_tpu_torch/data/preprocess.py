@@ -10,7 +10,8 @@ bit-compatible given the same RNG draws:
   +-3cm translation jitter (:161-177)
 - volume filter + resample to fixed point count (:189-199)
 - feature assembly [1, rgb - imagenet_mean, xyz] + voxel indices (:202-205)
-- mask_to_bbox via contours (reference LM/dataloader_test_LM.py:16-32)
+- mask_to_bbox, the largest contour's box (reference LM/dataloader_test_LM.py:16-32),
+  through scipy.ndimage instead of cv2
 """
 
 from __future__ import annotations
@@ -68,16 +69,24 @@ def get_bbox(label_mask: np.ndarray, img_h: int = 480, img_w: int = 640
 def mask_to_bbox(mask: np.ndarray, img_w: int = 640, img_h: int = 480
                  ) -> Tuple[int, int, int, int]:
     """Largest-contour bbox (reference LM/dataloader_test_LM.py:16-32).
-    Returns (x, y, w, h)."""
-    import cv2
+    Returns (x, y, w, h).
 
-    mask = mask.astype(np.uint8)
-    contours, _ = cv2.findContours(mask, cv2.RETR_TREE, cv2.CHAIN_APPROX_SIMPLE)
+    The reference takes cv2.findContours (RETR_TREE) and keeps the first
+    contour, in cv2's order, whose boundingRect has the largest w * h. An
+    outer contour bounds one 8-connected component of the nonzero pixels,
+    and a hole's contour lies inside its component's box, so this is the
+    largest box of the components; cv2 lists the components in reverse
+    raster order of their first pixel, and so ties go to the last of them
+    in raster order. scipy.ndimage stands in for cv2, so the port does not
+    depend on OpenCV."""
+    from scipy import ndimage
+
+    labels, _ = ndimage.label(np.asarray(mask) != 0, structure=np.ones((3, 3), bool))
     x = y = w = h = 0
-    for contour in contours:
-        tmp_x, tmp_y, tmp_w, tmp_h = cv2.boundingRect(contour)
-        if tmp_w * tmp_h > w * h:
-            x, y, w, h = tmp_x, tmp_y, tmp_w, tmp_h
+    for rows, cols in reversed(ndimage.find_objects(labels)):
+        tw, th = cols.stop - cols.start, rows.stop - rows.start
+        if tw * th > w * h:
+            x, y, w, h = cols.start, rows.start, tw, th
     return x, y, min(w, img_w - x), min(h, img_h - y)
 
 

@@ -1,13 +1,15 @@
-"""Pose-estimation metrics for the YCB-V protocol.
+"""Pose-estimation metrics: the YCB-V and LineMOD protocols.
 
-Counterpart of dcl_net_tpu/eval/metrics.py: ADD-S distances run batched on
-the device in PyTorch; the VOCap AUC aggregation (0.1 m cap, x10) is numpy
-on the host, copied from the JAX package.
+Counterpart of dcl_net_tpu/eval/metrics.py: ADD-S and ADD distances run
+batched on the device in PyTorch; the aggregation is numpy on the host,
+copied from the JAX package: the VOCap AUC (0.1 m cap, x10) of YCB-V, and
+LineMOD's success rate, distance < 0.1 x the object's diameter, where
+Occlusion-LineMOD counts lost detections in the denominator.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -24,6 +26,16 @@ def add_s_batch(model_points: torch.Tensor, rot_pred: torch.Tensor,
     gt = transform_points(model_points, rot_gt, trans_gt)
     d = torch.sqrt(pairwise_sq_dist(pred, gt) + 1e-12)
     return d.min(dim=-1).values.mean(dim=-1)
+
+
+def add_batch(model_points: torch.Tensor, rot_pred: torch.Tensor,
+              trans_pred: torch.Tensor, rot_gt: torch.Tensor,
+              trans_gt: torch.Tensor) -> torch.Tensor:
+    """ADD: mean same-index distance between the predicted- and
+    ground-truth-posed CAD clouds. [B, P, 3] -> [B]."""
+    pred = transform_points(model_points, rot_pred, trans_pred)
+    gt = transform_points(model_points, rot_gt, trans_gt)
+    return torch.linalg.vector_norm(pred - gt, dim=-1).mean(dim=-1)
 
 
 def voc_ap(rec: np.ndarray, prec: np.ndarray) -> float:
@@ -80,4 +92,40 @@ def per_class_auc_acc(distances: Sequence[float], class_ids: Sequence[int],
         "acc_per_class": accs,
         "auc_mean": auc_mean,
         "acc_mean": acc_mean,
+    }
+
+
+def success_at_diameter(distances: Sequence[float], class_ids: Sequence[int],
+                        diameters: Sequence[float],
+                        num_lost_per_class: Optional[Sequence[int]] = None,
+                        logger=None) -> Dict[str, object]:
+    """LineMOD success rates: distance < diameters[class] per class and over
+    all, where `diameters` already hold the 0.1 factor. With
+    num_lost_per_class the lost detections count in each class's
+    denominator (Occlusion-LineMOD)."""
+    d = np.asarray(list(distances))
+    c = np.asarray(list(class_ids))
+    n_cls = len(diameters)
+    success: List[float] = []
+    counts: List[int] = []
+    for idx in range(n_cls):
+        cls_d = d[c == idx]
+        n = cls_d.size
+        s = int((cls_d < diameters[idx]).sum())
+        if num_lost_per_class is not None:
+            n += int(num_lost_per_class[idx])
+        rate = float(s) / n if n else 0.0
+        success.append(rate)
+        counts.append(n)
+        if logger:
+            logger.warning("Object %d success rate: %f (%d)" % (idx, rate, n))
+    total_s = sum(int((d[c == i] < diameters[i]).sum()) for i in range(n_cls))
+    total_n = sum(counts)
+    overall = float(total_s) / total_n if total_n else 0.0
+    if logger:
+        logger.warning("ALL success rate: %f" % overall)
+    return {
+        "success_per_class": success,
+        "count_per_class": counts,
+        "success_mean": overall,
     }

@@ -2,8 +2,10 @@
 
 Counterpart of dcl_net_tpu/tools/common.py: argparse -> Config.fromfile ->
 overrides -> run directory, logger, source backup and seeds; the model, the
-training dataset, the YCB-V eval dataset and loader from the config; model
-weights from a checkpoint of the port; the eval tools' result file.
+training dataset (synthetic, YCB-V or LineMOD), the YCB-V eval dataset and
+loader and the instance loader of the LineMOD eval sets from the config; model
+weights from a checkpoint of the port or a reference .pth; the eval tools'
+result file.
 """
 
 from __future__ import annotations
@@ -93,8 +95,15 @@ def build_train_dataset(cfg: Config):
         root, assets = ycbv_dirs(cfg)
         return YCBVTrainDataset(ds_cfg, root, assets_dir=assets)
     if name == "linemod":
-        raise NotImplementedError(f"dataset {name}: its readers are not ported yet")
+        from dcl_net_tpu_torch.data.linemod import LineMODDataset
+
+        return LineMODDataset("train", ds_cfg, lm_root(cfg))
     raise KeyError(name)
+
+
+def lm_root(cfg: Config) -> str:
+    """The LineMOD tree under cfg.path_data."""
+    return os.path.join(cfg.path_data, "Linemod_preprocessed")
 
 
 def ycbv_dirs(cfg: Config) -> Tuple[str, str]:
@@ -125,16 +134,32 @@ def build_ycbv_eval(cfg: Config):
     return dataset, loader
 
 
-def load_model_weights(path: str):
-    """The "model" state dict of a checkpoint directory of the port
-    (train/checkpoints.py). A reference .pth / .pt raises: converting the
-    reference's weights is not ported yet."""
-    from dcl_net_tpu_torch.train.checkpoints import load_checkpoint
+def build_instance_eval_loader(cfg: Config, dataset):
+    """The data/loader.py::BatchLoader of an instance-style eval dataset
+    (LineMOD, Occlusion-LineMOD): dataset order, every row, the last batch
+    padded, at hyper_dataloader_test's bs and num_workers threads. Process
+    workers raise: not ported yet."""
+    from dcl_net_tpu_torch.data.loader import BatchLoader
+
+    dl = cfg.hyper_dataloader_test
+    if str(dl.get("worker_type", "thread")) != "thread":
+        raise NotImplementedError(
+            f"worker_type {dl.worker_type!r}: the port's loaders run thread workers only")
+    return BatchLoader(dataset, batch_size=int(dl.get("bs", 256)), shuffle=False,
+                       drop_last=False, num_workers=int(dl.get("num_workers", 8)))
+
+
+def load_model_weights(model, path: str):
+    """Fill `model` (the port's DCLNet or Refiner) from `path` and return
+    it: a reference .pth / .pt through the converter
+    (train/checkpoints.py::load_reference_weights), else the "model" state
+    dict of a checkpoint directory of the port."""
+    from dcl_net_tpu_torch.train.checkpoints import load_checkpoint, load_reference_weights
 
     if path.endswith((".pth", ".pt")):
-        raise NotImplementedError(
-            f"{path}: loading the reference's .pth weights is not ported yet")
-    return load_checkpoint(path)["model"]
+        return load_reference_weights(model, path)
+    model.load_state_dict(load_checkpoint(path)["model"])
+    return model
 
 
 def refuse_data_parallel(args) -> None:

@@ -8,9 +8,9 @@ Counterpart of dcl_net_tpu/tools/test_ycbv_stage1.py. Reads the test split
 under <path_data>/YCB_Video_Dataset (data/ycbv.py::YCBVTestDataset, frames
 in padded batches of hyper_dataloader_test.bs), loads the weights from
 --checkpoint or <log_dir>/epoch_<test_epoch>, a checkpoint directory of the
-port, encodes each class's template once, scores every ground-truth
-instance by ADD-S (a lost detection scores inf), logs the mean AUC and
-<2 cm accuracy, and writes <log_dir>/results_test_ycbv_stage1.json.
+port or a reference .pth, encodes each class's template once, scores every
+ground-truth instance by ADD-S (a lost detection scores inf), logs the mean
+AUC and <2 cm accuracy, and writes <log_dir>/results_test_ycbv_stage1.json.
 model.interp_mode picks the point-feature path (default two-stage).
 """
 
@@ -38,7 +38,7 @@ def main(argv=None):
     device = resolve_device(args.device)
 
     model = build_model(cfg, device=device)
-    model.load_state_dict(load_model_weights(checkpoint_path(args, cfg)))
+    load_model_weights(model, checkpoint_path(args, cfg))
     dataset, loader = build_ycbv_eval(cfg)
     evaluator = Evaluator(model, dataset.model_points_array(),
                           template_bank=dataset.template_bank(), device=device,

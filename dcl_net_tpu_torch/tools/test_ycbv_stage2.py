@@ -9,9 +9,10 @@ Usage:
 
 Counterpart of dcl_net_tpu/tools/test_ycbv_stage2.py. The stage-1 model
 (from the config's model section) is loaded from --checkpoint_stage1 and
-the refiner from --checkpoint (default <log_dir>/epoch_<test_epoch>), both
-checkpoint directories of the port; every instance's stage-1 pose is
-refined --iteration times and scored by ADD-S as in test_ycbv_stage1.
+the refiner from --checkpoint (default <log_dir>/epoch_<test_epoch>), each
+a checkpoint directory of the port or a reference .pth; every instance's
+stage-1 pose is refined --iteration times and scored by ADD-S as in
+test_ycbv_stage1.
 Writes <log_dir>/results_test_ycbv_stage2.json.
 """
 
@@ -38,9 +39,9 @@ def main(argv=None):
     device = resolve_device(args.device)
 
     model = build_model(cfg, device=device)
-    model.load_state_dict(load_model_weights(args.checkpoint_stage1))
+    load_model_weights(model, args.checkpoint_stage1)
     refiner = Refiner(n_inp=int(cfg.model.n_inp), device=device)
-    refiner.load_state_dict(load_model_weights(checkpoint_path(args, cfg)))
+    load_model_weights(refiner, checkpoint_path(args, cfg))
     dataset, loader = build_ycbv_eval(cfg)
     evaluator = Stage2Evaluator(model, refiner, dataset.model_points_array(),
                                 iterations=args.iteration,

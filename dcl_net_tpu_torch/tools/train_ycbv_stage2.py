@@ -9,12 +9,13 @@ Usage:
 Counterpart of dcl_net_tpu/tools/train_ycbv_stage2.py. The stage-1 model
 is built from --config_stage1 (default: --config and its overrides) and
 loaded from a checkpoint directory of the port's stage-1 trainer
-(tools/train_stage1.py); it runs frozen. The refiner trains on the config's
-dataset with its optimizer and schedule, in batches of bs // iteration as
-in the reference, through the same Solver services as stage 1: logging,
-epoch_<n>/ checkpoints of the refiner, resume, and every cfg.per_val epochs
-the refined ADD-S on a fixed probe batch drawn with seed rd_seed + 977
-(training data: a monitoring signal, not a test metric).
+(tools/train_stage1.py) or from a reference .pth; it runs frozen. The
+refiner trains on the config's dataset with its optimizer and schedule, in
+batches of bs // iteration as in the reference, through the same Solver
+services as stage 1: logging, epoch_<n>/ checkpoints of the refiner,
+resume, and every cfg.per_val epochs the refined ADD-S on a fixed probe
+batch drawn with seed rd_seed + 977 (training data: a monitoring signal,
+not a test metric).
 """
 
 from __future__ import annotations
@@ -43,10 +44,10 @@ def main(argv=None) -> None:
     parser.add_argument("--iteration", default=2, type=int)
     parser.add_argument("--config_stage1", default=None)
     parser.add_argument("--checkpoint_stage1", required=True,
-                        help="epoch_<n> directory of a stage-1 run of the port")
+                        help="epoch_<n> directory of a stage-1 run of the port, "
+                        "or a reference .pth")
     args = parser.parse_args(argv)
     refuse_data_parallel(args)
-    stage1_weights = load_model_weights(args.checkpoint_stage1)
     logger, cfg = init(args, "train_ycbv_stage2")
     strict_f32()
     device = resolve_device(args.device)
@@ -54,7 +55,7 @@ def main(argv=None) -> None:
 
     cfg_stage1 = Config.fromfile(args.config_stage1) if args.config_stage1 else cfg
     main_model = build_model(cfg_stage1, device=device, seed=seed)
-    main_model.load_state_dict(stage1_weights)
+    load_model_weights(main_model, args.checkpoint_stage1)
     main_model.eval()
 
     dataset = build_train_dataset(cfg)

@@ -1,10 +1,12 @@
 """The PyTorch port stands alone: it imports neither JAX nor the JAX package.
 
 An AST scan of every module of dcl_net_tpu_torch (the stage-2 refiner,
-evaluator, train step and CLI, the fused kernel's wrapper, the YCB-V
-readers, the PNG decoder's wrapper and the YCB-V eval CLIs among them; and
-of chip_smoke.py, the scripts/profile_torch_*.py and the tree writer
-scripts/ycbv_tree.py), then a fresh interpreter that imports them all with
+evaluator, train step and CLI, the fused kernel's wrapper, the YCB-V and
+LineMOD readers, the PNG decoder's wrapper, the reference .pth converter
+and the YCB-V, LineMOD and Occlusion-LineMOD eval CLIs among them; and of
+chip_smoke.py, the scripts/profile_torch_*.py, the tree writers
+scripts/ycbv_tree.py and scripts/lm_tree.py and the row counter
+scripts/lm_level_occupancy.py), then a fresh interpreter that imports them all with
 jax, flax and dcl_net_tpu blocked in sys.modules. Importing builds nothing:
 the kernels and the PNG host library are compiled at first use only, so
 the import runs with subprocess creation blocked.
@@ -23,7 +25,9 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "dcl_net_tpu"}
 FILES = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                          ROOT / "scripts" / "profile_torch_stage1.py",
                                          ROOT / "scripts" / "profile_torch_train.py",
-                                         ROOT / "scripts" / "ycbv_tree.py"]
+                                         ROOT / "scripts" / "ycbv_tree.py",
+                                         ROOT / "scripts" / "lm_tree.py",
+                                         ROOT / "scripts" / "lm_level_occupancy.py"]
 
 
 def _imported_roots(path: Path):
@@ -60,11 +64,15 @@ def test_package_imports_with_jax_blocked():
         "import chip_smoke",
         "sys.path.insert(0, 'scripts')",
         "import ycbv_tree",
+        "import lm_tree",
     ])
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert len(modules) >= 30
+    for name in ("dcl_net_tpu_torch.data.linemod", "dcl_net_tpu_torch.tools.test_lm",
+                 "dcl_net_tpu_torch.tools.test_lmo"):
+        assert name in modules
 
 
 def test_every_kernel_source_names_what_it_replaces():

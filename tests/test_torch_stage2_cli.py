@@ -73,12 +73,14 @@ def test_train_stage2_writes_checkpoint_eval_and_resumes(tmp_path, stage1_checkp
 
 
 @pytest.mark.parametrize("ckpt, extra, match", [
-    ("reference.pth", [], "not ported"),
+    ("reference.pth", ["--override", "model.remat=true"], "not ported"),
     (None, ["--n_devices", "2"], "data parallelism"),
-    (None, ["--override", "hyper_dataset_train.name=linemod"], "not ported"),
+    (None, ["--override", "model.interp_mode=local"], "not ported"),
 ])
 def test_train_stage2_refuses_what_is_not_ported(tmp_path, stage1_checkpoint, ckpt,
                                                  extra, match):
+    # a model key the port does not run is refused before the checkpoint,
+    # a reference .pth here, is read
     args = ["--config", CONFIG, "--log_root", str(tmp_path), "--device", "cpu",
             "--checkpoint_stage1", ckpt or stage1_checkpoint]
     if extra and extra[0] == "--override":
@@ -87,3 +89,21 @@ def test_train_stage2_refuses_what_is_not_ported(tmp_path, stage1_checkpoint, ck
         args += extra
     with pytest.raises(NotImplementedError, match=match):
         main(args)
+
+
+def test_train_stage2_reads_a_reference_pth(tmp_path, stage1_checkpoint):
+    """Stage 1 from a reference .pth of the checkpoint's weights: the same
+    losses step for step as from the checkpoint."""
+    from tests.test_torch_ycbv_cli import save_reference_pth
+
+    cfg = Config.fromfile(CONFIG).apply_overrides(OVERRIDES + ["model.interp_mode=pallas_fused"])
+    model = build_model(cfg, device="cpu", seed=11)
+    model.load_state_dict(torch.load(os.path.join(stage1_checkpoint, "state.pt"),
+                                     weights_only=True)["model"])
+    pth = save_reference_pth(model, str(tmp_path / "stage1.pth"))
+    losses = []
+    for name, ckpt in (("ckpt", stage1_checkpoint), ("pth", pth)):
+        log_root = str(tmp_path / name)
+        _run(log_root, ckpt, "model.interp_mode=pallas_fused")
+        losses.append([r["loss_all"] for r in _records(os.path.join(log_root, EXP), "train")])
+    assert len(losses[0]) == 2 and losses[1] == losses[0]

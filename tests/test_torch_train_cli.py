@@ -76,7 +76,7 @@ def test_train_stage1_template_bank_option(tmp_path):
 @pytest.mark.parametrize("extra, match", [
     (["--n_devices", "2"], "data parallelism"),
     (["--override", "model.compute_dtype=bfloat16"], "f32 only"),
-    (["--override", "hyper_dataset_train.name=linemod"], "not ported"),
+    (["--override", "model.interp_mode=local"], "not ported"),
 ])
 def test_train_stage1_refuses_what_is_not_ported(tmp_path, extra, match):
     args = ["--config", CONFIG, "--log_root", str(tmp_path), "--device", "cpu"]

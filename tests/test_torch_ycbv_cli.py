@@ -34,7 +34,7 @@ from dcl_net_tpu_torch.config import Config
 from dcl_net_tpu_torch.eval import evaluator as port_evaluator
 from dcl_net_tpu_torch.tools.common import build_model
 from dcl_net_tpu_torch.tools.test_ycbv_stage1 import main
-from dcl_net_tpu_torch.train.checkpoints import save_checkpoint
+from dcl_net_tpu_torch.train.checkpoints import save_checkpoint, to_reference_state_dict
 from dcl_net_tpu_torch.train.solver import TrainState
 from dcl_net_tpu_torch.weights import load_jax_variables
 from tests import fixtures
@@ -150,11 +150,36 @@ def test_stage1_cli_matches_jax(runs, monkeypatch):
 
 
 @pytest.mark.parametrize("extra, match", [
-    (["--checkpoint", "reference.pth"], "not ported"),
+    (["--override", *OVERRIDES, "model.remat=true"], "not ported"),
     (["--n_devices", "2"], "data parallelism"),
     (["--override", *OVERRIDES, "hyper_dataset_test.device_preprocess=true"], "not ported"),
     (["--override", *OVERRIDES, "hyper_dataloader_test.worker_type=process"], "thread"),
 ])
 def test_stage1_cli_refuses_what_is_not_ported(runs, extra, match):
+    # a reference .pth is taken: test_stage1_cli_reads_a_reference_pth
     with pytest.raises(NotImplementedError, match=match):
         main(runs["port"] + extra)
+
+
+def save_reference_pth(model, path: str) -> str:
+    """The port model's weights as a reference-layout .pth."""
+    torch.save({"model_state_dict": {k: torch.from_numpy(np.asarray(v))
+                                     for k, v in to_reference_state_dict(model).items()}},
+               path)
+    return path
+
+
+def test_stage1_cli_reads_a_reference_pth(runs, tmp_path, monkeypatch):
+    """The port checkpoint's weights written as a reference .pth score the
+    same distances, to the bit."""
+    cfg = Config.fromfile(CONFIG).apply_overrides(OVERRIDES)
+    model = build_model(cfg, device="cpu")
+    model.load_state_dict(torch.load(os.path.join(runs["port_log"], EXP, "epoch_1", "state.pt"),
+                                     weights_only=True)["model"])
+    pth = save_reference_pth(model, str(tmp_path / "stage1.pth"))
+    seen = capture_distances(monkeypatch)
+    bs4 = ["--override", *OVERRIDES, "hyper_dataloader_test.bs=4"]
+    got = main(runs["port"] + bs4)
+    from_ckpt = seen["port"]
+    got_pth = main(runs["port"] + ["--checkpoint", pth] + bs4)
+    assert seen["port"] == from_ckpt and got_pth == got

@@ -30,7 +30,7 @@ from dcl_net_tpu_torch.tools.train_ycbv_stage2 import main as train_main
 from tests import fixtures
 from tests.test_torch_ycbv_cli import (
     AUC_ATOL, OVERRIDES, assert_scores_match, capture_distances, random_jax_variables,
-    save_both,
+    save_both, save_reference_pth,
 )
 
 torch.set_num_threads(2)
@@ -79,6 +79,7 @@ def setup(tmp_path_factory):
         "port_log": str(tmp / "port_log"),
         "path_data": os.path.dirname(assets),
         "port_stage1": stage1[1],
+        "port_refiner": refiner[1],
     }
 
 
@@ -96,9 +97,36 @@ def test_stage2_cli_matches_jax(setup, monkeypatch):
     assert abs(big["auc_mean"] - got["auc_mean"]) < AUC_ATOL
 
 
-def test_stage2_cli_refuses_a_reference_checkpoint(setup):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        main(setup["port"] + ["--checkpoint", "refiner.pth"])
+def test_stage2_cli_refuses_a_reference_checkpoint(setup, tmp_path):
+    """A .pth is read with weights_only=True: one that needs more than
+    tensors and containers is refused, naming the file."""
+    import fractions
+
+    path = str(tmp_path / "refiner.pth")
+    torch.save({"state_dict": {"MLP_share.layers.0.bias": torch.zeros(512)},
+                "meta": fractions.Fraction(1, 3)}, path)
+    with pytest.raises(ValueError, match="refiner.pth"):
+        main(setup["port"] + ["--checkpoint", path])
+
+
+def test_stage2_cli_reads_reference_pths(setup, tmp_path, monkeypatch):
+    """Stage 1 and the refiner from reference .pth files of the checkpoints'
+    weights: the same distances, to the bit."""
+    cfg = Config.fromfile(CONFIG).apply_overrides(OVERRIDES)
+    model, refiner = build_model(cfg, device="cpu"), Refiner(n_inp=N, device="cpu", seed=7)
+    pths = []
+    for module, ckpt, name in ((model, setup["port_stage1"], "stage1.pth"),
+                               (refiner, setup["port_refiner"], "refiner.pth")):
+        module.load_state_dict(torch.load(os.path.join(ckpt, "state.pt"),
+                                          weights_only=True)["model"])
+        pths.append(save_reference_pth(module, str(tmp_path / name)))
+    seen = capture_distances(monkeypatch)
+    bs4 = ["--override", *OVERRIDES, "hyper_dataloader_test.bs=4"]
+    got = main(setup["port"] + bs4)
+    from_ckpt = seen["port"]
+    got_pth = main(setup["port"] + ["--checkpoint_stage1", pths[0], "--checkpoint", pths[1]]
+                   + bs4)
+    assert seen["port"] == from_ckpt and got_pth == got
 
 
 def test_train_stage2_on_ycbv(setup, tmp_path):
