@@ -37,6 +37,13 @@ Phases, any failure exits non-zero:
     configs' eval batch of 512 (the batch-32 levels repeated 16 times,
     each output equal to the batch-32 output repeated); then one encode's
     point-feature stage on both paths;
+ 3b. the bf16 variants of K1, K2, K3 and K6 (model.compute_dtype:
+    bfloat16) against their bf16 plain versions on the card, K1 on the
+    main-path batch and K2, K3, K6 at the four levels of the bf16
+    backbone's pyramid of it: K1 counts equal and grid within BF16_ULPS,
+    K2 bit-equal, K3 and K6 idx and w equal to the f32 kernel's and out
+    within BF16_ULPS, K6 torch.equal to K2 -> centers -> K3 in bf16; each
+    at batch 512 too, timed as the f32 kernels are;
  4. eval path: the full-width DCLNet of configs/config_YCBV_bs32.yaml
     (random weights from a seed) through Evaluator over the synthetic
     dataset's 16-class template bank and several batches of 32; checks
@@ -72,7 +79,9 @@ Phases, any failure exits non-zero:
     (instances/s end to end and of the evaluate loop, the loader's and
     reader's share, peak device memory), then two-stage and fused on the
     same inputs (poses per instance within POSE_ATOL), then at batch 32;
-    then tools/test_ycbv_stage2.main with a refiner checkpoint. Each run's
+    then in bf16 (--override model.compute_dtype=bfloat16) at 512: rate,
+    the model's seconds, peak memory, n_overflow; then
+    tools/test_ycbv_stage2.main with a refiner checkpoint. Each run's
     scored and lost rows, results file and launch counts (one template-bank
     encode, then one observed encode a batch) are checked;
 10. the LineMOD family and reference weights: writes a LineMOD tree (13
@@ -87,12 +96,20 @@ Phases, any failure exits non-zero:
     n_overflow printed, and test_lm again with model.capacities above
     those rows (n_overflow 0); then test_lm from a reference .pth of seeded
     weights and from the port checkpoint converted from it (poses
-    torch.equal); then tools/train_stage1.main on the LineMOD tree, one
+    torch.equal); test_lm in bf16 at 512 (rate, peak memory, n_overflow);
+    then tools/train_stage1.main on the LineMOD tree, one
     epoch of 3 steps at batch 32. Each run's scored, lost and counted rows,
     results file and launch counts are checked, and the training's losses,
     changed parameters and launches (K1 2, K2-K5 8 a step);
-11. prints the per-kernel JSON line, then the result line
-    {"ok": true, "device": {...}} last.
+11. bf16 eval at full width, the same seeded weights: Evaluator on the
+    two-stage and the fused path with cuDNN's autotuning off and on (the
+    f32 rates of phase 4 beside), launch counts (bf16 kernels only), one
+    batch against the plain versions on the card (BF16_POSE_DEG,
+    BF16_POSE_MM), the bf16-vs-f32 pose drift over every scored row (max,
+    95th percentile, the JAX bound beside), one batch's device time by stage
+    in f32 and bf16, and Stage2Evaluator on the fused bf16 stage 1;
+12. prints the per-kernel JSON line (the f32 kernels and the bf16
+    variants), then the result line {"ok": true, "device": {...}} last.
 """
 
 from __future__ import annotations
@@ -125,6 +142,16 @@ PEAK_F32 = 67e12
 # points in a run-dependent order.
 VOX_ATOL = 1e-5
 INTERP_ATOL = 1e-5  # K3: the weighted sum and weights round like the plain version's to a few ulp
+# The bf16 variants (K1, K3, K6) take f32 sums and round them to bf16 once,
+# as their plain versions do; a sum taken in another order may round the
+# other way: within one bf16 ulp. K2 copies rows: bit-equal.
+BF16_ULPS = 1
+# A bf16 path through the kernels against the same path through the plain
+# versions on the card: each kernel is within one bf16 ulp of its plain
+# version, and one ulp of a bf16 feature can move a rounding downstream
+# (the 9D head's output is bf16, 0.4 % a step); held to the JAX package's
+# bf16 drift bound (tests/test_model.py), as the port's bf16 is held to JAX's.
+BF16_POSE_DEG, BF16_POSE_MM = 1.0, 0.5
 POSE_ATOL = 1e-4   # whole path: K3's and K6's few-ulp differences feed the pose heads
 # K4 and K7 sum each slot's w * g terms in ascending e = k * N + t from 0,
 # as index_add_ does on the CPU: bit-equal to the plain versions run on CPU
@@ -458,6 +485,371 @@ def batch512_phase(entries: dict, level_outputs, card: str) -> None:
               flush=True)
 
 
+def bf16_ulps(a, b) -> int:
+    """The largest distance in bf16 ulps between two bf16 tensors (+0 and -0
+    are one value)."""
+    import torch
+
+    def ordered(x):
+        i = x.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+
+    return int((ordered(a) - ordered(b)).abs().max()) if a.numel() else 0
+
+
+def bf16_kernel_phase(entries: dict, card: str, feats, vidx, model_b, grid_shape) -> None:
+    """The bf16 variants of K1, K2, K3 and K6 (model.compute_dtype:
+    bfloat16) against their bf16 plain versions on the card, at the main
+    path's shapes: K1 on the main-path batch (modes 3 and 4), K2, K3 and K6
+    at the four levels of the bf16 backbone's pyramid of that batch
+    (model_b, the seeded weights in bf16). K1: counts equal, grid within
+    BF16_ULPS; K2 bit-equal; K3 and K6: idx and w torch.equal to the f32
+    kernel's on the same rows taken to f32, out within BF16_ULPS of the
+    plain version; K6 torch.equal to K2 -> centers -> K3 in bf16. Then each
+    at the configs' eval batch of 512 (the batch-32 inputs repeated REPEAT
+    times, each output torch.equal to the batch-32 output repeated). Times
+    each as called and on the device (CUDA graph), its plain version and,
+    for K1, its library yardstick; bounds with bf16 rows at 2 bytes. Writes
+    the entries voxelize_bf16, compact_bf16, interp_bf16, fused_bf16."""
+    import torch
+
+    from dcl_net_tpu_torch.ops import cuda_compact, cuda_fused, cuda_interp, cuda_voxelize
+    from dcl_net_tpu_torch.ops.sparse_conv import voxel_centers
+
+    bf16 = torch.bfloat16
+    dev = feats.device
+    t_phase = time.perf_counter()
+
+    def rep(t):
+        return t.repeat(REPEAT, *([1] * (t.dim() - 1)))
+
+    # ---- K1
+    b_, n_, c_ = feats.shape
+    g_ = grid_shape[0] * grid_shape[1] * grid_shape[2]
+    for mode in (3, 4):
+        grid, count = cuda_voxelize.voxelize_cuda(feats, vidx, grid_shape, mode, out_dtype=bf16)
+        pgrid, pcount = cuda_voxelize.voxelize_reference(feats, vidx, grid_shape, mode,
+                                                         out_dtype=bf16)
+        u1 = bf16_ulps(grid, pgrid)
+        check(grid.dtype == bf16 and torch.equal(count, pcount) and u1 <= BF16_ULPS,
+              f"K1 bf16 mode {mode}: counts differ or the grid is {u1} ulps off")
+    e1, same1 = max_err(grid, pgrid), torch.equal(grid, pgrid)
+    lin = (((vidx[..., 0].long() * grid_shape[1] + vidx[..., 1]) * grid_shape[2]
+            + vidx[..., 2]) + torch.arange(b_, device=dev)[:, None] * g_).reshape(-1)
+    ext = torch.cat([feats.to(bf16).float(), torch.ones_like(feats[..., :1])],
+                    -1).reshape(-1, c_ + 1)
+
+    def lib_mean():  # index_add_ of the bf16 payloads, the bf16 sum, the bf16 mean
+        acc = torch.zeros(b_ * g_, c_ + 1, device=dev).index_add_(0, lin, ext)
+        return (acc[:, :c_].to(bf16).float() / torch.clamp(acc[:, c_:], min=1.0)).to(bf16)
+
+    u_lib = bf16_ulps(lib_mean(), pgrid.reshape(-1, c_))
+    check(u_lib <= BF16_ULPS, f"K1 bf16 yardstick differs by {u_lib} ulps")
+    args1 = (feats, vidx, grid_shape, 4)
+    k1 = dict(ms=cuda_ms(lambda: cuda_voxelize.voxelize_cuda(*args1, out_dtype=bf16)),
+              dev=graph_ms(lambda: cuda_voxelize.voxelize_cuda(*args1, out_dtype=bf16)),
+              plain=cuda_ms(lambda: cuda_voxelize.voxelize_reference(*args1, out_dtype=bf16),
+                            reps=5, warmup=1),
+              lib=cuda_ms(lib_mean), lib_dev=graph_ms(lib_mean))
+    f16, v16 = rep(feats), rep(vidx)
+    big = cuda_voxelize.voxelize_cuda(f16, v16, grid_shape, 4, out_dtype=bf16)
+    check(torch.equal(big[0], rep(grid)) and torch.equal(big[1], rep(count)),
+          f"K1 bf16 at batch {BATCH * REPEAT}: not the batch-{BATCH} output repeated")
+    del big
+    k1.update(ms512=cuda_ms(lambda: cuda_voxelize.voxelize_cuda(f16, v16, grid_shape, 4,
+                                                                 out_dtype=bf16), reps=5),
+              dev512=graph_ms(lambda: cuda_voxelize.voxelize_cuda(f16, v16, grid_shape, 4,
+                                                                   out_dtype=bf16),
+                              calls=2, reps=3))
+    del f16, v16
+    torch.cuda.empty_cache()
+    nbytes = b_ * n_ * (c_ + 3) * 4 + b_ * g_ * c_ * 2 + b_ * g_ * 4
+    flops = b_ * n_ * (c_ + 1) + int((count > 1).sum()) * c_
+    bms, bby = bound(nbytes, flops)
+    entries["voxelize_bf16"] = dict(
+        name="voxelize_bf16", route="cuda", source="dcl_net_tpu_torch/csrc/voxelize.cu",
+        replaces="dcl_net_tpu/ops/pallas_voxelize.py:76", max_abs_err=e1, max_ulps=u1,
+        bit_equal=same1, ms=k1["ms"], kernel_ms=k1["ms"], device_ms=k1["dev"],
+        plain_ms=k1["plain"], bound_ms=bms, bound_by=bby, library_ms=k1["lib"],
+        library_device_ms=k1["lib_dev"],
+        library_call="index_add_ of the bf16-rounded features, bf16 sum over clamp(count, 1)",
+        batch512_ms=k1["ms512"], batch512_device_ms=k1["dev512"])
+    print(f"K1 bf16 voxelize [{b_},{n_},{c_}] -> {grid_shape} bf16: counts equal, grid within "
+          f"{u1} ulp (bit-equal {same1}) of the plain version; kernel {k1['ms']:.4f} ms "
+          f"(device {k1['dev']:.4f}), plain {k1['plain']:.4f} ms, index_add_ yardstick "
+          f"{k1['lib']:.4f} ms (device {k1['lib_dev']:.4f}), bound {bms:.4f} ms ({bby}); at "
+          f"batch {BATCH * REPEAT} {k1['ms512']:.4f} ms (device {k1['dev512']:.4f})", flush=True)
+
+    # ---- K2, K3, K6 at the levels of the bf16 pyramid
+    mask = (count > 0).to(torch.float32)
+    with torch.inference_mode():
+        pyramid = model_b.backbone_inp(grid, mask)
+    del grid, pgrid
+    pf = model_b.point_feats_inp
+    points = feats[..., 4:7].contiguous()
+    acc = {k: dict(err=0.0, ulps=0, ms=0.0, dev=0.0, plain=0.0, bytes=0.0, flops=0.0,
+                   levels=[], ms512=0.0, dev512=0.0) for k in ("compact", "interp", "fused")}
+    for level, (lf, lm) in enumerate(pyramid):
+        lf, lm = lf.contiguous(), lm.contiguous()
+        check(lf.dtype == bf16 and lm.dtype == torch.float32,
+              f"bf16 pyramid level {level}: {lf.dtype} features, {lm.dtype} mask")
+        b_, d0, d1, d2, c_ = lf.shape
+        g_ = d0 * d1 * d2
+        cap = min(pf.capacities[level], g_)
+        affine = pf.center_affine[level]
+        got2 = cuda_compact.dense_to_sparse_cuda(lf, lm, cap)
+        for a, r, what in zip(got2, cuda_compact.dense_to_sparse_reference(lf, lm, cap),
+                              ("coords", "vfeats", "vmask", "occupancy")):
+            check(torch.equal(a, r), f"K2 bf16 level {level}: {what} not bit-equal to the "
+                  "plain version")
+        coords, vfeats, vmask, occ = got2
+        check(vfeats.dtype == bf16 and vmask.dtype == torch.float32, "K2 bf16 output types")
+        centers = voxel_centers(coords, pf.unit, pf.scale_list[level], pf.offset)
+        args3 = (points, centers, vfeats, vmask, occ)
+        out, w, idx = got3 = cuda_interp.nn_interpolate_cuda(*args3)
+        _, w32, idx32 = cuda_interp.nn_interpolate_cuda(points, centers, vfeats.float(),
+                                                        vmask, occ)
+        check(out.dtype == bf16 and torch.equal(idx, idx32) and torch.equal(w, w32),
+              f"K3 bf16 level {level}: idx or w differ from the f32 kernel's")
+        pout = cuda_interp.nn_interpolate_reference(*args3)[0]
+        u3 = bf16_ulps(out, pout)
+        check(u3 <= BF16_ULPS, f"K3 bf16 level {level}: out {u3} ulps from the plain version")
+        args6 = (points, coords, vfeats, vmask, occ, *affine)
+        got6 = cuda_fused.compact_interpolate_cuda(*args6)
+        for a, r, what in zip(got6, got3, ("out", "w", "idx")):
+            check(torch.equal(a, r), f"K6 bf16 level {level}: {what} not torch.equal to K2 -> "
+                  "centers -> K3 in bf16")
+        u6 = bf16_ulps(got6[0], cuda_fused.compact_interpolate_reference(*args6)[0])
+        check(u6 <= BF16_ULPS, f"K6 bf16 level {level}: out {u6} ulps from the plain version")
+        acc["compact"]["err"] = 0.0
+        acc["interp"]["err"] = max(acc["interp"]["err"], max_err(out, pout))
+        acc["interp"]["ulps"] = max(acc["interp"]["ulps"], u3)
+        acc["fused"]["err"] = acc["interp"]["err"]
+        acc["fused"]["ulps"] = max(acc["fused"]["ulps"], u6)
+        sel = torch.clamp(occ, max=cap).sum().item()  # the valid rows read
+        n_ = points.shape[1]
+        fns = {"compact": (lambda: cuda_compact.dense_to_sparse_cuda(lf, lm, cap),
+                           lambda: cuda_compact.dense_to_sparse_reference(lf, lm, cap)),
+               "interp": (lambda: cuda_interp.nn_interpolate_cuda(*args3),
+                          lambda: cuda_interp.nn_interpolate_reference(*args3)),
+               "fused": (lambda: cuda_fused.compact_interpolate_cuda(*args6),
+                         lambda: cuda_fused.compact_interpolate_reference(*args6))}
+        for key, (kernel, plain) in fns.items():
+            d = graph_ms(kernel)
+            acc[key]["ms"] += cuda_ms(kernel)
+            acc[key]["dev"] += d
+            acc[key]["levels"].append(d)
+            acc[key]["plain"] += cuda_ms(plain, reps=5, warmup=1)
+        # bytes: bf16 rows at 2 bytes; masks, coords, centers, points, w, idx at 4
+        acc["compact"]["bytes"] += b_ * g_ * 4 + sel * c_ * 2 + b_ * cap * (c_ * 2 + 16) + b_ * 4
+        for key in ("interp", "fused"):
+            acc[key]["bytes"] += (b_ * n_ * 3 * 4 + sel * (16 + c_ * 2) + b_ * 4
+                                  + b_ * n_ * c_ * 2 + 2 * b_ * 3 * n_ * 4)
+            acc[key]["flops"] += 8 * n_ * sel + 5 * b_ * n_ * c_
+        acc["fused"]["flops"] += 6 * sel
+        # at the eval batch of 512: the level's inputs repeated
+        lf16, lm16 = rep(lf), rep(lm)
+        big2 = cuda_compact.dense_to_sparse_cuda(lf16, lm16, cap)
+        for a, r, what in zip(big2, got2, ("coords", "vfeats", "vmask", "occupancy")):
+            check(torch.equal(a, rep(r)), f"K2 bf16 level {level} at batch "
+                  f"{BATCH * REPEAT}: {what} is not the batch-{BATCH} output repeated")
+        a16 = (rep(points), voxel_centers(big2[0], pf.unit, pf.scale_list[level], pf.offset),
+               big2[1], big2[2], big2[3])
+        a6 = (a16[0], *big2, *affine)
+        for key, fn, want in (("interp", lambda: cuda_interp.nn_interpolate_cuda(*a16), got3),
+                              ("fused", lambda: cuda_fused.compact_interpolate_cuda(*a6), got6)):
+            for a, r, what in zip(fn(), want, ("out", "w", "idx")):
+                check(torch.equal(a, rep(r)), f"{key} bf16 level {level} at batch "
+                      f"{BATCH * REPEAT}: {what} is not the batch-{BATCH} output repeated")
+        for key, fn in (("compact", lambda: cuda_compact.dense_to_sparse_cuda(lf16, lm16, cap)),
+                        ("interp", lambda: cuda_interp.nn_interpolate_cuda(*a16)),
+                        ("fused", lambda: cuda_fused.compact_interpolate_cuda(*a6))):
+            acc[key]["ms512"] += cuda_ms(fn, reps=10)
+            acc[key]["dev512"] += graph_ms(fn, calls=4, reps=5)
+        del lf16, lm16, big2, a16, a6
+        torch.cuda.empty_cache()
+    csrc = "dcl_net_tpu_torch/csrc/"
+    for key, src, repl in (("compact", "compact.cu", "dcl_net_tpu/ops/pallas_compact.py:79"),
+                           ("interp", "interp.cu", "dcl_net_tpu/ops/pallas_interp.py:42"),
+                           ("fused", "fused.cu", "dcl_net_tpu/ops/pallas_fused.py:45")):
+        a = acc[key]
+        bms, bby = bound(a["bytes"], a["flops"])
+        entries[f"{key}_bf16"] = dict(
+            name=f"{key}_bf16", route="cuda", source=csrc + src, replaces=repl,
+            max_abs_err=a["err"], max_ulps=a["ulps"], ms=a["ms"], kernel_ms=a["ms"],
+            device_ms=a["dev"], plain_ms=a["plain"], bound_ms=bms, bound_by=bby,
+            library_ms=None, library_device_ms=None, level_device_ms=a["levels"],
+            batch512_ms=a["ms512"], batch512_device_ms=a["dev512"])
+        print(f"{key}_bf16 over the 4 levels of one branch on {card}: kernel {a['ms']:.4f} ms "
+              f"(device {a['dev']:.4f}; per level "
+              f"{', '.join(f'{t:.4f}' for t in a['levels'])}) plain {a['plain']:.4f} ms bound "
+              f"{bms:.4f} ms ({bby}); max {a['ulps']} ulp from the plain version; at batch "
+              f"{BATCH * REPEAT} {a['ms512']:.4f} ms (device {a['dev512']:.4f})", flush=True)
+    print(f"bf16 kernels: K2 bit-equal, K3 and K6 idx and w equal to the f32 kernel's, K6 "
+          f"torch.equal to K2 -> centers -> K3, at every level and at batch "
+          f"{BATCH * REPEAT}; phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def pose_drift(a, b, keep):
+    """Per kept row of two evaluator outputs: the angle between their
+    rotations in degrees and the distance between their translations in mm,
+    in f64."""
+    import numpy as np
+
+    ra, rb = (x["rot_pred"][keep].double().cpu().numpy() for x in (a, b))
+    ta, tb = (x["trans_pred"][keep].double().cpu().numpy() for x in (a, b))
+    # |Ra - Rb|_F = 2 sqrt(2) sin(angle / 2): exact for small angles, where
+    # arccos of the trace loses them below about 0.03 degrees
+    chord = np.linalg.norm(ra - rb, axis=(1, 2)) / (2.0 * np.sqrt(2.0))
+    return (np.degrees(2.0 * np.arcsin(np.clip(chord, 0.0, 1.0))),
+            np.linalg.norm(ta - tb, axis=1) * 1000.0)
+
+
+def bf16_eval_phase(card: str, mcfg, batches, bank, model_points, rates: dict,
+                    entries: dict) -> None:
+    """Stage-1 eval in bf16 (model.compute_dtype: bfloat16) at full width,
+    the seeded weights of the f32 phases: Evaluator on the two-stage and
+    the fused path, each with cuDNN's autotuning off (the setting of the
+    f32 eval of phase 4) and on, launch counts per encode (K1, K2 and K3 or
+    K6 in bf16, no f32 kernel), one batch against the same bf16 path through
+    the plain versions on the card (poses within BF16_POSE_DEG and
+    BF16_POSE_MM); the bf16-vs-f32 pose drift over every scored row
+    (max and 95th percentile, beside the JAX package's drift bound); the
+    bf16 and f32 rates (rates: phase 4's f32 instances/s); one batch's
+    device time by stage in f32 and bf16 (scripts/profile_torch_stage1.py's
+    stage_breakdown); then Stage2Evaluator on the fused bf16 stage 1."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from dcl_net_tpu_torch.data.schema import batch_to_torch
+    from dcl_net_tpu_torch.eval.evaluator import Evaluator, Stage2Evaluator
+    from dcl_net_tpu_torch.models.dcl_net import DCLNet
+    from dcl_net_tpu_torch.models.refiner import Refiner
+
+    t_phase = time.perf_counter()
+    bf16 = torch.bfloat16
+    dev = torch.device("cuda")
+    rows = BATCH * len(batches)
+    encodes = 1 + len(batches)
+    saved_benchmark = torch.backends.cudnn.benchmark
+    tb = batch_to_torch(batches[1], dev)
+    models = {"two-stage": DCLNet.from_config(mcfg, seed=0, dtype=bf16),
+              "fused": DCLNet.from_config(mcfg, seed=0, dtype=bf16, interp_mode="pallas_fused")}
+    kernels = {"two-stage": {"voxelize_bf16": 1, "compact_bf16": 4, "interp_bf16": 4},
+               "fused": {"voxelize_bf16": 1, "compact_bf16": 4, "fused_bf16": 4}}
+    evs = {}
+    for path, model_b in models.items():
+        for autotune in (False, True):
+            torch.backends.cudnn.benchmark = autotune
+            Evaluator(model_b, model_points, template_bank=bank).evaluate(batches[:1])
+            torch.cuda.synchronize()
+            reset_counts()
+            ev = Evaluator(model_b, model_points, template_bank=bank)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = ev.evaluate(batches)
+            torch.cuda.synchronize()
+            t_eval = time.perf_counter() - t0
+            counts = read_counts()
+            expect_counts(counts, kernels[path], encodes, f"bf16 {path} eval")
+            check(res["n_scored"] == rows - 1 and bool(np.isfinite(res["auc_mean"])),
+                  f"bf16 {path} eval: n_scored {res['n_scored']} auc {res['auc_mean']}")
+            if not autotune:
+                for key, n in counts.items():
+                    if n:
+                        entries[key]["launches"] = entries[key]["eval_launches"] = n
+                evs[path] = ev
+            print(f"bf16 {path} eval on {card}, cuDNN autotuning {autotune}: evaluate "
+                  f"{t_eval:.3f} s for {rows} rows = {rows / t_eval:.1f} instances/s (f32 "
+                  f"{path} in phase 4, autotuning off: {rates[path]:.1f}); auc_mean "
+                  f"{res['auc_mean']} n_overflow {res['n_overflow']}; launches {counts}",
+                  flush=True)
+        torch.backends.cudnn.benchmark = False
+        out = evs[path]._run(tb)
+        rot = out["rot_pred"]
+        check(rot.dtype == out["trans_pred"].dtype == torch.float32
+              and bool(torch.isfinite(rot).all() and torch.isfinite(out["trans_pred"]).all()),
+              f"bf16 {path}: poses not f32 or not finite")
+        eye = torch.eye(3, device=dev)
+        check(max_err(rot.transpose(1, 2) @ rot, eye.expand_as(rot)) < 1e-5,
+              f"bf16 {path}: rot_pred not orthonormal")
+        with plain_versions():
+            pout = Evaluator(models[path], model_points, template_bank=bank)._run(tb)
+        keep = (tb["valid"] > 0) & ~(tb["pad"] > 0)
+        d_rot, d_trans = pose_drift(out, pout, keep)
+        print(f"bf16 {path} kernel path vs the plain versions on the card, one batch: "
+              f"rot {d_rot.max():.4g} deg, trans {d_trans.max():.4g} mm (bound "
+              f"{BF16_POSE_DEG} deg, {BF16_POSE_MM} mm); poses torch.equal: "
+              f"{torch.equal(out['rot_pred'], pout['rot_pred'])}", flush=True)
+        check(d_rot.max() < BF16_POSE_DEG and d_trans.max() < BF16_POSE_MM,
+              f"bf16 {path}: the kernel path disagrees with the plain versions")
+
+    # the bf16-vs-f32 drift over every scored row, and one batch's stages
+    model32 = DCLNet.from_config(mcfg, seed=0)
+    ev32 = Evaluator(model32, model_points, template_bank=bank)
+    rot_d, trans_d = [], []
+    for batch in batches:
+        b = batch_to_torch(batch, dev)
+        keep = (b["valid"] > 0) & ~(b["pad"] > 0)
+        r, t = pose_drift(ev32._run(b), evs["two-stage"]._run(b), keep)
+        rot_d.append(r)
+        trans_d.append(t)
+    rot_d, trans_d = np.concatenate(rot_d), np.concatenate(trans_d)
+    print(f"bf16 vs f32 pose drift over {rot_d.size} scored rows on {card} (same weights and "
+          f"batches, two-stage): rotation max {rot_d.max():.4f} deg, p95 "
+          f"{np.percentile(rot_d, 95):.4f} deg; translation max {trans_d.max():.4f} mm, p95 "
+          f"{np.percentile(trans_d, 95):.4f} mm; the JAX package's bound 1 deg, 0.5 mm: "
+          f"within {bool(rot_d.max() < 1.0 and trans_d.max() < 0.5)}", flush=True)
+    spec = importlib.util.spec_from_file_location(
+        "profile_torch_stage1", ROOT / "scripts" / "profile_torch_stage1.py")
+    prof = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(prof)
+    t32 = prof.stage_breakdown(model32, ev32, tb)
+    t16 = prof.stage_breakdown(models["two-stage"], evs["two-stage"], tb)
+    print(f"one batch of {BATCH} by stage on {card}, device ms (CUDA events, median of 10, "
+          f"autotuning off), f32 / bf16: " + "; ".join(
+              f"{s} {t32[s]:.3f} / {t16[s]:.3f}" for s in prof.STAGES)
+          + f"; total {sum(t32.values()):.3f} / {sum(t16.values()):.3f}", flush=True)
+    del ev32, model32, evs
+
+    # stage 2 on the fused bf16 stage 1 (the refiner stays f32)
+    refiner = Refiner(n_inp=int(mcfg.n_inp), seed=0)
+    model_b = models["fused"]
+    Stage2Evaluator(model_b, refiner, model_points, iterations=ITERATIONS,
+                    template_bank=bank).evaluate(batches[:1])  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    ev2 = Stage2Evaluator(model_b, refiner, model_points, iterations=ITERATIONS,
+                          template_bank=bank)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res2 = ev2.evaluate(batches)
+    torch.cuda.synchronize()
+    t_eval2 = time.perf_counter() - t0
+    counts = read_counts()
+    expect_counts(counts, kernels["fused"], encodes, "bf16 stage-2 eval")
+    check(res2["n_scored"] == rows - 1 and bool(np.isfinite(res2["auc_mean"])),
+          f"bf16 stage-2 eval: n_scored {res2['n_scored']}")
+    out2 = ev2._run(tb)
+    with plain_versions():
+        pout2 = Stage2Evaluator(model_b, refiner, model_points, iterations=ITERATIONS,
+                                template_bank=bank)._run(tb)
+    keep = (tb["valid"] > 0) & ~(tb["pad"] > 0)
+    d_rot, d_trans = pose_drift(out2, pout2, keep)
+    check(out2["rot_pred"].dtype == torch.float32 and bool(torch.isfinite(out2["adds"]).all())
+          and d_rot.max() < BF16_POSE_DEG and d_trans.max() < BF16_POSE_MM,
+          "bf16 stage 2: poses not f32, not finite, or off the plain versions")
+    print(f"bf16 stage-2 eval on {card}: {ITERATIONS} refinement steps on the fused bf16 stage "
+          f"1, auc_mean {res2['auc_mean']} n_scored {res2['n_scored']}, evaluate "
+          f"{t_eval2:.3f} s = {rows / t_eval2:.1f} instances/s; launches {counts}; vs the plain "
+          f"versions, one batch: rot {d_rot.max():.4g} deg, trans {d_trans.max():.4g} mm",
+          flush=True)
+    torch.backends.cudnn.benchmark = saved_benchmark
+    print(f"bf16 eval phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def bit_equal_on_cpu(kernel, plain, args, what: str):
     """kernel(*args) on the card twice: the two results equal bit for bit,
     and equal bit for bit (signs of zero included) to plain(*args) run on
@@ -548,6 +940,11 @@ KERNEL_COUNTERS = (  # (entry name, module, counter attribute)
     ("compact_bwd", "cuda_compact", "bwd_launches"),
     ("fused", "cuda_fused", "launches"),
     ("fused_bwd", "cuda_fused", "bwd_launches"),
+    # the bf16 variants of the forward kernels (model.compute_dtype: bfloat16)
+    ("voxelize_bf16", "cuda_voxelize", "launches_bf16"),
+    ("compact_bf16", "cuda_compact", "launches_bf16"),
+    ("interp_bf16", "cuda_interp", "launches_bf16"),
+    ("fused_bf16", "cuda_fused", "launches_bf16"),
 )
 KERNEL_ORDER = tuple(k for k, _, _ in KERNEL_COUNTERS)
 
@@ -777,7 +1174,10 @@ YCBV_FRAMES = 26  # 26 frames x 21 classes = 546 rows: one full batch of 512 and
 # launches per encode of the stage-1 CLI: the config's point-feature path
 # (two-stage) and model.interp_mode=pallas_fused
 CLI_KERNELS = {None: {"voxelize": 1, "compact": 4, "interp": 4},
-               "pallas_fused": {"voxelize": 1, "compact": 4, "fused": 4}}
+               "pallas_fused": {"voxelize": 1, "compact": 4, "fused": 4},
+               # under --override model.compute_dtype=bfloat16 (BF16_CLI)
+               "bfloat16": {"voxelize_bf16": 1, "compact_bf16": 4, "interp_bf16": 4}}
+BF16_CLI = "model.compute_dtype=bfloat16"
 
 
 class CliProbe:
@@ -858,6 +1258,32 @@ class CliProbe:
         return rot[keep], trans[keep]
 
 
+def cli_bf16_run(run, name: str, rows: int, probe, card: str, entries: dict,
+                 launches_key: str) -> None:
+    """Times one eval CLI run in bf16 (run() -> (result, seconds, launch
+    counts), the CLI's own checks inside) and prints what a user of
+    model.compute_dtype: bfloat16 pays at the eval batch of 512:
+    instances/s, the model's seconds, peak device memory (beside the f32
+    runs' printed above) and n_overflow; stores the bf16 kernels' launches
+    in entries under launches_key."""
+    import torch
+
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    res, t_main, counts = run()
+    peak = torch.cuda.max_memory_allocated()
+    for key, n in counts.items():
+        if n:
+            entries[key][launches_key] = n
+    print(f"{name} CLI in bf16 at batch 512 on {card}: main {t_main:.3f} s = "
+          f"{rows / t_main:.1f} instances/s end to end; evaluate loop {probe.t_evaluate:.3f} s "
+          f"= {rows / probe.t_evaluate:.1f} instances/s, of which {probe.t_run:.3f} s in the "
+          f"model and distances; peak device memory {peak / 2 ** 30:.2f} GiB "
+          f"({(peak - base) / 2 ** 30:.2f} GiB above the {base / 2 ** 30:.2f} GiB held "
+          f"before the run); n_scored {res['n_scored']} n_lost {res['n_lost']} n_overflow "
+          f"{res['n_overflow']}; launches {counts}", flush=True)
+
+
 def ycbv_cli_phase(card: str, model, n_points: int, entries: dict) -> None:
     """The YCB-V eval CLIs at full width on a 21-class tree written here
     (scripts/ycbv_tree.py, no PIL): stage 1 at the config's eval batch of
@@ -906,12 +1332,13 @@ def ycbv_cli_phase(card: str, model, n_points: int, entries: dict) -> None:
                                        TrainState(opt_state={}), 1)
         runs = itertools.count()
 
-        def cli(tool, config, bs, workers=None, mode=None, extra=()):
+        def cli(tool, config, bs, workers=None, mode=None, extra=(), bf16=False):
             """One CLI run at eval batch bs, with `workers` loader threads
             (default: the config's) and model.interp_mode `mode` (default:
-            the config's); returns (result, seconds of main, launch counts)."""
+            the config's), in bf16 where asked (BF16_CLI); returns (result,
+            seconds of main, launch counts)."""
             log_root = tmp / f"log{next(runs)}"
-            over = [f"hyper_dataloader_test.bs={bs}"]
+            over = [f"hyper_dataloader_test.bs={bs}"] + ([BF16_CLI] if bf16 else [])
             if mode is not None:
                 over.append(f"model.interp_mode={mode}")
             if workers is not None:
@@ -938,7 +1365,8 @@ def ycbv_cli_phase(card: str, model, n_points: int, entries: dict) -> None:
             check(rot.shape[0] == rows - lost and bool(torch.isfinite(rot).all())
                   and bool(torch.isfinite(trans).all()), f"{name}: poses not finite")
             encodes = 1 + -(-rows // bs)
-            expect_counts(counts, CLI_KERNELS[mode], encodes, f"{name} bs {bs} {mode}")
+            expect_counts(counts, CLI_KERNELS["bfloat16" if bf16 else mode], encodes,
+                          f"{name} bs {bs} {mode} bf16 {bf16}")
             return res, seconds, counts
 
         stage1 = ["--checkpoint", stage1_ckpt]
@@ -1007,6 +1435,13 @@ def ycbv_cli_phase(card: str, model, n_points: int, entries: dict) -> None:
               f"main {t32:.3f} s = {rows / t32:.1f} instances/s", flush=True)
         check(abs(res32["auc_mean"] - aucs[None]) < 0.2,
               "stage-1 CLI: batch 32 and the large batch disagree")
+
+        # bf16 (model.compute_dtype: bfloat16) at 512, the f32 checkpoint:
+        # a warm-up, then timed with the config's loader threads
+        cli(test_ycbv_stage1, "config_YCBV_bs32.yaml", 512, extra=stage1, bf16=True)
+        cli_bf16_run(lambda: cli(test_ycbv_stage1, "config_YCBV_bs32.yaml", 512,
+                                 extra=stage1, bf16=True),
+                     "test_ycbv_stage1", rows, probe, card, entries, "ycbv_cli_launches")
 
         # stage 2 at its config's eval batch, the refiner from a checkpoint
         res2, t2, counts2 = cli(test_ycbv_stage2, "config_YCBV_bs40.yaml", bs,
@@ -1145,13 +1580,13 @@ def lm_phase(card: str, entries: dict) -> None:
         del model
         runs = itertools.count()
 
-        def cli(tool, bs, workers=None, mode=None, checkpoint=ckpt, extra=()):
-            """One eval CLI run (`extra`: more config overrides); returns
-            (result, seconds of main, launch counts)."""
+        def cli(tool, bs, workers=None, mode=None, checkpoint=ckpt, extra=(), bf16=False):
+            """One eval CLI run (`extra`: more config overrides; bf16:
+            BF16_CLI); returns (result, seconds of main, launch counts)."""
             name = tool.__name__.rsplit(".", 1)[-1]
             rows, lost = trees[name]["eval_rows"], trees[name]["lost"]
             log_root = tmp / f"log{next(runs)}"
-            over = [f"hyper_dataloader_test.bs={bs}", *extra]
+            over = [f"hyper_dataloader_test.bs={bs}", *extra] + ([BF16_CLI] if bf16 else [])
             if mode is not None:
                 over.append(f"model.interp_mode={mode}")
             if workers is not None:
@@ -1180,7 +1615,8 @@ def lm_phase(card: str, entries: dict) -> None:
             rot, trans = probe.scored_poses()
             check(rot.shape[0] == rows - lost and bool(torch.isfinite(rot).all())
                   and bool(torch.isfinite(trans).all()), f"{name}: poses not finite")
-            expect_counts(counts, CLI_KERNELS[mode], 1 + -(-rows // bs), f"{name} bs {bs} {mode}")
+            expect_counts(counts, CLI_KERNELS["bfloat16" if bf16 else mode], 1 + -(-rows // bs),
+                          f"{name} bs {bs} {mode} bf16 {bf16}")
             return res, seconds, counts
 
         for tool in (test_lm, test_lmo):
@@ -1233,6 +1669,11 @@ def lm_phase(card: str, entries: dict) -> None:
                   f"{e_rot:.3g} trans_pred {e_trans:.3g}", flush=True)
             check(e_rot <= POSE_ATOL and e_trans <= POSE_ATOL,
                   f"{name}: the fused and two-stage poses disagree")
+
+        # test_lm in bf16 at 512: a warm-up, then timed with the config's threads
+        cli(test_lm, 512, bf16=True)
+        cli_bf16_run(lambda: cli(test_lm, 512, bf16=True), "test_lm",
+                     lm_info["eval_rows"], probe, card, entries, "test_lm_cli_launches")
 
         # the default capacities overflow at 5 mm on LineMOD-sized objects:
         # capacities above the rows K2 was asked for keep every voxel
@@ -1376,6 +1817,8 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     model = DCLNet.from_config(mcfg, seed=0)
     check(next(model.parameters()).is_cuda, "model is not on the card")
+    # the same weights in bf16 (model.compute_dtype: bfloat16)
+    model_b = DCLNet.from_config(mcfg, seed=0, dtype=torch.bfloat16)
     # the same weights on the fused point-feature path
     model_f = DCLNet.from_config(mcfg, seed=0, interp_mode="pallas_fused")
 
@@ -1786,6 +2229,11 @@ def main() -> int:
     print(f"point-feature stage of one encode [{BATCH},{n_points}] on {card}: " + ", ".join(
         f"{name} {t:.4f} ms (device {d:.4f})" for name, (t, d) in pf_ms.items()), flush=True)
 
+    # ---- 3b. the bf16 variants of K1, K2, K3, K6 vs their bf16 plain versions --
+    bf16_kernel_phase(entries, card, feats, vidx, model_b, grid_shape)
+    del model_b
+    torch.cuda.empty_cache()
+
     # ---- 4. main path at full width ------------------------------------------
     # warm-up pass (cuDNN algorithm choice, allocator), not counted
     Evaluator(model, model_points, template_bank=bank).evaluate(batches[:1])
@@ -1865,6 +2313,7 @@ def main() -> int:
     print(f"fused eval path on {card}: evaluate {t_eval_f:.3f} s for {rows} rows = "
           f"{rows / t_eval_f:.1f} instances/s (two-stage in this run {inst_s:.1f})",
           flush=True)
+    f32_rates = {"two-stage": inst_s, "fused": rows / t_eval_f}
 
     # ---- 5. training path at full width -----------------------------------------
     del ev, ev_plain, out, pout, ev_f, out_f, pout_f, pyramid, grid, pgrid
@@ -1944,7 +2393,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     lm_phase(card, entries)
 
-    # ---- 11. result lines -----------------------------------------------------
+    # ---- 11. bf16 eval, its drift from f32, stage 2 in bf16 ------------------------
+    torch.cuda.empty_cache()
+    bf16_eval_phase(card, mcfg, batches, bank, model_points, f32_rates, entries)
+
+    # ---- 12. result lines -----------------------------------------------------
     print(json.dumps({"kernels": [entries[k] for k in KERNEL_ORDER]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

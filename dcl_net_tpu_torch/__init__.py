@@ -7,21 +7,27 @@ functions, and hold f32 semantics. The kernels of stage-1 inference
 interpolation of interp_mode "pallas_fused") and of its training (the
 interpolation's and the compaction's backwards) live in ``csrc/`` and are
 built with nvcc at first use; a CPU tensor takes each kernel's plain version.
-Stage 2 (the refiner) is plain PyTorch on top of a stage-1 model.
+Stage 2 (the refiner) is plain PyTorch on top of a stage-1 model. Inference
+also runs in bf16 (model.compute_dtype: bfloat16) through bf16 variants of
+the forward kernels.
 """
 
 import torch
 
 
 def strict_f32() -> None:
-    """Turn TF32 off for matmuls and cuDNN convolutions.
+    """Turn TF32 off for matmuls and cuDNN convolutions, and keep the
+    reductions of bf16 matmuls in f32.
 
     The port runs f32 and holds it to the JAX reference's f32 results. cuDNN
     runs f32 convolutions in TF32 by default (about three decimal digits),
     which would break that parity for the 64^3 backbone, so every entry
-    point calls this before it runs."""
+    point calls this before it runs. A bf16 model (model.compute_dtype:
+    bfloat16) multiplies bf16 operands with f32 sums, as the JAX package's
+    bf16 does; cuBLAS may otherwise add split-K partial sums in bf16."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def resolve_device(device=None) -> torch.device:

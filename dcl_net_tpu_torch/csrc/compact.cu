@@ -60,9 +60,17 @@
 // cells, float4 where C % 4 == 0 and the rows are 16-byte aligned, else
 // float by float. Each cell holds at most one slot and nothing is added,
 // so the result is bit-equal to the plain version.
+//
+// K2's bf16 variant (dclx_compact_bf16; model.compute_dtype: bfloat16) is
+// the same two kernels with the writer templated on the feature type: it
+// copies bf16 rows as they are (bit for bit; the mask, coords, vmask and
+// occupancy are the f32 variant's), 16 bytes a thread, which are 8 bf16
+// channels instead of 4 floats. K5 has no bf16 variant: training in bf16
+// is not ported, and its wrapper refuses a bf16 cotangent.
 
 #include <cuda_runtime.h>
 
+#include "elem.cuh"
 #include "tile_fill.cuh"
 
 namespace {
@@ -109,11 +117,11 @@ compact_count(const float* __restrict__ mask, int* __restrict__ tile_counts, int
   }
 }
 
-template <int kTileCells>
+template <int kTileCells, class T>
 __global__ void __launch_bounds__(kTileCells / 4)
-compact_write(const float* __restrict__ feats, const float* __restrict__ mask,
+compact_write(const T* __restrict__ feats, const float* __restrict__ mask,
               const int* __restrict__ tile_counts, int* __restrict__ coords,
-              float* __restrict__ vfeats, float* __restrict__ vmask,
+              T* __restrict__ vfeats, float* __restrict__ vmask,
               int* __restrict__ occupancy, int g, int c, int d1, int d2, int cap, int tiles,
               int vec_mask, int vec_rows) {
   constexpr int kThreads = kTileCells / 4;
@@ -184,17 +192,17 @@ compact_write(const float* __restrict__ feats, const float* __restrict__ mask,
   __syncthreads();
   // the listed rows: vfeats[row0 + before + r] = feats[b, sel[r]]
   const int rows = max(0, min(cap - before, warp_incl[kWarps - 1]));
-  const float* fb = feats + (long long)b * g * c;
-  float* dst = vfeats + (row0 + before) * c;
-  if (vec_rows) {
-    const int c4 = c >> 2;
+  const T* fb = feats + (long long)b * g * c;
+  T* dst = vfeats + (row0 + before) * c;
+  if (vec_rows) {  // 16 bytes a thread: per_vec<T>() channels
+    const int c4 = c / elem::per_vec<T>();
     const int k = threadIdx.x % c4;
     const int step = kThreads / c4;
-    const float4* src4 = reinterpret_cast<const float4*>(fb) + k;
-    float4* dst4 = reinterpret_cast<float4*>(dst) + k;
+    const uint4* src4 = reinterpret_cast<const uint4*>(fb) + k;
+    uint4* dst4 = reinterpret_cast<uint4*>(dst) + k;
     int r = threadIdx.x / c4;
     for (; r + (kCopyUnroll - 1) * step < rows; r += kCopyUnroll * step) {
-      float4 f[kCopyUnroll];
+      uint4 f[kCopyUnroll];
 #pragma unroll
       for (int u = 0; u < kCopyUnroll; ++u) f[u] = src4[(long long)sel[r + u * step] * c4];
 #pragma unroll
@@ -220,8 +228,8 @@ compact_write(const float* __restrict__ feats, const float* __restrict__ mask,
   if (t == 0 && threadIdx.x == 0) occupancy[b] = total;
 }
 
-template <int kTileCells>
-int launch_compact(const float* feats, const float* mask, int* coords, float* vfeats,
+template <int kTileCells, class T>
+int launch_compact(const T* feats, const float* mask, int* coords, T* vfeats,
                    float* vmask, int* counts, int b, int g, int c, int d1, int d2, int cap,
                    cudaStream_t s) {
   constexpr int kThreads = kTileCells / 4;
@@ -230,12 +238,13 @@ int launch_compact(const float* feats, const float* mask, int* coords, float* vf
     return reinterpret_cast<unsigned long long>(p) % 16 == 0;
   };
   const int vec_mask = g % 4 == 0 && aligned(mask);
-  const int vec_rows = c > 0 && c % 4 == 0 && kThreads % (c / 4) == 0 && aligned(feats) &&
-                       aligned(vfeats);
+  constexpr int kPer = elem::per_vec<T>();
+  const int vec_rows = c > 0 && c % kPer == 0 && kThreads % (c / kPer) == 0 &&
+                       aligned(feats) && aligned(vfeats);
   int* tile_counts = counts + b;
   const dim3 blocks((unsigned)tiles, (unsigned)b);
   compact_count<kTileCells><<<blocks, kThreads, 0, s>>>(mask, tile_counts, g, tiles, vec_mask);
-  compact_write<kTileCells><<<blocks, kThreads, 0, s>>>(
+  compact_write<kTileCells, T><<<blocks, kThreads, 0, s>>>(
       feats, mask, tile_counts, coords, vfeats, vmask, counts, g, c, d1, d2, cap, tiles,
       vec_mask, vec_rows);
   return (int)cudaGetLastError();
@@ -286,6 +295,26 @@ compact_occupied_bwd(const float* __restrict__ dv, const int* __restrict__ coord
   }
 }
 
+template <class T>
+int compact_tiles(const void* feats, const void* mask, void* coords, void* vfeats,
+                  void* vmask, void* counts, int b, int g, int c, int d1, int d2, int cap,
+                  int tile_cells, void* stream) {
+  if (b <= 0 || g <= 0) return (int)cudaGetLastError();
+  const auto* f = static_cast<const T*>(feats);
+  const auto* m = static_cast<const float*>(mask);
+  auto* xyz = static_cast<int*>(coords);
+  auto* vf = static_cast<T*>(vfeats);
+  auto* vm = static_cast<float*>(vmask);
+  auto* n = static_cast<int*>(counts);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (tile_cells) {
+    case 256: return launch_compact<256>(f, m, xyz, vf, vm, n, b, g, c, d1, d2, cap, s);
+    case 512: return launch_compact<512>(f, m, xyz, vf, vm, n, b, g, c, d1, d2, cap, s);
+    case 1024: return launch_compact<1024>(f, m, xyz, vf, vm, n, b, g, c, d1, d2, cap, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // feats [B,G,C] f32, mask [B,G] f32; writes every element of coords
@@ -297,20 +326,17 @@ extern "C" int dclx_compact(const void* feats, const void* mask, void* coords,
                             void* vfeats, void* vmask, void* counts,
                             int b, int g, int c, int d1, int d2, int cap, int tile_cells,
                             void* stream) {
-  if (b <= 0 || g <= 0) return (int)cudaGetLastError();
-  const auto* f = static_cast<const float*>(feats);
-  const auto* m = static_cast<const float*>(mask);
-  auto* xyz = static_cast<int*>(coords);
-  auto* vf = static_cast<float*>(vfeats);
-  auto* vm = static_cast<float*>(vmask);
-  auto* n = static_cast<int*>(counts);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (tile_cells) {
-    case 256: return launch_compact<256>(f, m, xyz, vf, vm, n, b, g, c, d1, d2, cap, s);
-    case 512: return launch_compact<512>(f, m, xyz, vf, vm, n, b, g, c, d1, d2, cap, s);
-    case 1024: return launch_compact<1024>(f, m, xyz, vf, vm, n, b, g, c, d1, d2, cap, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return compact_tiles<float>(feats, mask, coords, vfeats, vmask, counts, b, g, c, d1, d2,
+                              cap, tile_cells, stream);
+}
+
+// As dclx_compact, with feats [B,G,C] and vfeats [B,cap,C] bf16.
+extern "C" int dclx_compact_bf16(const void* feats, const void* mask, void* coords,
+                                 void* vfeats, void* vmask, void* counts,
+                                 int b, int g, int c, int d1, int d2, int cap,
+                                 int tile_cells, void* stream) {
+  return compact_tiles<__nv_bfloat16>(feats, mask, coords, vfeats, vmask, counts, b, g, c,
+                                      d1, d2, cap, tile_cells, stream);
 }
 
 // dv [B,cap,C] f32, coords [B,cap,3] i32 and vmask [B,cap] f32 from the

@@ -69,6 +69,13 @@
 // slot, a slot's serial sum and not the zeros sets the time. The result is
 // bit-equal to the plain version (the plain K4 then the plain K5, on the
 // CPU) and the same from run to run.
+//
+// K6's bf16 variant (dclx_compact_interp_bf16; model.compute_dtype:
+// bfloat16) is the same kernel body over K2's bf16 rows: coords, mask,
+// decoded centers, distances and weights stay f32, so idx and w are the f32
+// variant's, and the weighted sum is taken in f32 and rounded to bf16 once;
+// it is torch.equal to K2 -> centers -> K3 in bf16. K7 has no bf16 variant:
+// training in bf16 is not ported, and its wrapper refuses a bf16 cotangent.
 
 #include <cuda_runtime.h>
 
@@ -133,6 +140,25 @@ extern "C" int dclx_compact_interp(const void* points, const void* coords,
                                 static_cast<const int*>(occupancy), static_cast<float*>(out),
                                 static_cast<float*>(w), static_cast<int*>(idx), b, n, cap, c,
                                 lanes, queries, static_cast<cudaStream_t>(stream));
+}
+
+// K6's bf16 variant: as dclx_compact_interp, with vfeats [B,cap,C] (K2's
+// bf16 rows) and out [B,N,C] bf16.
+extern "C" int dclx_compact_interp_bf16(const void* points, const void* coords,
+                                        const void* vfeats, const void* vmask,
+                                        const void* occupancy, void* out, void* w,
+                                        void* idx, int b, int n, int cap, int c, int lanes,
+                                        int queries, float us0, float us1, float us2,
+                                        float oc0, float oc1, float oc2, void* stream) {
+  const three_nn_lanes::CoordRows rows{static_cast<const int*>(coords), us0, us1, us2,
+                                       oc0, oc1, oc2};
+  return three_nn_lanes::launch(static_cast<const float*>(points), rows,
+                                static_cast<const __nv_bfloat16*>(vfeats),
+                                static_cast<const float*>(vmask),
+                                static_cast<const int*>(occupancy),
+                                static_cast<__nv_bfloat16*>(out), static_cast<float*>(w),
+                                static_cast<int*>(idx), b, n, cap, c, lanes, queries,
+                                static_cast<cudaStream_t>(stream));
 }
 
 // g [B,N,C] f32, w [B,3,N] f32 and idx [B,3,N] i32 (each in [0, cap)) as K6

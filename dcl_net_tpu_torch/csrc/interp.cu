@@ -73,6 +73,13 @@
 //     time.
 // The result is bit-equal to the plain version (index_add_ on the CPU) and
 // the same from run to run.
+//
+// K3's bf16 variant (dclx_interp_bf16; model.compute_dtype: bfloat16) is the
+// same kernel body with bf16 features and output: f32 points, centers,
+// distances and weights, so idx and w are the f32 variant's; the weighted
+// sum is taken in f32 and rounded to bf16 once (three_nn_lanes.cuh). K4 has
+// no bf16 variant: training in bf16 is not ported, and its wrapper refuses a
+// bf16 cotangent.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -113,6 +120,20 @@ extern "C" int dclx_interp(const void* points, const void* centers, const void* 
                     tl::CenterRows{static_cast<const float*>(centers)},
                     static_cast<const float*>(feats), static_cast<const float*>(mask),
                     static_cast<const int*>(n_valid), static_cast<float*>(out),
+                    static_cast<float*>(w), static_cast<int*>(idx), b, n, v, c, lanes,
+                    queries, static_cast<cudaStream_t>(stream));
+}
+
+// K3's bf16 variant: as dclx_interp, with feats [B,V,C] and out [B,N,C] bf16
+// (points, centers, mask, w and idx as there).
+extern "C" int dclx_interp_bf16(const void* points, const void* centers, const void* feats,
+                                const void* mask, const void* n_valid, void* out, void* w,
+                                void* idx, int b, int n, int v, int c, int lanes,
+                                int queries, void* stream) {
+  return tl::launch(static_cast<const float*>(points),
+                    tl::CenterRows{static_cast<const float*>(centers)},
+                    static_cast<const __nv_bfloat16*>(feats), static_cast<const float*>(mask),
+                    static_cast<const int*>(n_valid), static_cast<__nv_bfloat16*>(out),
                     static_cast<float*>(w), static_cast<int*>(idx), b, n, v, c, lanes,
                     queries, static_cast<cudaStream_t>(stream));
 }

@@ -19,11 +19,24 @@
 // keeps exactly those. The distances are sq_dist (no FMA contraction);
 // tensor cores are not used: the expansion form |p|^2 + |c|^2 - 2 p.c that a
 // wgmma product would need rounds differently and changes idx on near-ties.
+//
+// The features and the output have an element type T: float, or
+// __nv_bfloat16 for the bf16 variants of K3 and K6 (model.compute_dtype:
+// bfloat16). Points, rows, mask, distances and weights are f32 in both, so
+// the bf16 variant selects the same idx and w as the f32 one; its epilogue
+// loads bf16 features 8 to a 16-byte access, takes them to f32, sums the
+// same f32 products in the same order and rounds the sum to bf16 once,
+// which is what the JAX package's bf16 Pallas kernels compute (an f32
+// product of the weights with the features, cast to the feature dtype).
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "elem.cuh"
 
 namespace three_nn_lanes {
 
@@ -175,27 +188,53 @@ __device__ __forceinline__ float4 combine(float w0, float4 a, float w1, float4 b
   return o;
 }
 
+// combine over 8 bf16 channels packed in 16 bytes: each taken to f32,
+// combined as above, and the result rounded to bf16 once.
+__device__ __forceinline__ uint4 combine(float w0, uint4 a, float w1, uint4 b, float w2,
+                                         uint4 c) {
+  const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
+  const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(&b);
+  const __nv_bfloat162* c2 = reinterpret_cast<const __nv_bfloat162*>(&c);
+  uint4 o;
+  __nv_bfloat162* o2 = reinterpret_cast<__nv_bfloat162*>(&o);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 x = __bfloat1622float2(a2[i]);
+    const float2 y = __bfloat1622float2(b2[i]);
+    const float2 z = __bfloat1622float2(c2[i]);
+    const float4 r = combine(w0, make_float4(x.x, x.y, 0.f, 0.f), w1,
+                             make_float4(y.x, y.y, 0.f, 0.f), w2,
+                             make_float4(z.x, z.y, 0.f, 0.f));
+    o2[i] = __floats2bfloat162_rn(r.x, r.y);
+  }
+  return o;
+}
+
 // The output rows out[q0 + qi] = sum_k w_k * feats[idx_k] of the block's nq
 // queries, from their indices and weights in shared memory (Q entries a
-// row), by all T threads of the block. vec (C % 4 == 0, 16-byte aligned
-// rows, T % (C / 4) == 0): each thread keeps one float4 column k and walks the queries
-// T / (C / 4) apart, kUnroll queries a step in whole unpredicated steps
-// (their 3 * kUnroll gathers issued before any add), then a tail; else one
-// float at a time. The sum is (w0 f0 + w1 f1) + w2 f2, rounded per product.
-template <int Q, int T, int kUnroll>
+// row), by all kThreads threads of the block. vec (C a multiple of E, the
+// elements of T in 16 bytes, 16-byte aligned rows, kThreads % (C / E) == 0):
+// each thread keeps one 16-byte column k and walks the queries
+// kThreads / (C / E) apart, kUnroll queries a step in whole unpredicated
+// steps (their 3 * kUnroll gathers issued before any add), then a tail;
+// else one element at a time. The sum is (w0 f0 + w1 f1) + w2 f2 in f32,
+// rounded per product, then rounded to T.
+template <int Q, int kThreads, int kUnroll, class T>
 __device__ __forceinline__ void write_rows(int (*s_idx)[Q], float (*s_w)[Q],
                                            int nq, int c, bool vec,
-                                           const float* __restrict__ fb,
-                                           float* __restrict__ ob) {
+                                           const T* __restrict__ fb,
+                                           T* __restrict__ ob) {
+  // float4 for f32, uint4 (8 bf16) for bf16: one 16-byte access either way
+  using V = typename std::conditional<std::is_same<T, float>::value, float4, uint4>::type;
   if (vec) {
-    const int c4 = c >> 2;
+    const int c4 = c / elem::per_vec<T>();
     const int k = threadIdx.x % c4;
-    const int step = T / c4;
-    const float4* f4 = reinterpret_cast<const float4*>(fb) + k;
-    float4* o4 = reinterpret_cast<float4*>(ob) + k;
+    const int step = kThreads / c4;
+    const V* f4 = reinterpret_cast<const V*>(fb) + k;
+    V* o4 = reinterpret_cast<V*>(ob) + k;
     int qi = threadIdx.x / c4;
     for (; qi + (kUnroll - 1) * step < nq; qi += kUnroll * step) {
-      float4 f[kUnroll][3];
+      V f[kUnroll][3];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u)
 #pragma unroll
@@ -215,13 +254,13 @@ __device__ __forceinline__ void write_rows(int (*s_idx)[Q], float (*s_w)[Q],
                   __ldg(f4 + (long long)s_idx[2][qi] * c4));
     return;
   }
-  for (int e = threadIdx.x; e < nq * c; e += T) {
+  for (int e = threadIdx.x; e < nq * c; e += kThreads) {
     const int qi = e / c;
     const int ch = e - qi * c;
-    const float a0 = __fmul_rn(s_w[0][qi], fb[(long long)s_idx[0][qi] * c + ch]);
-    const float a1 = __fmul_rn(s_w[1][qi], fb[(long long)s_idx[1][qi] * c + ch]);
-    const float a2 = __fmul_rn(s_w[2][qi], fb[(long long)s_idx[2][qi] * c + ch]);
-    ob[e] = __fadd_rn(__fadd_rn(a0, a1), a2);
+    const float a0 = __fmul_rn(s_w[0][qi], elem::to_float(fb[(long long)s_idx[0][qi] * c + ch]));
+    const float a1 = __fmul_rn(s_w[1][qi], elem::to_float(fb[(long long)s_idx[1][qi] * c + ch]));
+    const float a2 = __fmul_rn(s_w[2][qi], elem::to_float(fb[(long long)s_idx[2][qi] * c + ch]));
+    ob[e] = elem::from_float<T>(__fadd_rn(__fadd_rn(a0, a1), a2));
   }
 }
 
@@ -307,11 +346,11 @@ struct CoordRows {
 // ---- the kernel: grid (query tiles of Q, B), S * Q threads, 16 B of dynamic
 // shared memory a tile row
 
-template <int S, int Q, class Rows>
+template <int S, int Q, class Rows, class T>
 __global__ void __launch_bounds__(S * Q)
-three_nn_rows(const float* __restrict__ points, Rows rows, const float* __restrict__ feats,
+three_nn_rows(const float* __restrict__ points, Rows rows, const T* __restrict__ feats,
               const float* __restrict__ mask, const int* __restrict__ n_valid,
-              float* __restrict__ out, float* __restrict__ w_out, int* __restrict__ idx_out,
+              T* __restrict__ out, float* __restrict__ w_out, int* __restrict__ idx_out,
               int n, int v, int c, int tile_rows, int bulk_ok, int vec) {
   extern __shared__ __align__(128) float tile[];  // rows [tile_rows, 3], then mask
   __shared__ __align__(8) uint64_t bar;
@@ -388,9 +427,9 @@ three_nn_rows(const float* __restrict__ points, Rows rows, const float* __restri
                                 out + ((long long)b * n + q0) * c);
 }
 
-template <int S, int Q, class Rows>
-int launch_shape(const float* points, Rows rows, const float* feats, const float* mask,
-                 const int* n_valid, float* out, float* w, int* idx, int b, int n, int v,
+template <int S, int Q, class Rows, class T>
+int launch_shape(const float* points, Rows rows, const T* feats, const float* mask,
+                 const int* n_valid, T* out, float* w, int* idx, int b, int n, int v,
                  int c, cudaStream_t s) {
   constexpr int kThreads = S * Q;
   const int tile_rows = min(kTileRows, (v + 3) & ~3);
@@ -398,23 +437,24 @@ int launch_shape(const float* points, Rows rows, const float* feats, const float
     return reinterpret_cast<unsigned long long>(p) % 16 == 0;
   };
   const int bulk_ok = aligned(rows.src) && aligned(mask);
-  const int vec = c > 0 && c % 4 == 0 && kThreads % (c / 4) == 0 && aligned(feats) &&
+  constexpr int kPer = elem::per_vec<T>();
+  const int vec = c > 0 && c % kPer == 0 && kThreads % (c / kPer) == 0 && aligned(feats) &&
                   aligned(out);
   const dim3 grid((unsigned)((n + Q - 1) / Q), (unsigned)b);
-  three_nn_rows<S, Q, Rows><<<grid, kThreads, (size_t)16 * tile_rows, s>>>(
+  three_nn_rows<S, Q, Rows, T><<<grid, kThreads, (size_t)16 * tile_rows, s>>>(
       points, rows, feats, mask, n_valid, out, w, idx, n, v, c, tile_rows, bulk_ok, vec);
   return (int)cudaGetLastError();
 }
 
-// points [B,N,3] f32, rows [B,V,3] (the source's type), feats [B,V,C] f32,
+// points [B,N,3] f32, rows [B,V,3] (the source's type), feats [B,V,C] T,
 // mask [B,V] f32; n_valid [B] i32 or null (scan rows [0, min(n_valid[b], V)),
 // which must hold every row with mask > 0; null: all V rows); out [B,N,C]
-// f32, w [B,3,N] f32, idx [B,3,N] i32. lanes (S) in {2, 4, 8} and queries
+// T, w [B,3,N] f32, idx [B,3,N] i32. lanes (S) in {2, 4, 8} and queries
 // (Q) in {32, 64, 128}: the block's shape; another pair returns
 // cudaErrorInvalidValue.
-template <class Rows>
-int launch(const float* points, Rows rows, const float* feats, const float* mask,
-           const int* n_valid, float* out, float* w, int* idx, int b, int n, int v, int c,
+template <class Rows, class T>
+int launch(const float* points, Rows rows, const T* feats, const float* mask,
+           const int* n_valid, T* out, float* w, int* idx, int b, int n, int v, int c,
            int lanes, int queries, cudaStream_t s) {
   if (b <= 0 || n <= 0) return (int)cudaGetLastError();
 #define DCLX_THREE_NN_CASE(S, Q)                                                        \

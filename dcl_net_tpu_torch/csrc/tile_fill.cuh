@@ -8,23 +8,33 @@
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
 namespace tile_fill {
 
-// Zeros over p[0, n) by the block's threads: a scalar head up to the next
-// 16-byte boundary, float4 streaming stores (st.global.cs: evict first,
+// Zeros over p[0, n) by the block's threads, for 4-byte (float, int) or
+// 2-byte (bf16) elements T, as their bits: a scalar head up to the next
+// 16-byte boundary, 16-byte streaming stores (st.global.cs: evict first,
 // as nothing reads them back soon) with neighbouring threads on
-// neighbouring addresses, then a scalar tail. Needs blockDim.x >= 4.
-__device__ __forceinline__ void zero(float* __restrict__ p, long long n) {
+// neighbouring addresses, then a scalar tail. Needs blockDim.x >= 16 /
+// sizeof(T).
+template <class T>
+__device__ __forceinline__ void zero(T* __restrict__ p, long long n) {
+  static_assert(sizeof(T) == 4 || sizeof(T) == 2, "4- or 2-byte elements");
+  using W = typename std::conditional<sizeof(T) == 4, unsigned int, unsigned short>::type;
+  constexpr long long kPer = 16 / sizeof(T);
+  W* w = reinterpret_cast<W*>(p);
   const long long to_align =
-      (long long)((16u - (unsigned)(reinterpret_cast<unsigned long long>(p) & 15u)) & 15u) >> 2;
+      (long long)((16u - (unsigned)(reinterpret_cast<unsigned long long>(p) & 15u)) & 15u) /
+      (long long)sizeof(T);
   const long long head = to_align < n ? to_align : n;
-  if (threadIdx.x < head) p[threadIdx.x] = 0.f;
-  float4* q = reinterpret_cast<float4*>(p + head);
-  const long long n4 = (n - head) >> 2;
-  const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (threadIdx.x < head) w[threadIdx.x] = 0;
+  uint4* q = reinterpret_cast<uint4*>(w + head);
+  const long long n4 = (n - head) / kPer;
+  const uint4 z = make_uint4(0u, 0u, 0u, 0u);
   for (long long i = threadIdx.x; i < n4; i += blockDim.x) __stcs(q + i, z);
-  const long long done = head + 4 * n4;
-  if (threadIdx.x < n - done) p[done + threadIdx.x] = 0.f;
+  const long long done = head + kPer * n4;
+  if (threadIdx.x < n - done) w[done + threadIdx.x] = 0;
 }
 
 // The first slot s of [0, cap) whose key reaches target, where key(s) is

@@ -44,9 +44,20 @@
 // Shared memory, dynamic: 2 + C words per list entry (N at most) and one
 // per tile cell; ops/cuda_voxelize.py sizes it and raises for an N whose
 // list does not fit.
+//
+// The bf16 variant (dclx_voxelize_bf16; model.compute_dtype: bfloat16)
+// writes a bf16 grid with the semantics of the JAX package's
+// pallas_voxelize(out_dtype=bfloat16): each point's features are rounded
+// to bf16 as they enter the list, each cell's sum of those values is taken
+// in f32 (in point order here) and stored as bf16; mode 4 then divides the
+// bf16 sum, taken back to f32, by the count and rounds to bf16 again. The
+// counts stay exact f32. It is the same kernel, templated on the grid's
+// element type: the list, the chains and the sums are f32 in both, and only
+// the grid's bytes (2 a value instead of 4) differ.
 
 #include <cuda_runtime.h>
 
+#include "elem.cuh"
 #include "tile_fill.cuh"
 
 namespace {
@@ -54,9 +65,10 @@ namespace {
 constexpr int kThreads = 1024;  // one point per thread per scan step
 constexpr int kWarps = kThreads / 32;
 
+template <class T>
 __global__ void __launch_bounds__(kThreads)
 voxelize_tiles(const float* __restrict__ feats, const int* __restrict__ vidx,
-               const float* __restrict__ pmask, float* __restrict__ grid,
+               const float* __restrict__ pmask, T* __restrict__ grid,
                float* __restrict__ count, int n, int c, int d0, int d1, int d2,
                int tile, int mean) {
   extern __shared__ int smem[];
@@ -72,7 +84,7 @@ voxelize_tiles(const float* __restrict__ feats, const int* __restrict__ vidx,
   const long long g = (long long)d0 * d1 * d2;
   const long long lo = (long long)blockIdx.x * tile;
   const int cells = (int)min((long long)tile, g - lo);
-  float* grid_t = grid + ((long long)b * g + lo) * c;
+  T* grid_t = grid + ((long long)b * g + lo) * c;
   float* count_t = count + (long long)b * g + lo;
 
   // 1. zeros over the tile
@@ -118,7 +130,7 @@ voxelize_tiles(const float* __restrict__ feats, const int* __restrict__ vidx,
       list_cell[pos] = rel;
       tail[rel] = -1;
       const float* src = f + (long long)p * c;
-      for (int ch = 0; ch < c; ++ch) list_feat[pos * c + ch] = src[ch];
+      for (int ch = 0; ch < c; ++ch) list_feat[pos * c + ch] = elem::round_to<T>(src[ch]);
     }
     len += warp_incl[kWarps - 1];
     __syncthreads();  // warp_incl is rewritten by the next step
@@ -166,9 +178,31 @@ voxelize_tiles(const float* __restrict__ feats, const int* __restrict__ vidx,
       ++k_n;
     }
     const float nf = (float)k_n;  // exact: k_n <= N < 2^24
-    grid_t[(long long)cell * c + ch] = mean ? s / nf : s;  // nf >= 1
+    // the sum as the grid's type holds it, then (mode 4) over the count, nf >= 1
+    const float sum = elem::round_to<T>(s);
+    grid_t[(long long)cell * c + ch] = elem::from_float<T>(mean ? sum / nf : sum);
     if (ch == 0) count_t[cell] = nf;
   }
+}
+
+template <class T>
+int launch_voxelize(const void* feats, const void* vidx, const void* pmask, void* sum,
+                    void* count, int b, int n, int c, int d0, int d1, int d2, int mean,
+                    int tile, int smem, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long g = (long long)d0 * d1 * d2;
+  if (b <= 0 || g <= 0) return (int)cudaGetLastError();
+  if (smem > 47 * 1024) {  // with the static shared memory, above the default 48 KB
+    const cudaError_t e = cudaFuncSetAttribute(
+        voxelize_tiles<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const dim3 blocks((unsigned)((g + tile - 1) / tile), (unsigned)b);
+  voxelize_tiles<T><<<blocks, kThreads, smem, s>>>(
+      static_cast<const float*>(feats), static_cast<const int*>(vidx),
+      static_cast<const float*>(pmask), static_cast<T*>(sum),
+      static_cast<float*>(count), n, c, d0, d1, d2, tile, mean);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -181,18 +215,15 @@ extern "C" int dclx_voxelize(const void* feats, const void* vidx,
                              const void* pmask, void* sum, void* count,
                              int b, int n, int c, int d0, int d1, int d2,
                              int mean, int tile, int smem, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long g = (long long)d0 * d1 * d2;
-  if (b <= 0 || g <= 0) return (int)cudaGetLastError();
-  if (smem > 47 * 1024) {  // with the static shared memory, above the default 48 KB
-    const cudaError_t e = cudaFuncSetAttribute(
-        voxelize_tiles, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const dim3 blocks((unsigned)((g + tile - 1) / tile), (unsigned)b);
-  voxelize_tiles<<<blocks, kThreads, smem, s>>>(
-      static_cast<const float*>(feats), static_cast<const int*>(vidx),
-      static_cast<const float*>(pmask), static_cast<float*>(sum),
-      static_cast<float*>(count), n, c, d0, d1, d2, tile, mean);
-  return (int)cudaGetLastError();
+  return launch_voxelize<float>(feats, vidx, pmask, sum, count, b, n, c, d0, d1, d2, mean,
+                                tile, smem, stream);
+}
+
+// As dclx_voxelize, with sum [B,G,C] bf16 (the bf16 semantics above).
+extern "C" int dclx_voxelize_bf16(const void* feats, const void* vidx,
+                                  const void* pmask, void* sum, void* count,
+                                  int b, int n, int c, int d0, int d1, int d2,
+                                  int mean, int tile, int smem, void* stream) {
+  return launch_voxelize<__nv_bfloat16>(feats, vidx, pmask, sum, count, b, n, c, d0, d1, d2,
+                                        mean, tile, smem, stream);
 }

@@ -43,7 +43,8 @@ class Evaluator:
       count_lost: add_0.1d counts lost detections in the denominator.
       template_bank: optional {"feats": [C, M, 7], "voxel_idx": [C, M, 3]}
         per-class template inputs; the template branch is then encoded once
-        per class and gathered per instance.
+        per class and gathered per instance (in the model's compute type: a
+        bf16 model's cache holds bf16 features).
       device: CUDA unless the caller names another.
     """
 
@@ -83,7 +84,8 @@ class Evaluator:
                 out = self.model.fuse(obs, tmp)
             else:
                 out = self.model(batch)
-            rot, trans = self._pose(out)
+            # a bf16 model's trans_pred is bf16: the pose is scored in f32
+            rot, trans = (t.float() for t in self._pose(out))
             pose = (self.model_points[cls], rot, trans,
                     batch["labels"]["rot_gt"], batch["labels"]["trans_gt"])
             res = {"adds": add_s_batch(*pose), "rot_pred": rot, "trans_pred": trans,

@@ -3,7 +3,9 @@
 Counterpart of dcl_net_tpu/geometry/rotation.py: vector normalisation and
 the ortho-9D -> SO(3) projection by SVD with the determinant fix, polished
 by two Newton-Schulz steps. Run in f32 with TF32 off (see
-dcl_net_tpu_torch.strict_f32).
+dcl_net_tpu_torch.strict_f32); a bf16 model's 9D output is normalised in
+bf16 and projected in f32, as the JAX function does (torch has no BFloat16
+linalg.svd on the CPU, so nothing there could run it in bf16).
 """
 
 from __future__ import annotations
@@ -14,8 +16,14 @@ _EPS = 1e-8
 
 
 def normalize_vector(v: torch.Tensor, eps: float = _EPS) -> torch.Tensor:
-    """L2-normalise the last axis with a magnitude floor."""
-    mag = torch.linalg.norm(v, dim=-1, keepdim=True)
+    """L2-normalise the last axis with a magnitude floor. In bf16 the norm
+    follows jnp.linalg.norm's rounding points under XLA: the squares rounded
+    to bf16, their sum taken in f32 and rounded, the bf16 square root."""
+    if v.dtype == torch.bfloat16:
+        mag = torch.sqrt((v * v).sum(dim=-1, keepdim=True, dtype=torch.float32)
+                         .to(torch.bfloat16))
+    else:
+        mag = torch.linalg.norm(v, dim=-1, keepdim=True)
     return v / torch.clamp(mag, min=eps)
 
 

@@ -16,11 +16,15 @@ kernel K3 (ops/cuda_interp.py) over K2's valid prefix (its occupancy);
 centers inside the kernel. In training the gradient flows back through the
 interpolation (kernel K4) and the compaction (kernel K5) onto the pooled
 grids; on the fused path the two run as its backward, K7.
+
+With dtype bfloat16 (model.compute_dtype) the grids, the pooled levels and
+the interpolated features are bf16 and K2, K3 and K6 run their bf16
+variants; masks, occupancies, voxel centers and points stay f32.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -35,14 +39,15 @@ class SparseBackbone(nn.Module):
     """4-module sparse conv pyramid returning 4 pooled (feats, mask) levels."""
 
     def __init__(self, dims: Sequence[int] = (7, 16, 32, 32, 64, 64, 128, 128, 256),
-                 stride_layers: Sequence[int] = (1, 3, 5), kernel_size: int = 3):
+                 stride_layers: Sequence[int] = (1, 3, 5), kernel_size: int = 3,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.kernel_size = kernel_size
         self.module_end = set(stride_layers) | {len(dims) - 2}
         for i in range(len(dims) - 1):
             subm = not ((i - 1) in stride_layers or i == 0)
             self.add_module(f"conv{i}", SparseConvBlock(
-                dims[i], dims[i + 1], kernel_size, subm=subm))
+                dims[i], dims[i + 1], kernel_size, subm=subm, dtype=dtype))
         self.n_layers = len(dims) - 1
 
     def forward(self, grid: torch.Tensor, mask: torch.Tensor

@@ -10,11 +10,18 @@ they normalise with batch statistics that the gradient flows through and
 update the running statistics in place, as the JAX blocks do under
 train=True with mutable batch_stats: the sparse-conv block over occupied
 voxels (MaskedBatchNorm), the per-point MLPs as flax's nn.BatchNorm.
+
+`dtype` is the compute type of the convolutions and dense layers, as the
+JAX blocks' `dtype` (flax's): None computes in the input's type (f32 on
+the main path); torch.bfloat16 casts inputs and parameters to bf16 at use,
+the parameters staying f32 in the module. bf16 is for eval mode: DCLNet
+refuses to train in it (queue A 5b of ROADMAP.md), and the train branches
+here compute in f32.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -25,9 +32,29 @@ from dcl_net_tpu_torch.ops.sparse_conv import (
     masked_batch_norm_stats,
 )
 
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """torch.sigmoid; in bf16, 1 / (1 + exp(-x)) with each step rounded to
+    bf16, which is how XLA computes jax.nn.sigmoid (lax.logistic) on bf16
+    (a third of the outputs differ by an ulp from a sigmoid rounded once)."""
+    if x.dtype != torch.bfloat16:
+        return torch.sigmoid(x)
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
+def softmax(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """torch.softmax; in bf16, jax.nn.softmax's steps with XLA's rounding
+    points: exp(x - max) rounded to bf16, their sum taken in f32 (jnp.sum
+    upcasts bf16) and rounded to bf16, then the bf16 quotient."""
+    if x.dtype != torch.bfloat16:
+        return torch.softmax(x, dim=dim)
+    e = torch.exp(x - x.amax(dim=dim, keepdim=True))
+    return e / e.sum(dim=dim, keepdim=True, dtype=torch.float32).to(torch.bfloat16)
+
+
 _ACTS = {
     "relu": torch.relu,
-    "sigmoid": torch.sigmoid,
+    "sigmoid": sigmoid,
     "tanh": torch.tanh,
     "none": lambda x: x,
 }
@@ -101,13 +128,19 @@ class SparseConvBlock(nn.Module):
     done in place on the conv's output.
     In train mode the conv output is normalised by MaskedBatchNorm over the
     voxels active after the conv (dcl_net_tpu/models/blocks.py:130-145).
-    Input invariant: x is zero at inactive voxels."""
+    Input invariant: x is zero at inactive voxels.
+
+    With dtype bfloat16 (eval only) the fold runs in f32, then the conv
+    takes bf16 inputs and the bf16 folded kernel and returns bf16 (cuDNN and
+    the CPU accumulate in f32), b' is added in bf16, and the ReLU and the
+    re-mask run in bf16, as dcl_net_tpu/models/blocks.py:124-130 does."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int = 3,
-                 subm: bool = True):
+                 subm: bool = True, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.kernel_size = kernel_size
         self.subm = subm
+        self.dtype = dtype
         self.conv = nn.Conv3d(in_features, features, kernel_size,
                               padding=kernel_size // 2, bias=False)
         self.bn = MaskedBatchNorm(features)
@@ -123,10 +156,12 @@ class SparseConvBlock(nn.Module):
         s = self.bn.weight / torch.sqrt(self.bn.running_var + self.bn.eps)
         w_eff = self.conv.weight * s[:, None, None, None, None]
         b_eff = self.bn.bias - self.bn.running_mean * s
-        y = F.conv3d(x.permute(0, 4, 1, 2, 3), w_eff, padding=k // 2).permute(0, 2, 3, 4, 1)
+        dt = self.dtype or x.dtype
+        y = F.conv3d(x.to(dt).permute(0, 4, 1, 2, 3), w_eff.to(dt),
+                     padding=k // 2).permute(0, 2, 3, 4, 1)
         # in place on the conv's fresh output: the values of y + b_eff, relu
         # and the re-mask, in one grid buffer instead of three
-        y.add_(b_eff).relu_().mul_(new_mask[..., None].to(y.dtype))
+        y.add_(b_eff.to(dt)).relu_().mul_(new_mask[..., None].to(y.dtype))
         return y, new_mask
 
 
@@ -142,12 +177,19 @@ class PointMLP(nn.Module):
     statistics reduce over every axis but the last, the variance is
     E[x^2] - E[x]^2 clipped at 0 (flax's use_fast_variance), and the
     running variance is updated with that biased variance (momentum 0.1,
-    flax's 0.9); then (x - mean) * (rsqrt(var + eps) * scale) + bias."""
+    flax's 0.9); then (x - mean) * (rsqrt(var + eps) * scale) + bias.
+
+    With dtype bfloat16 (eval only), as flax's Dense and BatchNorm with
+    dtype=bfloat16: each dense layer multiplies the bf16 input by the bf16
+    kernel (accumulating in f32, rounding to bf16), then adds the bf16 bias
+    in bf16; each BN normalises in f32 with the f32 statistics and
+    parameters and returns bf16; the activations run in bf16."""
 
     def __init__(self, in_dim: int, dims: Sequence[int], acts: Sequence[str],
                  bns: Sequence[bool], bn_before_act: bool = False,
-                 use_bias: bool = True):
+                 use_bias: bool = True, dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         self.acts = tuple(acts)
         self.bn_before_act = bn_before_act
         self.bn_index = []
@@ -176,11 +218,19 @@ class PointMLP(nn.Module):
             mean, var = bn.running_mean, bn.running_var
         # flax's order of operations: (x - mean) * (rsqrt(var + eps) * scale) + bias
         mul = torch.rsqrt(var + bn.eps) * bn.weight
-        return (x - mean) * mul + bn.bias
+        y = (x - mean) * mul + bn.bias
+        return y if self.dtype is None else y.to(self.dtype)
+
+    def _dense(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        dense = getattr(self, f"Dense_{i}")
+        if self.dtype is None:
+            return dense(x)
+        y = x.to(self.dtype) @ dense.weight.to(self.dtype).t()
+        return y if dense.bias is None else y + dense.bias.to(self.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i, (act, j) in enumerate(zip(self.acts, self.bn_index)):
-            x = getattr(self, f"Dense_{i}")(x)
+            x = self._dense(i, x)
             if self.bn_before_act:
                 if j is not None:
                     x = self._bn(j, x)

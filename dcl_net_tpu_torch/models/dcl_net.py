@@ -20,6 +20,15 @@ with features [1, rgb, xyz].
 
 Parameter names follow the JAX tree (backbone_inp.conv0, disengage_Xc_p1.
 Dense_0, ...) so weights.py maps one to the other by layout alone.
+
+dtype (model.compute_dtype) is the feature compute type, as the JAX
+model's `dtype`: None runs f32; torch.bfloat16 runs the grids, the backbone,
+the point features, the heads, the attention and the neck in bf16 (K1, K2,
+K3 and K6 through their bf16 variants), with the parameters kept in f32
+and cast at use. Voxel counts and masks, points, distances, the SVD and the
+pose stay f32: rot_pred is f32, trans_pred, conf and F_Xo_p are bf16, as in
+the JAX model. bf16 runs in eval mode only (training in bf16 is queue A 5b
+of ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -38,7 +47,7 @@ from dcl_net_tpu_torch.geometry.transform import (
     untransform_points,
 )
 from dcl_net_tpu_torch.models.backbone import MultiScalePointFeatures, SparseBackbone
-from dcl_net_tpu_torch.models.blocks import PointMLP, init_weights
+from dcl_net_tpu_torch.models.blocks import PointMLP, init_weights, sigmoid, softmax
 from dcl_net_tpu_torch.ops.knn import knn
 from dcl_net_tpu_torch.ops.cuda_voxelize import voxelize_cuda
 from dcl_net_tpu_torch.ops.voxelize import MODE_MEAN, MODE_SUM
@@ -46,15 +55,19 @@ from dcl_net_tpu_torch.ops.voxelize import MODE_MEAN, MODE_SUM
 _POINT_FEATS = 480  # 32 + 64 + 128 + 256
 
 
-def _disengager(out_dim: int) -> PointMLP:
+COMPUTE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
+
+
+def _disengager(out_dim: int, dtype) -> PointMLP:
     # two 1x1 conv blocks 480 -> 256 -> out, BN before act, no bias
     return PointMLP(_POINT_FEATS, (256, out_dim), ("relu", "relu"),
-                    (True, True), bn_before_act=True, use_bias=False)
+                    (True, True), bn_before_act=True, use_bias=False, dtype=dtype)
 
 
-def _head(in_dim: int, dims, acts, bns) -> PointMLP:
+def _head(in_dim: int, dims, acts, bns, dtype) -> PointMLP:
     # Conv1d stacks with bias, BN after act
-    return PointMLP(in_dim, dims, acts, bns, bn_before_act=False, use_bias=True)
+    return PointMLP(in_dim, dims, acts, bns, bn_before_act=False, use_bias=True,
+                    dtype=dtype)
 
 
 def aligner(ri_1: torch.Tensor, ri_2: torch.Tensor, re_2: torch.Tensor):
@@ -62,7 +75,7 @@ def aligner(ri_1: torch.Tensor, ri_2: torch.Tensor, re_2: torch.Tensor):
 
     ri_1 [B, N1, C], ri_2 [B, N2, C], re_2 [B, N2, E] ->
     (re_embed [B, N1, E], attention [B, N2, N1], softmax over N2)."""
-    att = torch.softmax(ri_2 @ ri_1.transpose(1, 2), dim=1)
+    att = softmax(ri_2 @ ri_1.transpose(1, 2), dim=1)
     return att.transpose(1, 2) @ re_2, att
 
 
@@ -74,7 +87,9 @@ class DCLNet(nn.Module):
     device: where the module lives, CUDA unless the caller names another.
     seed: the weights are drawn from a torch.Generator with this seed
     (lecun-normal kernels, zero biases, identity BN statistics), on the CPU
-    and then moved, so the same seed gives the same weights everywhere."""
+    and then moved, so the same seed gives the same weights everywhere.
+    dtype: the feature compute type, None (f32) or torch.bfloat16 (eval
+    only; the module docstring says what runs in which type)."""
 
     def __init__(
         self,
@@ -86,16 +101,20 @@ class DCLNet(nn.Module):
         interp_mode: str = "exact",
         device=None,
         seed: int = 0,
+        dtype=None,
     ):
         super().__init__()
+        if dtype not in COMPUTE_DTYPES.values():
+            raise ValueError(f"dtype {dtype}: None (f32) or torch.bfloat16")
+        self.dtype = dtype
         if voxelization_mode not in (MODE_SUM, MODE_MEAN):
             raise NotImplementedError(
                 f"voxelization mode {voxelization_mode}: the port runs 3 (sum) "
                 "and 4 (mean)")
         self.voxelization_mode = int(voxelization_mode)
         self.grid_shape = tuple(int(d) for d in voxel_num_limit)
-        self.backbone_inp = SparseBackbone(kernel_size=kernel_size)
-        self.backbone_tmp = SparseBackbone(kernel_size=kernel_size)
+        self.backbone_inp = SparseBackbone(kernel_size=kernel_size, dtype=dtype)
+        self.backbone_tmp = SparseBackbone(kernel_size=kernel_size, dtype=dtype)
         pf_kw = dict(unit_voxel_extent=tuple(unit_voxel_extent),
                      voxel_num_limit=self.grid_shape, capacities=tuple(capacities),
                      interp_mode=interp_mode)
@@ -104,17 +123,18 @@ class DCLNet(nn.Module):
 
         for side in ("Xc", "Yo"):
             for name, dim in (("p1", 256), ("m1", 64), ("p2", 256), ("m2", 64)):
-                self.add_module(f"disengage_{side}_{name}", _disengager(dim))
+                self.add_module(f"disengage_{side}_{name}", _disengager(dim, dtype))
         no_bn = (False,) * 3
         last_none = ("relu", "relu", "none")
-        self.regressor_Xo = _head(256, (256, 128, 3), last_none, no_bn)
-        self.regressor_Yc = _head(256, (256, 128, 3), last_none, no_bn)
-        self.regressor_conf = _head(128, (128, 128, 1), last_none, no_bn)
-        self.regressor_conf_bi = _head(128, (128, 128, 1), last_none, no_bn)
-        self.neck_fuser = _head(512, (512, 512, 1024), ("relu",) * 3, (True,) * 3)
-        self.neck_fuser_bi = _head(512, (512, 512, 1024), ("relu",) * 3, (True,) * 3)
-        self.regressor_rot = _head(1024, (512, 128, 9), last_none, no_bn)
-        self.regressor_trans = _head(1024, (512, 128, 3), last_none, no_bn)
+        self.regressor_Xo = _head(256, (256, 128, 3), last_none, no_bn, dtype)
+        self.regressor_Yc = _head(256, (256, 128, 3), last_none, no_bn, dtype)
+        self.regressor_conf = _head(128, (128, 128, 1), last_none, no_bn, dtype)
+        self.regressor_conf_bi = _head(128, (128, 128, 1), last_none, no_bn, dtype)
+        self.neck_fuser = _head(512, (512, 512, 1024), ("relu",) * 3, (True,) * 3, dtype)
+        self.neck_fuser_bi = _head(512, (512, 512, 1024), ("relu",) * 3, (True,) * 3,
+                                   dtype)
+        self.regressor_rot = _head(1024, (512, 128, 9), last_none, no_bn, dtype)
+        self.regressor_trans = _head(1024, (512, 128, 3), last_none, no_bn, dtype)
 
         self.reset_parameters(seed)
         self.to(resolve_device(device))
@@ -129,6 +149,7 @@ class DCLNet(nn.Module):
             voxel_num_limit=tuple(model_cfg["voxel_num_limit"]),
             kernel_size=int(model_cfg.get("backbone", {}).get("kernel_size", 3)),
             interp_mode=str(model_cfg.get("interp_mode", "exact")),
+            dtype=compute_dtype(model_cfg),
         )
         if "capacities" in model_cfg:
             args["capacities"] = tuple(model_cfg["capacities"])
@@ -138,12 +159,19 @@ class DCLNet(nn.Module):
     def reset_parameters(self, seed: int = 0) -> None:
         init_weights(self, seed)
 
+    def train(self, mode: bool = True) -> "DCLNet":
+        if mode and self.dtype is not None:
+            raise NotImplementedError(
+                f"training DCLNet in {self.dtype}: the port trains in f32 only "
+                "(bf16 training is queue A 5b of ROADMAP.md)")
+        return super().train(mode)
+
     # ------------------------------------------------------------------
     # Branch encoders
     # ------------------------------------------------------------------
     def _encode(self, backbone, point_feats, feats, voxel_idx):
         grid, count = voxelize_cuda(feats, voxel_idx, self.grid_shape,
-                                    mode=self.voxelization_mode)
+                                    mode=self.voxelization_mode, out_dtype=self.dtype)
         mask = (count > 0).to(feats.dtype)
         pyramid = backbone(grid, mask)
         points = feats[..., 4:7].contiguous()
@@ -185,9 +213,9 @@ class DCLNet(nn.Module):
         f_m1 = torch.cat([obs["m1"], f_xo_m], dim=-1)              # [B, N, 128]
         f_yc_m = att_bi.transpose(1, 2) @ obs["m2"]                # [B, M, 64]
         f_m2 = torch.cat([f_yc_m, tmp["m2"]], dim=-1)              # [B, M, 128]
-        conf = torch.sigmoid(torch.cat(
+        conf = sigmoid(torch.cat(
             [self.regressor_conf(f_m1), self.regressor_conf_bi(f_m2)], dim=1))
-        conf_softmax = torch.softmax(conf, dim=1)
+        conf_softmax = softmax(conf, dim=1)
 
         f_p1 = self.neck_fuser(torch.cat([obs["p1"], f_xo_p], dim=-1))
         f_p2 = self.neck_fuser_bi(torch.cat([f_yc_p, tmp["p2"]], dim=-1))
@@ -225,6 +253,16 @@ class DCLNet(nn.Module):
         tmp_all = self.encode_template({"tmp": bank})
         cls = batch["labels"]["obj_idx"].long()
         return self.fuse(obs, {k: v[cls] for k, v in tmp_all.items()})
+
+
+def compute_dtype(model_cfg: Mapping[str, Any]):
+    """The feature compute type of a config's `model` block: compute_dtype
+    "float32" (or absent) -> None, "bfloat16" -> torch.bfloat16."""
+    name = model_cfg.get("compute_dtype")
+    name = "float32" if name is None else str(name)
+    if name not in COMPUTE_DTYPES:
+        raise ValueError(f"model.compute_dtype {name!r}: one of {tuple(COMPUTE_DTYPES)}")
+    return COMPUTE_DTYPES[name]
 
 
 def dcl_losses(pred: Dict[str, torch.Tensor], batch: Dict[str, Any]

@@ -30,7 +30,7 @@ from dcl_net_tpu_torch.geometry.transform import (
     transform_points,
     untransform_points,
 )
-from dcl_net_tpu_torch.models.blocks import PointMLP, init_weights
+from dcl_net_tpu_torch.models.blocks import PointMLP, init_weights, softmax
 
 _IN_FEATS = 259  # 3 canonical coordinates + the 256 channels of F_Xo_p
 
@@ -61,7 +61,7 @@ class Refiner(nn.Module):
     def forward(self, inputs: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """{"input_features": [B, N, 259], "conf": [B, N+M]} ->
         {"rot_pred": [B, 3, 3], "trans_pred": [B, 3]}, the delta pose."""
-        conf_softmax = torch.softmax(inputs["conf"], dim=1)[:, :self.n_inp]
+        conf_softmax = softmax(inputs["conf"], dim=1)[:, :self.n_inp]
         shared = self.MLP_share(inputs["input_features"])          # [B, N, 1024]
         pooled = torch.sum(shared * conf_softmax[..., None], dim=1)[:, None, :]
         ortho9d = self.regressor_rot2(pooled)[:, 0, :]

@@ -26,7 +26,8 @@ BUILD_DIR = PACKAGE_DIR / "build"
 SOURCES = ("voxelize.cu", "compact.cu", "interp.cu", "fused.cu")
 HEADERS = ("three_nn_lanes.cuh",  # included by interp.cu and fused.cu
            "inverse_index.cuh",  # included by interp.cu and fused.cu
-           "tile_fill.cuh")  # included by voxelize.cu, compact.cu and fused.cu
+           "tile_fill.cuh",  # included by voxelize.cu, compact.cu and fused.cu
+           "elem.cuh")  # f32 / bf16 element helpers, included by all four
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3"]
 
 _P = ctypes.c_void_p
@@ -34,14 +35,20 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C entry points: every pointer and the stream as c_void_p, sizes as c_int,
 # f32 constants as c_float.
+# A "_bf16" entry point is its kernel's bf16 variant, with the same
+# arguments.
 SIGNATURES = {
     "dclx_voxelize": [_P] * 5 + [_I] * 9 + [_P],
+    "dclx_voxelize_bf16": [_P] * 5 + [_I] * 9 + [_P],
     "dclx_compact": [_P] * 6 + [_I] * 7 + [_P],
+    "dclx_compact_bf16": [_P] * 6 + [_I] * 7 + [_P],
     "dclx_interp": [_P] * 8 + [_I] * 6 + [_P],
+    "dclx_interp_bf16": [_P] * 8 + [_I] * 6 + [_P],
     "dclx_inverse_index": [_P] * 2 + [_I] * 3 + [_P],
     "dclx_interp_bwd": [_P] * 5 + [_I] * 5 + [_P],
     "dclx_compact_bwd": [_P] * 4 + [_I] * 7 + [_P],
     "dclx_compact_interp": [_P] * 8 + [_I] * 6 + [_F] * 6 + [_P],
+    "dclx_compact_interp_bf16": [_P] * 8 + [_I] * 6 + [_F] * 6 + [_P],
     "dclx_compact_interp_bwd": [_P] * 7 + [_I] * 8 + [_P],
 }
 

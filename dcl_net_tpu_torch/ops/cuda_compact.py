@@ -9,6 +9,12 @@ point: an autograd Function whose forward is K2 and whose backward is K5,
 with the gradient w.r.t. the features only (the mask is occupancy). A CUDA
 tensor goes through the kernels, a CPU tensor through the plain versions;
 there is no fallback.
+
+bf16 features (model.compute_dtype: bfloat16) go through K2's bf16
+variant, which copies the bf16 rows as they are; coords, vmask and the
+occupancy are the f32 variant's. It has its own launch count,
+`launches_bf16`. K5 has no bf16 variant (training in bf16 is queue A 5b of
+ROADMAP.md): its wrapper refuses a bf16 cotangent on every device.
 """
 
 from __future__ import annotations
@@ -20,8 +26,10 @@ import torch
 from dcl_net_tpu_torch.ops import cuda_build
 from dcl_net_tpu_torch.ops import sparse_conv
 
-# Launches of K2 and of K5 since the last reset (set to 0 to reset).
+# Launches of K2, of its bf16 variant and of K5 since the last reset (set
+# to 0 to reset).
 launches = 0
+launches_bf16 = 0
 bwd_launches = 0
 
 BWD_TILE_BYTES = 16 * 1024  # K5 and K7 (ops/cuda_fused.py): output bytes per block
@@ -36,6 +44,15 @@ def bwd_tile(c: int) -> int:
     return max(1, BWD_TILE_BYTES // (4 * c))
 
 
+def refuse_bf16_cotangent(name: str, g: torch.Tensor) -> None:
+    """Raise ValueError for a bf16 cotangent: the backward kernels (K4, K5,
+    K7) have no bf16 variant yet, and none may run on an upcast copy."""
+    cuda_build.require(
+        g.dtype != torch.bfloat16, name,
+        "bf16 cotangent: the backward kernels run f32 only (bf16 training is "
+        "queue A 5b of ROADMAP.md)")
+
+
 def dense_to_sparse_reference(
     feats: torch.Tensor, mask: torch.Tensor, capacity: int
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -48,26 +65,29 @@ def dense_to_sparse_reference(
 def dense_to_sparse_cuda(
     feats: torch.Tensor, mask: torch.Tensor, capacity: int
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The first `capacity` occupied voxels of [B, D0, D1, D2, C] f32 feats
-    (occupied = mask > 0, mask f32 [B, D0, D1, D2]) in linear-index order.
+    """The first `capacity` occupied voxels of [B, D0, D1, D2, C] feats, f32
+    or bf16 (the bf16 variant), (occupied = mask > 0, mask f32 [B, D0, D1,
+    D2]) in linear-index order.
 
-    Returns coords [B, cap, 3] int32, vfeats [B, cap, C], vmask [B, cap]
-    (zero past the occupancy) and the occupancy [B] int32.
+    Returns coords [B, cap, 3] int32, vfeats [B, cap, C] of the feats' type,
+    vmask [B, cap] f32 (zero past the occupancy) and the occupancy [B]
+    int32.
 
     One kernel entry point of two kernels on (cell tiles of TILE_CELLS, B)
     blocks: per-tile counts, then a writer that ranks its tile's cells from
     the counts before it and writes every element of the outputs, the zero
     tail included, so all four are allocated empty (the occupancy shares
     its buffer with the per-tile counts)."""
-    global launches
+    global launches, launches_bf16
     if feats.device.type == "cpu":
         return dense_to_sparse_reference(feats, mask, capacity)
     name = "dense_to_sparse_cuda"
     req = cuda_build.require
     req(feats.is_cuda, name, lambda: f"unsupported device {feats.device}")
-    req(feats.dtype == torch.float32 and feats.dim() == 5, name,
-        lambda: f"feats must be f32 [B, D0, D1, D2, C], got {feats.dtype} "
+    req(feats.dtype in (torch.float32, torch.bfloat16) and feats.dim() == 5, name,
+        lambda: f"feats must be f32 or bf16 [B, D0, D1, D2, C], got {feats.dtype} "
         f"{tuple(feats.shape)}")
+    bf16 = feats.dtype == torch.bfloat16
     b, d0, d1, d2, c = feats.shape
     g = d0 * d1 * d2
     req(mask.dtype == torch.float32 and tuple(mask.shape) == (b, d0, d1, d2),
@@ -81,15 +101,18 @@ def dense_to_sparse_cuda(
     req(tile in TILE_CHOICES, name, lambda: f"TILE_CELLS {tile} not in {TILE_CHOICES}")
     dev = feats.device
     coords = torch.empty((b, capacity, 3), dtype=torch.int32, device=dev)
-    vfeats = torch.empty((b, capacity, c), dtype=torch.float32, device=dev)
+    vfeats = torch.empty((b, capacity, c), dtype=feats.dtype, device=dev)
     vmask = torch.empty((b, capacity), dtype=torch.float32, device=dev)
     counts = torch.empty((b * (1 + -(-g // tile)),), dtype=torch.int32, device=dev)
     cuda_build.launch(
-        "dclx_compact", name, dev,
+        "dclx_compact_bf16" if bf16 else "dclx_compact", name, dev,
         feats.data_ptr(), mask.data_ptr(), coords.data_ptr(),
         vfeats.data_ptr(), vmask.data_ptr(), counts.data_ptr(),
         b, g, c, d1, d2, capacity, tile)
-    launches += 1
+    if bf16:
+        launches_bf16 += 1
+    else:
+        launches += 1
     return coords, vfeats, vmask, counts[:b]
 
 
@@ -121,9 +144,10 @@ def dense_to_sparse_bwd_cuda(dv: torch.Tensor, coords: torch.Tensor,
     by a search of that prefix and copies their rows in. Bound: the bytes
     of the grid, nearly all zeros. Bit-equal to the plain version."""
     global bwd_launches
+    name = "dense_to_sparse_bwd_cuda"
+    refuse_bf16_cotangent(name, dv)
     if dv.device.type == "cpu":
         return dense_to_sparse_bwd_reference(dv, coords, vmask, grid_shape)
-    name = "dense_to_sparse_bwd_cuda"
     req = cuda_build.require
     req(dv.is_cuda, name, lambda: f"unsupported device {dv.device}")
     req(dv.dtype == torch.float32 and dv.dim() == 3, name,

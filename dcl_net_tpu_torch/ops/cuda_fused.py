@@ -17,6 +17,13 @@ directly: no [B, cap, C] intermediate (the TPU's ran into cap rounded up to
 `compact_interpolate` is the differentiable entry point. A CUDA tensor goes
 through the kernels, a CPU tensor through the plain versions; there is no
 fallback.
+
+bf16 grids (model.compute_dtype: bfloat16) go through K2's and K6's bf16
+variants: K6 reads K2's bf16 rows, keeps the centers, distances, w and idx
+in f32 and rounds the weighted sum to bf16 once, torch.equal to K2 ->
+centers -> K3 in bf16. It has its own launch count, `launches_bf16`. K7
+has no bf16 variant (training in bf16 is queue A 5b of ROADMAP.md): its
+wrapper refuses a bf16 cotangent on every device.
 """
 
 from __future__ import annotations
@@ -27,8 +34,10 @@ import torch
 
 from dcl_net_tpu_torch.ops import cuda_build, cuda_compact, cuda_interp
 
-# Launches of K6 and of K7 since the last reset (set to 0 to reset).
+# Launches of K6, of its bf16 variant and of K7 since the last reset (set to
+# 0 to reset).
 launches = 0
+launches_bf16 = 0
 bwd_launches = 0
 
 # K7's blocks at least, where the grid has the cells for them: at the coarse
@@ -67,14 +76,15 @@ def compact_interpolate_cuda(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """3-NN inverse-squared-distance interpolation onto [B, N, 3] points of
     the compaction's output: coords [B, cap, 3] int32, vfeats [B, cap, C]
-    f32, vmask [B, cap] f32 and occupancy [B] int32, as K2 writes them. The
+    f32 or bf16 (the bf16 variant: out bf16), vmask [B, cap] f32 and
+    occupancy [B] int32, as K2 writes them. The
     center of slot j is coords[j] * unit_s + off_c per axis (f32). The
     kernel scans only the slots [0, min(occupancy[b], cap)), K3's n_valid,
     so vmask must be 0 from there on (K2's output meets that).
 
     Returns out [B, N, C] and, for the backward, w [B, 3, N] and idx
     [B, 3, N] int32."""
-    global launches
+    global launches, launches_bf16
     if points.device.type == "cpu":
         return compact_interpolate_reference(points, coords, vfeats, vmask,
                                              occupancy, unit_s, off_c)
@@ -94,25 +104,31 @@ def compact_interpolate_cuda(
         lambda: f"occupancy must be int32 [{b}]")
     req(tuple(vmask.shape) == (b, cap), name, lambda: f"vmask must be [{b}, {cap}]")
     req(b <= 65535, name, lambda: f"batch {b} above 65535 (the kernel's grid y)")
-    for t in (points, vfeats, vmask):
+    for t in (points, vmask):
         req(t.dtype == torch.float32, name,
-            lambda: f"points, vfeats, vmask must be f32, got {t.dtype}")
+            lambda: f"points, vmask must be f32, got {t.dtype}")
+    req(vfeats.dtype in (torch.float32, torch.bfloat16), name,
+        lambda: f"vfeats must be f32 or bf16, got {vfeats.dtype}")
+    bf16 = vfeats.dtype == torch.bfloat16
     for t in (points, coords, vfeats, vmask, occupancy):
         req(t.device == points.device, name, "inputs on different devices")
         req(t.is_contiguous(), name, "inputs must be contiguous")
     req(len(unit_s) == 3 and len(off_c) == 3, name, "unit_s and off_c take 3 values")
     lanes, queries = cuda_interp.block_shape(name)
     dev = points.device
-    out = torch.empty((b, n, c), dtype=torch.float32, device=dev)
+    out = torch.empty((b, n, c), dtype=vfeats.dtype, device=dev)
     w = torch.empty((b, 3, n), dtype=torch.float32, device=dev)
     idx = torch.empty((b, 3, n), dtype=torch.int32, device=dev)
     cuda_build.launch(
-        "dclx_compact_interp", name, dev,
+        "dclx_compact_interp_bf16" if bf16 else "dclx_compact_interp", name, dev,
         points.data_ptr(), coords.data_ptr(), vfeats.data_ptr(), vmask.data_ptr(),
         occupancy.data_ptr(), out.data_ptr(), w.data_ptr(), idx.data_ptr(),
         b, n, cap, c, lanes, queries, *(float(u) for u in unit_s),
         *(float(o) for o in off_c))
-    launches += 1
+    if bf16:
+        launches_bf16 += 1
+    else:
+        launches += 1
     return out, w, idx
 
 
@@ -141,9 +157,10 @@ def compact_interpolate_bwd_cuda(g: torch.Tensor, w: torch.Tensor,
     cell. Bound: the bytes of the grid, nearly all zeros. Bit-equal to the
     plain version on the CPU, and deterministic."""
     global bwd_launches
+    name = "compact_interpolate_bwd_cuda"
+    cuda_compact.refuse_bf16_cotangent(name, g)
     if g.device.type == "cpu":
         return compact_interpolate_bwd_reference(g, w, idx, coords, vmask, grid_shape)
-    name = "compact_interpolate_bwd_cuda"
     b, n, c = cuda_interp.check_bwd_inputs(name, g, w, idx)
     req = cuda_build.require
     req(coords.dim() == 3 and coords.shape[0] == b, name,

@@ -12,6 +12,13 @@ K4 and the fused path's backward K7 (ops/cuda_fused.py) share the inverse
 index: each sample's 3N contributions e = k * N + t grouped by slot, in
 ascending e, so that every output row is the sum of its contributions in
 the plain version's order (`inverse_index_reference`).
+
+bf16 features (model.compute_dtype: bfloat16) go through K3's bf16
+variant: points, centers, mask, distances, w and idx stay f32 (idx and w
+equal the f32 variant's), and the weighted sum is taken in f32 and rounded
+to bf16 once, as pallas_interp does. It has its own launch count,
+`launches_bf16`. K4 has no bf16 variant (training in bf16 is queue A 5b of
+ROADMAP.md): its wrapper refuses a bf16 cotangent on every device.
 """
 
 from __future__ import annotations
@@ -21,11 +28,13 @@ from typing import Optional, Tuple
 import torch
 
 from dcl_net_tpu_torch.ops import cuda_build
+from dcl_net_tpu_torch.ops.cuda_compact import refuse_bf16_cotangent
 from dcl_net_tpu_torch.ops.knn import BIG, iterated_argmin
 
-# Launches of K3, of K4 and of the inverse index alone (inverse_index_cuda)
-# since the last reset (set to 0 to reset).
+# Launches of K3, of its bf16 variant, of K4 and of the inverse index alone
+# (inverse_index_cuda) since the last reset (set to 0 to reset).
 launches = 0
+launches_bf16 = 0
 bwd_launches = 0
 index_launches = 0
 
@@ -65,7 +74,9 @@ def nn_interpolate_reference(
     Squared distances by direct differences, summed over axes 0, 1, 2 in
     that order; masked centers at BIG; iterated-argmin top 3 (ties to the
     lowest index); w = recip * (1 / sum(recip)) with recip = 1/(d^2 + 1e-8).
-    Returns out [B, N, C], w [B, 3, N] and idx [B, 3, N] int32."""
+    Returns out [B, N, C] of the features' type, w [B, 3, N] and idx
+    [B, 3, N] int32. bf16 features are taken to f32 for the weighted sum,
+    which is rounded to bf16 once."""
     diff = points[:, :, None, :] - centers[:, None, :, :]  # [B, N, V, 3]
     sq = diff * diff
     d2 = (sq[..., 0] + sq[..., 1]) + sq[..., 2]
@@ -74,8 +85,9 @@ def nn_interpolate_reference(
     recip = 1.0 / (dist + 1e-8)
     w = recip * (1.0 / ((recip[..., 0:1] + recip[..., 1:2]) + recip[..., 2:3]))
     batch = torch.arange(points.shape[0], device=points.device)[:, None, None]
-    terms = feats[batch, idx.long()] * w[..., None]  # [B, N, 3, C]
-    out = (terms[:, :, 0] + terms[:, :, 1]) + terms[:, :, 2]
+    gathered = feats[batch, idx.long()]  # [B, N, 3, C]
+    terms = gathered.to(torch.promote_types(feats.dtype, w.dtype)) * w[..., None]
+    out = ((terms[:, :, 0] + terms[:, :, 1]) + terms[:, :, 2]).to(feats.dtype)
     return out, w.transpose(1, 2).contiguous(), idx.transpose(1, 2).contiguous()
 
 
@@ -108,14 +120,16 @@ def nn_interpolate_cuda(
     """3-NN inverse-squared-distance interpolation of [B, V, C] features at
     [B, V, 3] centers (valid where mask [B, V] > 0) onto [B, N, 3] points.
 
-    All inputs f32 and contiguous. n_valid [B] int32, optional: the kernel
+    All inputs f32 and contiguous, but feats may be bf16 (the bf16 variant:
+    out bf16, w and idx those of the f32 variant). n_valid [B] int32,
+    optional: the kernel
     reads and scans only rows [0, min(n_valid[b], V)) of sample b, so the
     mask must be 0 from there on (K2's occupancy meets that for K2's
     output; it may exceed V, which is the capacity). Without it all V rows
     are scanned. The result is the same either way. Returns out [B, N, C]
     and, for the backward, the weights w [B, 3, N] and indices idx
     [B, 3, N] int32."""
-    global launches
+    global launches, launches_bf16
     name = "nn_interpolate_cuda"
     check_n_valid(name, n_valid, points.shape[0], points.device)
     if points.device.type == "cpu":
@@ -132,21 +146,29 @@ def nn_interpolate_cuda(
     req(tuple(centers.shape) == (b, v, 3), name, lambda: f"centers must be [{b}, {v}, 3]")
     req(tuple(mask.shape) == (b, v), name, lambda: f"mask must be [{b}, {v}]")
     req(b <= 65535, name, lambda: f"batch {b} above 65535 (the kernel's grid y)")
+    for t in (points, centers, mask):
+        req(t.dtype == torch.float32, name,
+            lambda: f"points, centers, mask must be f32, got {t.dtype}")
+    req(feats.dtype in (torch.float32, torch.bfloat16), name,
+        lambda: f"feats must be f32 or bf16, got {feats.dtype}")
     for t in (points, centers, feats, mask):
-        req(t.dtype == torch.float32, name, lambda: f"inputs must be f32, got {t.dtype}")
         req(t.device == points.device, name, "inputs on different devices")
         req(t.is_contiguous(), name, "inputs must be contiguous")
+    bf16 = feats.dtype == torch.bfloat16
     lanes, queries = block_shape(name)
     dev = points.device
-    out = torch.empty((b, n, c), dtype=torch.float32, device=dev)
+    out = torch.empty((b, n, c), dtype=feats.dtype, device=dev)
     w = torch.empty((b, 3, n), dtype=torch.float32, device=dev)
     idx = torch.empty((b, 3, n), dtype=torch.int32, device=dev)
     cuda_build.launch(
-        "dclx_interp", name, dev,
+        "dclx_interp_bf16" if bf16 else "dclx_interp", name, dev,
         points.data_ptr(), centers.data_ptr(), feats.data_ptr(), mask.data_ptr(),
         None if n_valid is None else n_valid.data_ptr(),
         out.data_ptr(), w.data_ptr(), idx.data_ptr(), b, n, v, c, lanes, queries)
-    launches += 1
+    if bf16:
+        launches_bf16 += 1
+    else:
+        launches += 1
     return out, w, idx
 
 
@@ -240,9 +262,10 @@ def nn_interpolate_bwd_cuda(g: torch.Tensor, w: torch.Tensor,
     in the plain version's order and write every row once (allocated
     empty). Bit-equal to the plain version on the CPU, and deterministic."""
     global bwd_launches
+    name = "nn_interpolate_bwd_cuda"
+    refuse_bf16_cotangent(name, g)
     if g.device.type == "cpu":
         return nn_interpolate_bwd_reference(g, w, idx, v)
-    name = "nn_interpolate_bwd_cuda"
     b, n, c = check_bwd_inputs(name, g, w, idx)
     cuda_build.require(v > 0, name, "no centers")
     dfeats = torch.empty((b, v, c), dtype=torch.float32, device=g.device)

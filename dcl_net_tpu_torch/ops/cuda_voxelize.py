@@ -10,6 +10,12 @@ one sample and writes them whole, zeros included; it sums each cell's
 points in point order and divides as the plain version does, so the two
 are bit-equal. Each block keeps the list of its tile's points in shared
 memory, which bounds N (`list_smem_bytes`).
+
+With out_dtype bfloat16 (model.compute_dtype: bfloat16) the kernel's bf16
+variant writes a bf16 grid with the semantics of the JAX package's
+pallas_voxelize(out_dtype=bfloat16): sums of the bf16-rounded features, in
+f32, stored as bf16; mode 4 divides that bf16 sum by the count and rounds
+again; the counts stay f32. It has its own launch count, `launches_bf16`.
 """
 
 from __future__ import annotations
@@ -21,8 +27,10 @@ import torch
 from dcl_net_tpu_torch.ops import cuda_build
 from dcl_net_tpu_torch.ops.voxelize import MODE_MEAN, MODE_SUM, voxelize_dense
 
-# Launches of the kernel since the last reset (set to 0 to reset).
+# Launches of the kernel and of its bf16 variant since the last reset (set
+# to 0 to reset).
 launches = 0
+launches_bf16 = 0
 
 # The plain version: same function, plain PyTorch.
 voxelize_reference = voxelize_dense
@@ -53,24 +61,30 @@ def voxelize_cuda(
     grid_size: Tuple[int, int, int],
     mode: int = MODE_MEAN,
     point_mask: Optional[torch.Tensor] = None,
+    out_dtype: Optional[torch.dtype] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sum (mode 3) or mean (mode 4) scatter of [B, N, C] point features into
     a [B, D0, D1, D2, C] grid, with exact f32 counts [B, D0, D1, D2].
 
     feats f32 and voxel_idx int32 [B, N, 3], both contiguous; point_mask
-    optional f32 [B, N]. Points outside the grid are dropped. Each cell sums
+    optional f32 [B, N]; out_dtype the grid's type, f32 (None) or bfloat16
+    (the bf16 variant). Points outside the grid are dropped. Each cell sums
     its points in point order, then divides by max(count, 1): bit-equal to
     the plain version. One kernel launch writes both outputs whole (they
     are allocated empty); N is bounded by `list_smem_bytes`."""
-    global launches
+    global launches, launches_bf16
     if feats.device.type == "cpu":
-        return voxelize_reference(feats, voxel_idx, grid_size, mode, point_mask)
+        return voxelize_reference(feats, voxel_idx, grid_size, mode, point_mask,
+                                  out_dtype)
     name = "voxelize_cuda"
     req = cuda_build.require
     req(feats.is_cuda, name, lambda: f"unsupported device {feats.device}")
     req(mode in (MODE_SUM, MODE_MEAN), name, lambda: f"mode {mode} (3 or 4 only)")
     req(feats.dtype == torch.float32 and feats.dim() == 3, name,
         lambda: f"feats must be f32 [B, N, C], got {feats.dtype} {tuple(feats.shape)}")
+    bf16 = out_dtype == torch.bfloat16
+    req(bf16 or out_dtype in (None, torch.float32), name,
+        lambda: f"out_dtype {out_dtype}: float32 or bfloat16")
     b, n, c = feats.shape
     req(voxel_idx.dtype == torch.int32 and tuple(voxel_idx.shape) == (b, n, 3),
         name, lambda: f"voxel_idx must be int32 [{b}, {n}, 3]")
@@ -86,15 +100,19 @@ def voxelize_cuda(
     req(b <= 65535, name, lambda: f"batch {b} above 65535 (the kernel's grid y)")
     smem = list_smem_bytes(n, c)
     d0, d1, d2 = (int(d) for d in grid_size)
-    grid = torch.empty((b, d0, d1, d2, c), dtype=torch.float32,
+    grid = torch.empty((b, d0, d1, d2, c),
+                       dtype=torch.bfloat16 if bf16 else torch.float32,
                        device=feats.device)
     count = torch.empty((b, d0, d1, d2), dtype=torch.float32,
                         device=feats.device)
     cuda_build.launch(
-        "dclx_voxelize", name, feats.device,
+        "dclx_voxelize_bf16" if bf16 else "dclx_voxelize", name, feats.device,
         feats.data_ptr(), voxel_idx.data_ptr(),
         None if point_mask is None else point_mask.data_ptr(),
         grid.data_ptr(), count.data_ptr(), b, n, c, d0, d1, d2,
         int(mode == MODE_MEAN), TILE, smem)
-    launches += 1
+    if bf16:
+        launches_bf16 += 1
+    else:
+        launches += 1
     return grid, count

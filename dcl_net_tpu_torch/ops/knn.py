@@ -70,8 +70,12 @@ def nearest_neighbor_interpolate(query: torch.Tensor, ref: torch.Tensor,
                                  ref_mask: Optional[torch.Tensor] = None
                                  ) -> torch.Tensor:
     """3-NN inverse-squared-distance interpolation: weights 1/(d^2 + 1e-8),
-    normalised to sum to 1."""
+    normalised to sum to 1. bf16 features are interpolated in f32 (the
+    distances' type) and the result rounded to bf16 once."""
     dist2, idx = three_nn(query, ref, ref_mask)
     recip = 1.0 / (dist2 + 1e-8)
     weight = recip / recip.sum(-1, keepdim=True)
+    if ref_feats.dtype == torch.bfloat16:
+        return three_interpolate(ref_feats.to(weight.dtype), idx,
+                                 weight).to(torch.bfloat16)
     return three_interpolate(ref_feats, idx, weight.to(ref_feats.dtype))

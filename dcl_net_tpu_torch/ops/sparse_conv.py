@@ -37,7 +37,15 @@ def window_sum(x: torch.Tensor, kernel: int, stride: int, padding: int,
     contiguous [B, C, ...] buffer, which avg_pool3d reads without a copy:
     one grid-sized temporary instead of three (the product, the pad and
     avg_pool3d's contiguous copy), which had been the largest of eval's
-    temporaries at the configs' batch of 512 (PERF.md, section 6)."""
+    temporaries at the configs' batch of 512 (PERF.md, section 6).
+
+    A bf16 grid is summed as the JAX package sums it (dcl_net_tpu/ops/
+    sparse_conv.py::_conv_window_sum): three separable k-tap passes, axis 0,
+    then 1, then 2, each one a bf16 convolution whose sums XLA takes in f32
+    and rounds to bf16, so the result is rounded three times. On the card
+    each pass is avg_pool3d on the bf16 buffer, which sums in f32 and
+    rounds its output to bf16; torch has no BFloat16 avg_pool3d on the CPU,
+    so there each pass sums in f32 and is rounded to bf16 after it."""
     b, d0, d1, d2, c = x.shape
     p = padding
     xp = x.new_zeros((b, c, d0 + 2 * p, d1 + 2 * p, d2 + 2 * p))
@@ -45,7 +53,16 @@ def window_sum(x: torch.Tensor, kernel: int, stride: int, padding: int,
     inner.copy_(_ncdhw(x))
     if mask is not None:
         inner.mul_(mask[:, None])
-    return _ndhwc(F.avg_pool3d(xp, kernel, stride, divisor_override=1))
+    if x.dtype != torch.bfloat16:
+        return _ndhwc(F.avg_pool3d(xp, kernel, stride, divisor_override=1))
+    for axis in range(3):
+        k, st = [1, 1, 1], [1, 1, 1]
+        k[axis], st[axis] = kernel, stride
+        if xp.is_cuda:
+            xp = F.avg_pool3d(xp, k, st, divisor_override=1)
+        else:
+            xp = F.avg_pool3d(xp.float(), k, st, divisor_override=1).to(torch.bfloat16)
+    return _ndhwc(xp)
 
 
 def dilate_mask(mask: torch.Tensor, kernel: int = 3) -> torch.Tensor:
@@ -98,9 +115,12 @@ def dense_to_sparse(feats: torch.Tensor, mask: torch.Tensor, capacity: int
     g = d0 * d1 * d2
     occ = mask.reshape(b, g) > 0
     lin = torch.argsort((~occ).to(torch.uint8), dim=1, stable=True)[:, :capacity]
-    vmask = torch.gather(occ, 1, lin).to(feats.dtype)
+    # vmask in the features' type; under bf16 features it stays f32, as the
+    # JAX package's (K2's bf16 variant copies rows only)
+    vmask_dtype = torch.float32 if feats.dtype == torch.bfloat16 else feats.dtype
+    vmask = torch.gather(occ, 1, lin).to(vmask_dtype)
     vfeats = torch.gather(feats.reshape(b, g, c), 1,
-                          lin[..., None].expand(-1, -1, c)) * vmask[..., None]
+                          lin[..., None].expand(-1, -1, c)) * vmask[..., None].to(feats.dtype)
     i0 = lin // (d1 * d2)
     rem = lin % (d1 * d2)
     coords = torch.stack([i0, rem // d2, rem % d2], dim=-1).to(torch.int32)

@@ -36,15 +36,22 @@ def voxelize_dense(
     grid_size: Tuple[int, int, int],
     mode: int = MODE_MEAN,
     point_mask: Optional[torch.Tensor] = None,
+    out_dtype: Optional[torch.dtype] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Scatter per-point features into a dense grid as a sum or a mean.
 
     Args:
       feats: [B, N, C] f32; voxel_idx: [B, N, 3] int; grid_size: (D0, D1, D2).
       point_mask: optional [B, N]; points with mask <= 0 add nothing.
+      out_dtype: the grid's type (default feats.dtype). bfloat16 follows the
+        JAX package's pallas_voxelize(out_dtype=bfloat16): the features are
+        rounded to bf16, each voxel's sum of them is taken in f32 and
+        stored as bf16, and mode 4 divides that bf16 sum (in f32) by the
+        count and rounds to bf16 again.
     Points whose index lies outside the grid on any axis are dropped.
 
-    Returns grid [B, D0, D1, D2, C] and exact counts [B, D0, D1, D2].
+    Returns grid [B, D0, D1, D2, C] and exact counts [B, D0, D1, D2] (f32
+    under bfloat16).
 
     Each voxel's sum is taken over its points in point order, as a serial
     scatter would: the points are sorted (stably) by voxel and added one
@@ -62,6 +69,9 @@ def voxelize_dense(
         alive = alive & (point_mask > 0)
     lin = (idx[..., 0] * d1 + idx[..., 1]) * d2 + idx[..., 2]
     lin = lin + torch.arange(b, device=idx.device)[:, None] * g
+    bf16 = out_dtype == torch.bfloat16
+    if bf16:  # bf16 payloads, summed in f32
+        feats = feats.to(torch.bfloat16).to(torch.float32)
     lin, vals = lin[alive], feats[alive]  # row-major: (b, n) ascending
     vals = torch.cat([vals, torch.ones_like(vals[:, :1])], dim=1)
     order = torch.argsort(lin, stable=True)
@@ -77,6 +87,10 @@ def voxelize_dense(
         rows = lin[sel]
         flat[rows] = flat[rows] + vals[sel]
     grid, count = flat[:, :c], flat[:, c]
+    if bf16:
+        grid = grid.to(torch.bfloat16)
     if mode == MODE_MEAN:
         grid = grid / torch.clamp(count, min=1.0)[:, None]
+        if bf16:  # the bf16 sum over the f32 count, rounded once
+            grid = grid.to(torch.bfloat16)
     return grid.reshape(b, d0, d1, d2, c), count.reshape(b, d0, d1, d2)

@@ -59,19 +59,19 @@ def init(args, tool_name: str) -> Tuple[object, Config]:
 
 
 def build_model(cfg: Config, device=None, seed: int = 0):
-    """The port's DCLNet from cfg.model, in f32. cfg.model.interp_mode
-    (default "exact") picks the point-feature path: "exact" and "pallas" run
-    the two-stage path (kernels K2-K5), "pallas_fused" the fused one (K2,
-    K6, K7). The model keys the port does not run yet raise: compute_dtype
-    bfloat16, remat, and interp_mode "local"."""
+    """The port's DCLNet from cfg.model. cfg.model.interp_mode (default
+    "exact") picks the point-feature path: "exact" and "pallas" run the
+    two-stage path (kernels K2-K5), "pallas_fused" the fused one (K2, K6,
+    K7). cfg.model.compute_dtype "float32" (the default) or "bfloat16"
+    picks the feature compute type; a bf16 model evaluates through the bf16
+    variants of K1, K2, K3 and K6 and refuses to train (queue A 5b). The
+    model keys the port does not run yet raise: remat and interp_mode
+    "local"."""
     from dcl_net_tpu_torch.models.dcl_net import DCLNet
 
     m = cfg.model
     if m.get("name", "DCL_Net") != "DCL_Net":
         raise NotImplementedError(f"model {m.name}: the port builds DCL_Net")
-    dtype = m.get("compute_dtype")
-    if dtype not in (None, "float32"):
-        raise NotImplementedError(f"compute_dtype {dtype}: the port runs f32 only")
     if m.get("remat"):
         raise NotImplementedError("model.remat: not ported yet")
     return DCLNet.from_config(m, device=device, seed=seed)

@@ -19,7 +19,9 @@ import torch
 
 from dcl_net_tpu_torch import strict_f32
 from dcl_net_tpu_torch.models.refiner import compose_pose, refiner_inputs, refiner_losses
-from dcl_net_tpu_torch.train.solver import Optimizer, TrainState, apply_gradients
+from dcl_net_tpu_torch.train.solver import (
+    Optimizer, TrainState, apply_gradients, refuse_bf16_training,
+)
 
 
 def make_stage2_train_step(main_model: torch.nn.Module, refiner: torch.nn.Module,
@@ -31,7 +33,9 @@ def make_stage2_train_step(main_model: torch.nn.Module, refiner: torch.nn.Module
     train_step(state, batch) updates the refiner's parameters and
     state.opt_state in place and returns 0-d device tensors: loss_all (the
     sum over iterations), loss_last_iter, grad_norm, overflow_frac (of the
-    stage-1 forward) and skipped_nonfinite. Turns TF32 off (strict_f32)."""
+    stage-1 forward) and skipped_nonfinite. Turns TF32 off (strict_f32).
+    A bf16 stage 1 or refiner raises (refuse_bf16_training)."""
+    refuse_bf16_training(main_model, refiner)
     strict_f32()
     params = [p for p in refiner.parameters() if p.requires_grad]
 

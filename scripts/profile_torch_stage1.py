@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
 """Where the time of the PyTorch port's stage-1 eval goes, on one GPU.
 
-Usage, from the root of the repository:  python3 scripts/profile_torch_stage1.py
+Usage, from the root of the repository:
+    python3 scripts/profile_torch_stage1.py [--dtype float32|bfloat16]
 
 Runs the main path of chip_smoke.py (the full-width DCLNet of
 configs/config_YCBV_bs32.yaml with seeded random weights, the synthetic
-16-class template bank, batches of 32) and prints:
+16-class template bank, batches of 32), in the compute type --dtype
+(model.compute_dtype; default float32), and prints:
  1. a per-stage breakdown of one batch with CUDA events: voxelize (K1),
     backbone (8 convs + 4 pools), point features (4 x K2 + K3), disengage
-    heads, fusion, ADD-S;
+    heads, fusion, ADD-S (`stage_breakdown`, which chip_smoke.py also
+    calls);
  2. from torch.profiler over a whole Evaluator.evaluate: device time by
     kernel group, the device busy and idle share of the window, and the
     top kernels by device time.
@@ -17,6 +20,7 @@ Needs a CUDA card; exits non-zero without one.
 
 from __future__ import annotations
 
+import argparse
 import statistics
 import subprocess
 import sys
@@ -25,10 +29,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 BATCH = 32
 N_BATCHES = 4
+STAGES = ("voxelize K1", "backbone", "point feats K2+K3", "disengage heads",
+          "template gather + fuse", "ADD-S")
 GROUPS = (  # kernel-name substrings -> group, first match wins
     ("K1 voxelize", ("voxelize_tiles",)),
-    ("K2 compact", ("compact_occupied",)),
-    ("K3 interp", ("interp_three_nn",)),
+    ("K2 compact", ("compact_count", "compact_write")),
+    ("K3 interp", ("three_nn_rows",)),
     ("conv3d (cuDNN)", ("fprop", "conv", "cudnn", "winograd")),
     ("pooling", ("pool",)),
     ("matmul", ("gemm", "gemv", "cutlass")),
@@ -48,54 +54,24 @@ def group_of(name: str) -> str:
     return "other"
 
 
-def main() -> int:
-    import numpy as np
+def stage_breakdown(model, ev, tb, reps: int = 10) -> dict:
+    """Median device ms of each of STAGES for one batch tb (on the card) of
+    the stage-1 eval path of `model` with Evaluator ev's template cache,
+    from CUDA events around each stage, over `reps` runs."""
     import torch
 
-    if not torch.cuda.is_available():
-        print("profile_torch_stage1: no CUDA device", file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(ROOT))
-    from dcl_net_tpu_torch import strict_f32
-    from dcl_net_tpu_torch.config import Config
-    from dcl_net_tpu_torch.data.schema import batch_to_torch, make_batch
-    from dcl_net_tpu_torch.data.synthetic import SyntheticPoseDataset
-    from dcl_net_tpu_torch.eval.evaluator import Evaluator
     from dcl_net_tpu_torch.eval.metrics import add_s_batch
-    from dcl_net_tpu_torch.models.dcl_net import DCLNet
     from dcl_net_tpu_torch.ops.cuda_voxelize import voxelize_cuda
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        stdout=subprocess.PIPE, text=True, timeout=60)
-    card = smi.stdout.strip().splitlines()[0]
-    print(card, flush=True)
-    strict_f32()
-
-    mcfg = Config.fromfile(str(ROOT / "configs" / "config_YCBV_bs32.yaml")).model
-    grid_shape = tuple(int(d) for d in mcfg.voxel_num_limit)
-    ds = SyntheticPoseDataset(n_objects=16, n_points=int(mcfg.n_inp),
-                              unit_voxel_extent=tuple(mcfg.unit_voxel_extent),
-                              voxel_num_limit=grid_shape, seed=0)
-    batches = [make_batch([ds[BATCH * j + i] for i in range(BATCH)]).to_dict()
-               for j in range(N_BATCHES)]
-    model_points = np.stack([ds.model_points(c, 1024) for c in range(16)])
-    model = DCLNet.from_config(mcfg, seed=0)
-    ev = Evaluator(model, model_points, template_bank=ds.template_bank())
-    ev.evaluate(batches[:1])  # warm-up: cuDNN algorithm choice, allocator
-
-    # ---- 1. per-stage breakdown of one batch, CUDA events ----------------
-    tb = batch_to_torch(batches[0], torch.device("cuda"))
     cls = tb["labels"]["obj_idx"].long()
-    stages = ("voxelize K1", "backbone", "point feats K2+K3", "disengage heads",
-              "template gather + fuse", "ADD-S")
-    runs = {s: [] for s in stages}
+    runs = {s: [] for s in STAGES}
     with torch.inference_mode():
-        for _ in range(10):
-            ev_marks = [torch.cuda.Event(enable_timing=True) for _ in range(len(stages) + 1)]
+        for _ in range(reps):
+            ev_marks = [torch.cuda.Event(enable_timing=True) for _ in range(len(STAGES) + 1)]
             ev_marks[0].record()
             feats, vidx = tb["inp"]["feats"], tb["inp"]["voxel_idx"]
-            grid, count = voxelize_cuda(feats, vidx, grid_shape, model.voxelization_mode)
+            grid, count = voxelize_cuda(feats, vidx, model.grid_shape, model.voxelization_mode,
+                                        out_dtype=model.dtype)
             mask = (count > 0).to(feats.dtype)
             ev_marks[1].record()
             pyramid = model.backbone_inp(grid, mask)
@@ -108,16 +84,59 @@ def main() -> int:
             tmp = {k: v[cls] for k, v in ev._tmp_cache.items()}
             out = model.fuse(obs, tmp)
             ev_marks[5].record()
-            add_s_batch(ev.model_points[cls], out["rot_pred"], out["trans_pred"],
-                        tb["labels"]["rot_gt"], tb["labels"]["trans_gt"])
+            add_s_batch(ev.model_points[cls], out["rot_pred"].float(),
+                        out["trans_pred"].float(), tb["labels"]["rot_gt"],
+                        tb["labels"]["trans_gt"])
             ev_marks[6].record()
             torch.cuda.synchronize()
-            for i, s in enumerate(stages):
+            for i, s in enumerate(STAGES):
                 runs[s].append(ev_marks[i].elapsed_time(ev_marks[i + 1]))
-    total = sum(statistics.median(v) for v in runs.values())
+    return {s: statistics.median(v) for s, v in runs.items()}
+
+
+def main(argv=None) -> int:
+    import numpy as np
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
+                    help="the model's compute type (model.compute_dtype)")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_torch_stage1: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    from dcl_net_tpu_torch import strict_f32
+    from dcl_net_tpu_torch.config import Config
+    from dcl_net_tpu_torch.data.schema import batch_to_torch, make_batch
+    from dcl_net_tpu_torch.data.synthetic import SyntheticPoseDataset
+    from dcl_net_tpu_torch.eval.evaluator import Evaluator
+    from dcl_net_tpu_torch.models.dcl_net import COMPUTE_DTYPES, DCLNet
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        stdout=subprocess.PIPE, text=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0]
+    print(f"{card}; compute dtype {args.dtype}", flush=True)
+    strict_f32()
+
+    mcfg = Config.fromfile(str(ROOT / "configs" / "config_YCBV_bs32.yaml")).model
+    grid_shape = tuple(int(d) for d in mcfg.voxel_num_limit)
+    ds = SyntheticPoseDataset(n_objects=16, n_points=int(mcfg.n_inp),
+                              unit_voxel_extent=tuple(mcfg.unit_voxel_extent),
+                              voxel_num_limit=grid_shape, seed=0)
+    batches = [make_batch([ds[BATCH * j + i] for i in range(BATCH)]).to_dict()
+               for j in range(N_BATCHES)]
+    model_points = np.stack([ds.model_points(c, 1024) for c in range(16)])
+    model = DCLNet.from_config(mcfg, seed=0, dtype=COMPUTE_DTYPES[args.dtype])
+    ev = Evaluator(model, model_points, template_bank=ds.template_bank())
+    ev.evaluate(batches[:1])  # warm-up: cuDNN algorithm choice, allocator
+
+    # ---- 1. per-stage breakdown of one batch, CUDA events ----------------
+    stages = stage_breakdown(model, ev, batch_to_torch(batches[0], torch.device("cuda")))
+    total = sum(stages.values())
     print(f"per-stage device time of one batch of {BATCH} (median of 10, CUDA events):")
-    for s in stages:
-        m = statistics.median(runs[s])
+    for s, m in stages.items():
         print(f"  {s:24s} {m:9.3f} ms  {100 * m / total:5.1f} %")
     print(f"  {'total':24s} {total:9.3f} ms")
 
