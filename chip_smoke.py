@@ -44,6 +44,14 @@ Phases, any failure exits non-zero:
     K2 bit-equal, K3 and K6 idx and w equal to the f32 kernel's and out
     within BF16_ULPS, K6 torch.equal to K2 -> centers -> K3 in bf16; each
     at batch 512 too, timed as the f32 kernels are;
+ 3c. the bf16 variants of K4, K5 and K7 (bf16 training) against their
+    bf16 plain versions at the four levels of that pyramid, on K2's bf16
+    output and K3's and K6's w and idx: K4 and K7 bit-equal (0 ulp) to their
+    plain versions run on CPU copies and from launch to launch, also on the
+    adversarial cotangents and indices of phase 3, and equal to the f32
+    kernel on the widened cotangent rounded once; K5 bit-equal; each timed
+    with its plain version and library call (index_add_ in f32 then
+    rounded, index_copy_ of the bf16 rows);
  4. eval path: the full-width DCLNet of configs/config_YCBV_bs32.yaml
     (random weights from a seed) through Evaluator over the synthetic
     dataset's 16-class template bank and several batches of 32; checks
@@ -108,7 +116,17 @@ Phases, any failure exits non-zero:
     BF16_POSE_MM), the bf16-vs-f32 pose drift over every scored row (max,
     95th percentile, the JAX bound beside), one batch's device time by stage
     in f32 and bf16, and Stage2Evaluator on the fused bf16 stage 1;
-12. prints the per-kernel JSON line (the f32 kernels and the bf16
+12. bf16 training at full width (model.compute_dtype: bfloat16), the same
+    seeded weights: Solver on the two-stage and the fused path, a warm-up
+    and BF16_TRAIN_STEPS timed steps each (launches K1, K2 bf16 2 and 8,
+    K3, K4, K5 bf16 8 a step, or K6, K7 bf16 8 a step, and no f32 kernel),
+    finite losses, no skipped step, every parameter and BN statistic
+    changed, samples/s, T_step and peak memory beside phase 5's and 7's f32
+    ones; one step through the kernels torch.equal to itself and to the
+    plain versions with K4's, K5's and K7's run on CPU copies, and within
+    BF16_TRAIN_GRAD_REL_L2 of the plain versions run on the card; then
+    BF16_STAGE2_TRAIN_STEPS refiner steps on the frozen fused bf16 stage 1;
+13. prints the per-kernel JSON line (the f32 kernels and the bf16
     variants), then the result line {"ok": true, "device": {...}} last.
 """
 
@@ -130,6 +148,8 @@ MODEL_POINTS = 1024
 TRAIN_STEPS = 5  # timed training steps after one warm-up step
 FUSED_TRAIN_STEPS = 3
 STAGE2_TRAIN_STEPS = 5
+BF16_TRAIN_STEPS = 3  # timed bf16 training steps after one warm-up step, each path
+BF16_STAGE2_TRAIN_STEPS = 2  # refiner steps on the frozen bf16 stage 1
 ITERATIONS = 2  # refinement steps of stage 2
 REPEAT = 16  # K2, K3, K6 are also timed at batch BATCH * REPEAT = 512, the configs' eval batch
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and f32 (non-tensor) FLOP/s
@@ -172,6 +192,17 @@ INTERP_BWD_RTOL = 1e-5
 # neighbour's or a voxel's gradient moves it by far more.
 TRAIN_LOSS_RTOL = 1e-5
 TRAIN_GRAD_REL_L2 = 5e-3
+# One bf16 train step, kernel path vs plain path. The bf16 kernels are
+# bit-equal to their plain versions, K4 and K7 to theirs run on CPU copies
+# (the f32 sums in entry order) and the bf16 step through the kernels is the
+# same from pass to pass on an H100, so with the backward kernels' plain
+# versions run on CPU copies the two paths give torch.equal losses and
+# gradients. Run on the card, those plain versions' index_add_ adds in a
+# run-dependent order, which flips a few bf16 roundings of the rows and,
+# through the bf16 backward, moved the gradient by 1.36e-3 to 1.64e-3 in
+# relative L2 on an NVIDIA H100 80GB HBM3 (losses equal): held within
+# BF16_TRAIN_GRAD_REL_L2.
+BF16_TRAIN_GRAD_REL_L2 = 2e-2
 
 
 class SmokeFailure(RuntimeError):
@@ -690,6 +721,249 @@ def bf16_kernel_phase(entries: dict, card: str, feats, vidx, model_b, grid_shape
           f"{BATCH * REPEAT}; phase {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+def bf16_bwd_kernel_phase(entries: dict, card: str, feats, vidx, model_b, grid_shape) -> None:
+    """The bf16 variants of K4, K5 and K7 (bf16 training) against their bf16
+    plain versions, at the four levels of the bf16 backbone's pyramid of the
+    main-path batch (model_b, the seeded weights in bf16), with K2's bf16
+    output and K3's and K6's w and idx there, and seeded bf16 cotangents.
+    K4 and K7: bf16, bit-equal (0 ulp) to their plain versions run on CPU
+    copies and from launch to launch, also on adversarial_bwd_inputs (one
+    slot taking all 3N contributions of a sample, cotangents of mixed
+    magnitude), equal to the f32 kernel on the widened cotangent rounded to
+    bf16 once, and within INTERP_BWD_RTOL of sum |w g| of the plain versions
+    run on the card (index_add_ there adds in another order), beyond what
+    rounding each sum to bf16 adds; their inverse index bit-equal to its
+    plain version. K5: bf16, bit-equal to its plain version on the
+    card. Times each as called and on the device (CUDA graph), its plain
+    version and the nearest library call after holding it to the plain
+    version: K4 index_add_ in f32, then rounded to bf16; K5 index_copy_ of
+    the bf16 rows; K7 index_add_ into the f32 grid, then rounded. Bounds
+    with bf16 values at 2 bytes. Writes the entries interp_bwd_bf16,
+    compact_bwd_bf16, fused_bwd_bf16."""
+    import torch
+
+    from dcl_net_tpu_torch.ops import cuda_compact, cuda_fused, cuda_interp, cuda_voxelize
+    from dcl_net_tpu_torch.ops.sparse_conv import voxel_centers
+
+    bf16 = torch.bfloat16
+    dev = feats.device
+    gen = torch.Generator(device=dev).manual_seed(11)
+    t_phase = time.perf_counter()
+    grid, count = cuda_voxelize.voxelize_cuda(feats, vidx, grid_shape, 4, out_dtype=bf16)
+    with torch.inference_mode():
+        pyramid = model_b.backbone_inp(grid, (count > 0).to(torch.float32))
+    del grid
+    pf = model_b.point_feats_inp
+    points = feats[..., 4:7].contiguous()
+    acc = {k: dict(ulps=0, ms=0.0, dev=0.0, plain=0.0, lib=0.0, lib_dev=0.0, bytes=0.0,
+                   flops=0.0, levels=[], index_dev=0.0) for k in ("k4", "k5", "k7")}
+    for level, (lf, lm) in enumerate(pyramid):
+        lf, lm = lf.contiguous(), lm.contiguous()
+        b_, d0, d1, d2, c_ = lf.shape
+        g_ = d0 * d1 * d2
+        grid3 = (d0, d1, d2)
+        cap = min(pf.capacities[level], g_)
+        coords, vfeats, vmask, occ = cuda_compact.dense_to_sparse_cuda(lf, lm, cap)
+        centers = voxel_centers(coords, pf.unit, pf.scale_list[level], pf.offset)
+        _, w, idx = cuda_interp.nn_interpolate_cuda(points, centers, vfeats, vmask, occ)
+        _, w6, idx6 = cuda_fused.compact_interpolate_cuda(points, coords, vfeats, vmask, occ,
+                                                          *pf.center_affine[level])
+        n_ = points.shape[1]
+        n_valid = int((vmask > 0).sum())
+
+        def rand(*shape):
+            return torch.randn(shape, device=dev, generator=gen).to(bf16)
+
+        # K4 bf16
+        g = rand(b_, n_, c_)
+        gi_a, ii_a = adversarial_bwd_inputs(g.float(), idx, vmask, seed=20 + level)
+        for gi, ii, what in ((g, idx, ""), (gi_a.to(bf16), ii_a, ", adversarial")):
+            check_inverse_index(ii, cap, f"K4 bf16 level {level}{what}")
+            got = bit_equal_on_cpu(cuda_interp.nn_interpolate_bwd_cuda,
+                                   cuda_interp.nn_interpolate_bwd_reference, (gi, w, ii, cap),
+                                   f"K4 bf16 level {level}{what}")
+            check(got.dtype == bf16 and torch.equal(got, cuda_interp.nn_interpolate_bwd_cuda(
+                gi.float(), w, ii, cap).to(bf16)), f"K4 bf16 level {level}{what}: not the f32 "
+                "kernel on the widened cotangent rounded once")
+        got4 = cuda_interp.nn_interpolate_bwd_cuda(g, w, idx, cap)
+        ref4 = cuda_interp.nn_interpolate_bwd_reference(g, w, idx, cap)
+        mass = cuda_interp.nn_interpolate_bwd_reference(g.float().abs(), w.abs(), idx, cap)
+        rows = (idx.long() + cap * torch.arange(b_, device=dev)[:, None, None]).reshape(-1)
+        terms = (w[..., None] * g.float()[:, None]).reshape(-1, c_)
+
+        def lib4():
+            return torch.zeros(b_ * cap, c_, device=dev).index_add_(0, rows, terms).to(bf16)
+
+        # the card's index_add_ sums in another order: its f32 sums within
+        # INTERP_BWD_RTOL of sum |w g|, then each rounded to bf16
+        rel, rel_l = (bf16_share_of_mass(a, ref4, mass)
+                      for a in (got4, lib4().reshape(got4.shape)))
+        check(rel <= INTERP_BWD_RTOL and rel_l <= INTERP_BWD_RTOL, f"K4 bf16 level {level}: "
+              f"{rel:.3g} of sum |w g| from the plain version on the card, index_add_ "
+              f"{rel_l:.3g}, past the bf16 rounding")
+        a = acc["k4"]
+        d = graph_ms(lambda: cuda_interp.nn_interpolate_bwd_cuda(g, w, idx, cap))
+        a["dev"] += d
+        a["levels"].append(d)
+        a["index_dev"] += graph_ms(lambda: cuda_interp.inverse_index_cuda(idx, cap))
+        a["ms"] += cuda_ms(lambda: cuda_interp.nn_interpolate_bwd_cuda(g, w, idx, cap))
+        a["plain"] += cuda_ms(lambda: cuda_interp.nn_interpolate_bwd_reference(g, w, idx, cap))
+        a["lib"] += cuda_ms(lib4)
+        a["lib_dev"] += graph_ms(lib4)
+        a["bytes"] += b_ * n_ * c_ * 2 + 2 * b_ * 3 * n_ * 4 + b_ * cap * c_ * 2
+        a["flops"] += 6 * b_ * n_ * c_
+
+        # K5 bf16
+        dv = rand(b_, cap, c_)
+        got5 = cuda_compact.dense_to_sparse_bwd_cuda(dv, coords, vmask, grid3)
+        ref5 = cuda_compact.dense_to_sparse_bwd_reference(dv, coords, vmask, grid3)
+        check(got5.dtype == bf16 and torch.equal(got5.view(torch.int16), ref5.view(torch.int16)),
+              f"K5 bf16 level {level}: not bit-equal to the plain version")
+        valid = vmask.reshape(-1) > 0
+        lin = (((coords[..., 0].long() * d1 + coords[..., 1]) * d2 + coords[..., 2])
+               + g_ * torch.arange(b_, device=dev)[:, None]).reshape(-1)[valid]
+        vals = dv.reshape(-1, c_)[valid]
+
+        def lib5():
+            return torch.zeros(b_ * g_, c_, dtype=bf16, device=dev).index_copy_(0, lin, vals)
+
+        check(torch.equal(lib5().reshape(got5.shape), got5),
+              f"K5 bf16 level {level}: the index_copy_ call computes another function")
+        a = acc["k5"]
+        d = graph_ms(lambda: cuda_compact.dense_to_sparse_bwd_cuda(dv, coords, vmask, grid3))
+        a["dev"] += d
+        a["levels"].append(d)
+        a["ms"] += cuda_ms(lambda: cuda_compact.dense_to_sparse_bwd_cuda(dv, coords, vmask,
+                                                                         grid3))
+        a["plain"] += cuda_ms(lambda: cuda_compact.dense_to_sparse_bwd_reference(
+            dv, coords, vmask, grid3))
+        a["lib"] += cuda_ms(lib5)
+        a["lib_dev"] += graph_ms(lib5)
+        a["bytes"] += n_valid * c_ * 2 + b_ * cap * 16 + b_ * g_ * c_ * 2
+
+        # K7 bf16
+        g7 = rand(b_, n_, c_)
+        gi_a, ii_a = adversarial_bwd_inputs(g7.float(), idx6, vmask, seed=30 + level)
+        for gi, ii, what in ((g7, idx6, ""), (gi_a.to(bf16), ii_a, ", adversarial")):
+            check_inverse_index(ii, cap, f"K7 bf16 level {level}{what}")
+            args7 = (gi, w6, ii, coords, vmask, grid3)
+            got = bit_equal_on_cpu(cuda_fused.compact_interpolate_bwd_cuda,
+                                   cuda_fused.compact_interpolate_bwd_reference, args7,
+                                   f"K7 bf16 level {level}{what}")
+            check(got.dtype == bf16 and torch.equal(got, cuda_fused.compact_interpolate_bwd_cuda(
+                gi.float(), *args7[1:]).to(bf16)), f"K7 bf16 level {level}{what}: not the f32 "
+                "kernel on the widened cotangent rounded once")
+        args7 = (g7, w6, idx6, coords, vmask, grid3)
+        got7 = cuda_fused.compact_interpolate_bwd_cuda(*args7)
+        ref7 = cuda_fused.compact_interpolate_bwd_reference(*args7)
+        mass7 = cuda_fused.compact_interpolate_bwd_reference(g7.float().abs(), w6.abs(),
+                                                             *args7[2:])
+        nb = idx6.long().reshape(b_, 3 * n_)
+        cell = torch.gather(coords, 1, nb[..., None].expand(-1, -1, 3)).long()
+        rows7 = (((cell[..., 0] * d1 + cell[..., 1]) * d2 + cell[..., 2])
+                 + g_ * torch.arange(b_, device=dev)[:, None]).reshape(-1)
+        terms7 = ((w6 * torch.gather(vmask, 1, nb).reshape(b_, 3, n_))[..., None]
+                  * g7.float()[:, None]).reshape(-1, c_)
+
+        def lib7():
+            return torch.zeros(b_ * g_, c_, device=dev).index_add_(0, rows7, terms7).to(bf16)
+
+        rel, rel_l = (bf16_share_of_mass(a, ref7, mass7)
+                      for a in (got7, lib7().reshape(got7.shape)))
+        check(rel <= INTERP_BWD_RTOL and rel_l <= INTERP_BWD_RTOL, f"K7 bf16 level {level}: "
+              f"{rel:.3g} of sum |w g| from the plain version on the card, index_add_ "
+              f"{rel_l:.3g}, past the bf16 rounding")
+        a = acc["k7"]
+        d = graph_ms(lambda: cuda_fused.compact_interpolate_bwd_cuda(*args7))
+        a["dev"] += d
+        a["levels"].append(d)
+        a["index_dev"] += graph_ms(lambda: cuda_interp.inverse_index_cuda(idx6, cap))
+        a["ms"] += cuda_ms(lambda: cuda_fused.compact_interpolate_bwd_cuda(*args7))
+        a["plain"] += cuda_ms(lambda: cuda_fused.compact_interpolate_bwd_reference(*args7))
+        a["lib"] += cuda_ms(lib7)
+        a["lib_dev"] += graph_ms(lib7)
+        a["bytes"] += (b_ * n_ * c_ * 2 + 2 * b_ * 3 * n_ * 4 + n_valid * 16
+                       + b_ * g_ * c_ * 2)
+        a["flops"] += 6 * b_ * n_ * c_
+        print(f"bf16 backward level {level} [{b_},{n_},{c_}] cap {cap} -> {d0}^3: K4 and K7 "
+              f"bit-equal to their plain versions on the CPU (and on the adversarial set), "
+              f"K5 bit-equal; device ms K4 {acc['k4']['levels'][-1]:.4f} K5 "
+              f"{acc['k5']['levels'][-1]:.4f} K7 {acc['k7']['levels'][-1]:.4f}", flush=True)
+    del pyramid
+    torch.cuda.empty_cache()
+    csrc = "dcl_net_tpu_torch/csrc/"
+    for key, name, src, repl, lib in (
+            ("k4", "interp_bwd_bf16", "interp.cu", "dcl_net_tpu/ops/pallas_interp.py:167",
+             "index_add_ of the f32 terms, then rounded to bf16"),
+            ("k5", "compact_bwd_bf16", "compact.cu", "dcl_net_tpu/ops/pallas_compact.py:271",
+             "index_copy_ of the bf16 rows into a bf16 grid"),
+            ("k7", "fused_bwd_bf16", "fused.cu", "dcl_net_tpu/ops/pallas_fused.py:182",
+             "index_add_ of the f32 terms into the grid, then rounded to bf16")):
+        a = acc[key]
+        bms, bby = bound(a["bytes"], a["flops"])
+        entries[name] = dict(
+            name=name, route="cuda", source=csrc + src, replaces=repl, max_abs_err=0.0,
+            max_ulps=0, bit_equal=True, ms=a["ms"], kernel_ms=a["ms"], device_ms=a["dev"],
+            plain_ms=a["plain"], bound_ms=bms, bound_by=bby, library_ms=a["lib"],
+            library_device_ms=a["lib_dev"], library_call=lib, level_device_ms=a["levels"])
+        if key != "k5":
+            entries[name]["index_device_ms"] = a["index_dev"]
+        print(f"{name} over the 4 levels of one branch on {card}: kernel {a['ms']:.4f} ms "
+              f"(device {a['dev']:.4f}; per level {', '.join(f'{t:.4f}' for t in a['levels'])})"
+              f" plain {a['plain']:.4f} ms library {a['lib']:.4f} ms (device "
+              f"{a['lib_dev']:.4f}) bound {bms:.4f} ms ({bby}); 0 ulp from the plain version",
+              flush=True)
+    print(f"bf16 backward kernels: phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def bf16_train_step_vs_plain(solver, batch, per_pass) -> None:
+    """One bf16 train-mode forward and backward from the same state, through
+    the kernels twice (the same losses and gradients), through the plain
+    versions with K4's, K5's and K7's run on CPU copies (torch.equal losses
+    and gradients: the bf16 kernels are bit-equal to them), and through the
+    plain versions run on the card (within BF16_TRAIN_GRAD_REL_L2). The BN
+    running statistics are put back after each pass."""
+    import torch
+
+    from dcl_net_tpu_torch.ops import cuda_compact, cuda_fused, cuda_interp
+
+    model = solver.model
+    mode = model.point_feats_inp.interp_mode
+
+    def on_cpu(plain):
+        def run(*args):
+            dev = next(a.device for a in args if torch.is_tensor(a))
+            return plain(*(a.cpu() if torch.is_tensor(a) else a for a in args)).to(dev)
+        return run
+
+    reset_counts()
+    lk, gk = train_pass(model, batch)
+    expect_counts(read_counts(), per_pass, 1, f"one bf16 train pass ({mode})")
+    lk2, gk2 = train_pass(model, batch)
+    with plain_versions():
+        lp, gp = train_pass(model, batch)
+        cuda_interp.nn_interpolate_bwd_cuda = on_cpu(cuda_interp.nn_interpolate_bwd_reference)
+        cuda_compact.dense_to_sparse_bwd_cuda = on_cpu(
+            cuda_compact.dense_to_sparse_bwd_reference)
+        cuda_fused.compact_interpolate_bwd_cuda = on_cpu(
+            cuda_fused.compact_interpolate_bwd_reference)
+        lc, gc = train_pass(model, batch)
+    expect_counts(read_counts(), per_pass, 2, "the bf16 plain passes launched a kernel:")
+    check(gk.dtype == torch.float32, f"bf16 step: {gk.dtype} parameter gradients")
+    check(lk == lk2 and torch.equal(gk, gk2),
+          f"bf16 train step ({mode}): two passes through the kernels differ")
+    check(lk == lc and torch.equal(gk, gc), f"bf16 train step ({mode}): the kernel path is "
+          f"not torch.equal to the plain path (backward plain versions on CPU copies): "
+          f"gradient rel L2 {float((gk - gc).norm() / gc.norm()):.3g}")
+    rel = float((gk - gp).norm()) / float(gp.norm())
+    loss_rel = max(abs(lk[k] - lp[k]) / abs(lp[k]) for k in lp)
+    print(f"bf16 train step ({mode}): kernel path torch.equal to itself and to the plain "
+          f"path with the backward plain versions on CPU copies; vs the plain versions on "
+          f"the card: losses rel {loss_rel:.3g}, gradient rel L2 {rel:.3g}", flush=True)
+    check(rel <= BF16_TRAIN_GRAD_REL_L2 and loss_rel <= TRAIN_LOSS_RTOL,
+          f"bf16 train step ({mode}): the plain versions on the card differ by {rel:.3g}")
+
+
 def pose_drift(a, b, keep):
     """Per kept row of two evaluator outputs: the angle between their
     rotations in degrees and the distance between their translations in mm,
@@ -856,20 +1130,31 @@ def bit_equal_on_cpu(kernel, plain, args, what: str):
     CPU copies of the inputs. Returns the first result."""
     import torch
 
+    def bits(t):  # f32 or bf16 values as their bit patterns
+        return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
     got = kernel(*args)
     again = kernel(*args)
-    check(torch.equal(got.view(torch.int32), again.view(torch.int32)),
-          f"{what}: two launches on the same inputs differ")
+    check(torch.equal(bits(got), bits(again)), f"{what}: two launches on the same inputs differ")
     want = plain(*(a.cpu() if torch.is_tensor(a) else a for a in args))
-    check(torch.equal(got.cpu().view(torch.int32), want.view(torch.int32)),
+    check(got.dtype == want.dtype and torch.equal(bits(got.cpu()), bits(want)),
           f"{what}: not bit-equal to the plain version on the CPU "
-          f"(max abs {max_err(got.cpu(), want):.3g})")
+          f"(max abs {max_err(got.cpu().float(), want.float()):.3g})")
     return got
 
 
 def share_of_mass(got, ref, mass) -> float:
     """The largest |got - ref| per element, over sum |w g| of that element."""
     return float(((got - ref).abs() / mass.clamp(min=1e-30)).max())
+
+
+def bf16_share_of_mass(got, ref, mass) -> float:
+    """share_of_mass of two bf16 results of f32 sums, less what rounding
+    each sum to bf16 once may add (half an ulp, at most 2^-8 of the value,
+    for each side)."""
+    got, ref = got.float(), ref.float()
+    slack = 2.0 ** -8 * (got.abs() + ref.abs())
+    return float(((got - ref).abs() - slack).clamp(min=0.0).div(mass.clamp(min=1e-30)).max())
 
 
 def check_inverse_index(idx, v: int, what: str) -> None:
@@ -940,11 +1225,14 @@ KERNEL_COUNTERS = (  # (entry name, module, counter attribute)
     ("compact_bwd", "cuda_compact", "bwd_launches"),
     ("fused", "cuda_fused", "launches"),
     ("fused_bwd", "cuda_fused", "bwd_launches"),
-    # the bf16 variants of the forward kernels (model.compute_dtype: bfloat16)
+    # the bf16 variants (model.compute_dtype: bfloat16)
     ("voxelize_bf16", "cuda_voxelize", "launches_bf16"),
     ("compact_bf16", "cuda_compact", "launches_bf16"),
     ("interp_bf16", "cuda_interp", "launches_bf16"),
     ("fused_bf16", "cuda_fused", "launches_bf16"),
+    ("interp_bwd_bf16", "cuda_interp", "bwd_launches_bf16"),
+    ("compact_bwd_bf16", "cuda_compact", "bwd_launches_bf16"),
+    ("fused_bwd_bf16", "cuda_fused", "bwd_launches_bf16"),
 )
 KERNEL_ORDER = tuple(k for k, _, _ in KERNEL_COUNTERS)
 
@@ -974,13 +1262,17 @@ def read_counts() -> dict:
 TWO_STAGE_TRAIN = {"voxelize": 2, "compact": 8, "interp": 8, "interp_bwd": 8,
                    "compact_bwd": 8}
 FUSED_TRAIN = {"voxelize": 2, "compact": 8, "fused": 8, "fused_bwd": 8}
+TWO_STAGE_TRAIN_BF16 = {f"{k}_bf16": n for k, n in TWO_STAGE_TRAIN.items()}
+FUSED_TRAIN_BF16 = {f"{k}_bf16": n for k, n in FUSED_TRAIN.items()}
 
 
 def train_phase(cfg, card, interp_mode="pallas", steps=TRAIN_STEPS,
                 per_step=TWO_STAGE_TRAIN, device="cuda"):
-    """Solver at full width: a warm-up step, then `steps` counted and timed
-    steps through train_epoch. Returns (launch counts over the timed steps,
-    the solver, one device batch of the run, samples/s)."""
+    """Solver at full width (in cfg.model's compute dtype): a warm-up step,
+    then `steps` counted and timed steps through train_epoch. Returns
+    (launch counts over the timed steps, the solver, one device batch of the
+    run, {"rate": samples/s, "t_step": mean T_step s, "peak_gib": peak
+    device memory})."""
     import numpy as np
     import torch
 
@@ -1001,6 +1293,7 @@ def train_phase(cfg, card, interp_mode="pallas", steps=TRAIN_STEPS,
         length=bs * (steps + 1), seed=0)
     loader = BatchLoader(ds, batch_size=bs, num_workers=8, seed=int(cfg.get("rd_seed", 1)))
     model = DCLNet.from_config(mcfg, seed=0, device=dev, interp_mode=interp_mode)
+    name = interp_mode if model.dtype is None else f"{interp_mode}, bf16"
     train_cfg = cfg.merge({"per_write": 1, "per_save": 0})
     solver = Solver(model, dcl_losses, train_cfg, loader, device=dev)
     solver.initialize()
@@ -1013,7 +1306,7 @@ def train_phase(cfg, card, interp_mode="pallas", steps=TRAIN_STEPS,
     first = batch_to_torch(next(iter(loader)), dev)
     warm = solver.train_step(solver.state, first)
     torch.cuda.synchronize()
-    print(f"train ({interp_mode}) warm-up step {time.perf_counter() - t0:.3f} s, "
+    print(f"train ({name}) warm-up step {time.perf_counter() - t0:.3f} s, "
           f"loss_all {float(warm['loss_all']):.5f}", flush=True)
     loader.skip_next = 1
     torch.cuda.reset_peak_memory_stats()
@@ -1025,8 +1318,8 @@ def train_phase(cfg, card, interp_mode="pallas", steps=TRAIN_STEPS,
     launches = read_counts()
     n = solver.state.step - 1
     check(n == steps, f"{n} timed steps")
-    print(f"train ({interp_mode}) path launches {launches} over {n} steps", flush=True)
-    expect_counts(launches, per_step, n, f"train ({interp_mode})")
+    print(f"train ({name}) path launches {launches} over {n} steps", flush=True)
+    expect_counts(launches, per_step, n, f"train ({name})")
     for key in ("loss_all", "loss_pose", "loss_Xo", "loss_Yc", "loss_conf", "grad_norm"):
         check(bool(np.isfinite(avg[key])), f"train {key} not finite: {avg[key]}")
     check(avg["skipped_nonfinite"] == 0.0, "a training step was skipped as non-finite")
@@ -1036,46 +1329,50 @@ def train_phase(cfg, card, interp_mode="pallas", steps=TRAIN_STEPS,
           "some BN running statistic did not change")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     rate = n * bs / t_train
-    print(f"train ({interp_mode}) path on {card}: {n} steps of batch {bs} in "
+    print(f"train ({name}) path on {card}: {n} steps of batch {bs} in "
           f"{t_train:.3f} s = {rate:.2f} samples/s, T_step mean {avg['T_step']:.4f} s, "
           f"T_data mean {avg['T_data']:.4f} s, peak memory {peak:.2f} GiB; mean loss_all "
           f"{avg['loss_all']:.5f} grad_norm {avg['grad_norm']:.3f} "
           f"overflow_frac {avg['overflow_frac']:.4f}", flush=True)
-    return launches, solver, first, rate
+    return launches, solver, first, dict(rate=rate, t_step=avg["T_step"], peak_gib=peak)
+
+
+def train_pass(model, batch):
+    """Losses and the flat parameter gradient of one train-mode forward and
+    backward; the BN running statistics are put back after it."""
+    import torch
+
+    from dcl_net_tpu_torch.models.dcl_net import dcl_losses
+    from dcl_net_tpu_torch.train.solver import bn_statistics
+
+    model.train()
+    params = list(model.parameters())
+    stats = bn_statistics(model)
+    saved = [b.clone() for b in stats]
+    losses = dcl_losses(model(batch), batch)
+    grads = torch.autograd.grad(losses["loss_all"], params)
+    with torch.no_grad():
+        for b, s in zip(stats, saved):
+            b.copy_(s)
+    return ({k: float(v.detach()) for k, v in losses.items()},
+            torch.cat([g.reshape(-1) for g in grads]))
 
 
 def train_step_vs_plain(solver, batch, per_pass, two_stage=None) -> None:
     """Losses and parameter gradients of one train-mode forward and backward
     from the same state, through the kernels and through the plain
     versions, and (two_stage: a two-stage model with the same state) on the
-    two-stage path. per_pass: the launches of one kernel pass. The BN
-    running statistics are put back after each pass."""
+    two-stage path. per_pass: the launches of one kernel pass."""
     import torch
-
-    from dcl_net_tpu_torch.models.dcl_net import dcl_losses
-    from dcl_net_tpu_torch.train.solver import bn_statistics
-
-    def one_pass(model):
-        model.train()
-        params = list(model.parameters())
-        stats = bn_statistics(model)
-        saved = [b.clone() for b in stats]
-        losses = dcl_losses(model(batch), batch)
-        grads = torch.autograd.grad(losses["loss_all"], params)
-        with torch.no_grad():
-            for b, s in zip(stats, saved):
-                b.copy_(s)
-        return ({k: float(v.detach()) for k, v in losses.items()},
-                torch.cat([g.reshape(-1) for g in grads]))
 
     model = solver.model
     mode = model.point_feats_inp.interp_mode
     reset_counts()
-    lk, gk = one_pass(model)
+    lk, gk = train_pass(model, batch)
     expect_counts(read_counts(), per_pass, 1, f"one train pass ({mode})")
-    lk2, gk2 = one_pass(model)
+    lk2, gk2 = train_pass(model, batch)
     with plain_versions():
-        lp, gp = one_pass(model)
+        lp, gp = train_pass(model, batch)
     expect_counts(read_counts(), per_pass, 2, "the plain pass launched a kernel:")
 
     rep = float((gk - gk2).norm()) / float(gk.norm())
@@ -1099,16 +1396,18 @@ def train_step_vs_plain(solver, batch, per_pass, two_stage=None) -> None:
     compare("plain versions", lp, gp)
     if two_stage is not None:
         two_stage.load_state_dict(model.state_dict())
-        lt, gt = one_pass(two_stage)
+        lt, gt = train_pass(two_stage, batch)
         compare("the two-stage path", lt, gt)
 
 
 def stage2_train_phase(card, model_f, model_points, grid_shape, n_points,
-                       device="cuda") -> None:
+                       device="cuda", steps=STAGE2_TRAIN_STEPS,
+                       per_step=(("voxelize", 2), ("compact", 8), ("fused", 8))) -> None:
     """The refiner's training through Solver(step_builder=...) with
     config_YCBV_bs40.yaml's optimizer and schedule at batch
-    bs // ITERATIONS, on the frozen fused stage 1: a warm-up step, then
-    STAGE2_TRAIN_STEPS counted and timed steps."""
+    bs // ITERATIONS, on the frozen fused stage 1 (f32 or bf16; per_step:
+    its forward kernels' launches a step): a warm-up step, then `steps`
+    counted and timed steps."""
     import numpy as np
     import torch
 
@@ -1126,7 +1425,7 @@ def stage2_train_phase(card, model_f, model_points, grid_shape, n_points,
     ds = SyntheticPoseDataset(
         n_objects=N_CLASSES, n_points=n_points,
         unit_voxel_extent=tuple(cfg2.model.unit_voxel_extent), voxel_num_limit=grid_shape,
-        length=bs * (STAGE2_TRAIN_STEPS + 1), seed=0)
+        length=bs * (steps + 1), seed=0)
     loader = BatchLoader(ds, batch_size=bs, num_workers=8, seed=int(cfg2.get("rd_seed", 1)))
     cld = torch.as_tensor(np.asarray(model_points, np.float32), device=dev)
     refiner = Refiner(n_inp=n_points, seed=1)
@@ -1150,10 +1449,10 @@ def stage2_train_phase(card, model_f, model_points, grid_shape, n_points,
     t_train = time.perf_counter() - t0
     launches = read_counts()
     n = solver.state.step - 1
-    check(n == STAGE2_TRAIN_STEPS, f"{n} timed stage-2 steps")
+    check(n == steps, f"{n} timed stage-2 steps")
     print(f"stage-2 train launches {launches} over {n} steps", flush=True)
     # the frozen stage 1: both branches forward, no backward kernel
-    expect_counts(launches, {"voxelize": 2, "compact": 8, "fused": 8}, n, "stage-2 train")
+    expect_counts(launches, dict(per_step), n, "stage-2 train")
     for key in ("loss_all", "loss_last_iter", "grad_norm"):
         check(bool(np.isfinite(avg[key])), f"stage-2 {key} not finite: {avg[key]}")
     check(avg["skipped_nonfinite"] == 0.0, "a stage-2 step was skipped as non-finite")
@@ -1162,7 +1461,8 @@ def stage2_train_phase(card, model_f, model_points, grid_shape, n_points,
     check(all(torch.equal(v, model_f.state_dict()[k]) for k, v in stage1.items()),
           "stage-2 training changed a stage-1 weight or BN statistic")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"stage-2 train on {card}: {n} steps of batch {bs} ({ITERATIONS} refinement "
+    print(f"stage-2 train ({'f32' if model_f.dtype is None else 'bf16'} stage 1) on "
+          f"{card}: {n} steps of batch {bs} ({ITERATIONS} refinement "
           f"steps each) in {t_train:.3f} s = {n * bs / t_train:.2f} samples/s, T_step mean "
           f"{avg['T_step']:.4f} s, T_data mean {avg['T_data']:.4f} s, peak memory "
           f"{peak:.2f} GiB; mean loss_all "
@@ -2231,6 +2531,8 @@ def main() -> int:
 
     # ---- 3b. the bf16 variants of K1, K2, K3, K6 vs their bf16 plain versions --
     bf16_kernel_phase(entries, card, feats, vidx, model_b, grid_shape)
+    # ---- 3c. the bf16 variants of K4, K5, K7 vs their bf16 plain versions ------
+    bf16_bwd_kernel_phase(entries, card, feats, vidx, model_b, grid_shape)
     del model_b
     torch.cuda.empty_cache()
 
@@ -2318,7 +2620,7 @@ def main() -> int:
     # ---- 5. training path at full width -----------------------------------------
     del ev, ev_plain, out, pout, ev_f, out_f, pout_f, pyramid, grid, pgrid
     torch.cuda.empty_cache()
-    train_launches, solver, train_batch, rate_two = train_phase(cfg, card)
+    train_launches, solver, train_batch, perf_two = train_phase(cfg, card)
     for key, n in train_launches.items():
         entries[key]["launches"] = n
 
@@ -2328,12 +2630,13 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 7. the fused path's training, and one step against the two-stage path -
-    f_launches, f_solver, f_batch, rate_fused = train_phase(
+    f_launches, f_solver, f_batch, perf_fused = train_phase(
         cfg, card, "pallas_fused", FUSED_TRAIN_STEPS, FUSED_TRAIN)
     entries["fused"]["launches"] = f_launches["fused"]
     entries["fused_bwd"]["launches"] = f_launches["fused_bwd"]
-    print(f"training on {card}: fused {rate_fused:.2f} samples/s, two-stage "
-          f"{rate_two:.2f} samples/s", flush=True)
+    print(f"training on {card}: fused {perf_fused['rate']:.2f} samples/s, two-stage "
+          f"{perf_two['rate']:.2f} samples/s", flush=True)
+    f32_train = {"pallas": perf_two, "pallas_fused": perf_fused}
     train_step_vs_plain(f_solver, f_batch, FUSED_TRAIN, two_stage=DCLNet.from_config(
         mcfg, seed=0, interp_mode="pallas"))
     del f_solver, f_batch
@@ -2397,7 +2700,30 @@ def main() -> int:
     torch.cuda.empty_cache()
     bf16_eval_phase(card, mcfg, batches, bank, model_points, f32_rates, entries)
 
-    # ---- 12. result lines -----------------------------------------------------
+    # ---- 12. bf16 training on both paths, stage 2 on a frozen bf16 stage 1 -----
+    torch.cuda.empty_cache()
+    cfg_b = cfg.apply_overrides(["model.compute_dtype=bfloat16"])
+    for mode, per_step in (("pallas", TWO_STAGE_TRAIN_BF16), ("pallas_fused", FUSED_TRAIN_BF16)):
+        b_launches, b_solver, b_batch, perf = train_phase(cfg_b, card, mode, BF16_TRAIN_STEPS,
+                                                          per_step)
+        for key in per_step:
+            if key.endswith("_bwd_bf16"):
+                entries[key]["launches"] = b_launches[key]
+        f = f32_train[mode]
+        print(f"bf16 training ({mode}) on {card}: {perf['rate']:.2f} samples/s, T_step "
+              f"{perf['t_step']:.4f} s, peak memory {perf['peak_gib']:.2f} GiB; f32 in this "
+              f"run {f['rate']:.2f} samples/s, T_step {f['t_step']:.4f} s, peak memory "
+              f"{f['peak_gib']:.2f} GiB", flush=True)
+        bf16_train_step_vs_plain(b_solver, b_batch, per_step)
+        del b_solver, b_batch
+        torch.cuda.empty_cache()
+    model_bf = DCLNet.from_config(mcfg, seed=0, dtype=torch.bfloat16, interp_mode="pallas_fused")
+    stage2_train_phase(card, model_bf, model_points, grid_shape, n_points,
+                       steps=BF16_STAGE2_TRAIN_STEPS,
+                       per_step=(("voxelize_bf16", 2), ("compact_bf16", 8), ("fused_bf16", 8)))
+    del model_bf
+
+    # ---- 13. result lines -----------------------------------------------------
     print(json.dumps({"kernels": [entries[k] for k in KERNEL_ORDER]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

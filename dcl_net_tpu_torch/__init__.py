@@ -8,8 +8,8 @@ interpolation of interp_mode "pallas_fused") and of its training (the
 interpolation's and the compaction's backwards) live in ``csrc/`` and are
 built with nvcc at first use; a CPU tensor takes each kernel's plain version.
 Stage 2 (the refiner) is plain PyTorch on top of a stage-1 model. Inference
-also runs in bf16 (model.compute_dtype: bfloat16) through bf16 variants of
-the forward kernels.
+and training also run in bf16 (model.compute_dtype: bfloat16) through bf16
+variants of the kernels.
 """
 
 import torch

@@ -65,8 +65,15 @@
 // the same two kernels with the writer templated on the feature type: it
 // copies bf16 rows as they are (bit for bit; the mask, coords, vmask and
 // occupancy are the f32 variant's), 16 bytes a thread, which are 8 bf16
-// channels instead of 4 floats. K5 has no bf16 variant: training in bf16
-// is not ported, and its wrapper refuses a bf16 cotangent.
+// channels instead of 4 floats.
+//
+// K5's bf16 variant (dclx_compact_bwd_bf16; bf16 training) replaces the same
+// Pallas backward under bf16 (exact=False), whose one-hot product of bf16
+// rows, cast back to bf16, copies each row bit for bit. It is K5 with dv and
+// dgrid bf16: the zeros and the rows are stored as their bits, 16 bytes a
+// thread (8 bf16 channels) where C % 8 == 0 and the rows are 16-byte
+// aligned. The wrapper gives its blocks twice the cells of the f32 variant,
+// so a tile stays about 16 KB.
 
 #include <cuda_runtime.h>
 
@@ -252,15 +259,16 @@ int launch_compact(const T* feats, const float* mask, int* coords, T* vfeats,
 
 constexpr int kBwdThreads = 256;
 
+template <class T>
 __global__ void __launch_bounds__(kBwdThreads)
-compact_occupied_bwd(const float* __restrict__ dv, const int* __restrict__ coords,
-                     const float* __restrict__ vmask, float* __restrict__ dgrid,
+compact_occupied_bwd(const T* __restrict__ dv, const int* __restrict__ coords,
+                     const float* __restrict__ vmask, T* __restrict__ dgrid,
                      int cap, int g, int c, int d1, int d2, int tile, int vec) {
   __shared__ int slot_range[2];
   const int b = blockIdx.y;
   const long long lo = (long long)blockIdx.x * tile;
   const long long hi = min(lo + tile, (long long)g);
-  float* out = dgrid + ((long long)b * g + lo) * c;
+  T* out = dgrid + ((long long)b * g + lo) * c;
   const int* xyz_b = coords + (long long)b * cap * 3;
   const int warp = threadIdx.x >> 5;
   if (warp < 2) {  // the search's chain of loads first: the zeros need no wait
@@ -272,17 +280,17 @@ compact_occupied_bwd(const float* __restrict__ dv, const int* __restrict__ coord
   __syncthreads();  // also orders the zeros before the rows below
   const int s0 = slot_range[0];
   const long long rows = slot_range[1] - s0;
-  const float* src = dv + ((long long)b * cap + s0) * c;
+  const T* src = dv + ((long long)b * cap + s0) * c;
   const int* xyz = xyz_b + 3 * (long long)s0;
-  if (vec) {
-    const int c4 = c >> 2;
-    for (long long e = threadIdx.x; e < rows * c4; e += kBwdThreads) {
-      const long long r = e / c4;
-      const int k = (int)(e - r * c4);
+  if (vec) {  // 16 bytes a thread: per_vec<T>() channels
+    const int cv = c / elem::per_vec<T>();
+    for (long long e = threadIdx.x; e < rows * cv; e += kBwdThreads) {
+      const long long r = e / cv;
+      const int k = (int)(e - r * cv);
       const long long cell =
           ((long long)xyz[3 * r] * d1 + xyz[3 * r + 1]) * d2 + xyz[3 * r + 2] - lo;
-      reinterpret_cast<float4*>(out + cell * c)[k] =
-          reinterpret_cast<const float4*>(src + r * c)[k];
+      reinterpret_cast<uint4*>(out + cell * c)[k] =
+          reinterpret_cast<const uint4*>(src + r * c)[k];
     }
   } else {
     for (long long e = threadIdx.x; e < rows * c; e += kBwdThreads) {
@@ -293,6 +301,23 @@ compact_occupied_bwd(const float* __restrict__ dv, const int* __restrict__ coord
       out[cell * c + k] = src[r * c + k];
     }
   }
+}
+
+template <class T>
+int compact_bwd(const void* dv, const void* coords, const void* vmask, void* dgrid, int b,
+                int g, int c, int d1, int d2, int cap, int tile, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (b > 0 && g > 0 && c > 0) {
+    const int vec = c % elem::per_vec<T>() == 0 &&
+                    reinterpret_cast<unsigned long long>(dv) % 16 == 0 &&
+                    reinterpret_cast<unsigned long long>(dgrid) % 16 == 0;
+    const dim3 blocks((unsigned)((g + tile - 1) / tile), (unsigned)b);
+    compact_occupied_bwd<T><<<blocks, kBwdThreads, 0, s>>>(
+        static_cast<const T*>(dv), static_cast<const int*>(coords),
+        static_cast<const float*>(vmask), static_cast<T*>(dgrid), cap, g, c, d1, d2, tile,
+        vec);
+  }
+  return (int)cudaGetLastError();
 }
 
 template <class T>
@@ -346,15 +371,15 @@ extern "C" int dclx_compact_bwd(const void* dv, const void* coords,
                                 const void* vmask, void* dgrid, int b, int g,
                                 int c, int d1, int d2, int cap, int tile,
                                 void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (b > 0 && g > 0 && c > 0) {
-    const int vec = c % 4 == 0 && reinterpret_cast<unsigned long long>(dv) % 16 == 0 &&
-                    reinterpret_cast<unsigned long long>(dgrid) % 16 == 0;
-    const dim3 blocks((unsigned)((g + tile - 1) / tile), (unsigned)b);
-    compact_occupied_bwd<<<blocks, kBwdThreads, 0, s>>>(
-        static_cast<const float*>(dv), static_cast<const int*>(coords),
-        static_cast<const float*>(vmask), static_cast<float*>(dgrid),
-        cap, g, c, d1, d2, tile, vec);
-  }
-  return (int)cudaGetLastError();
+  return compact_bwd<float>(dv, coords, vmask, dgrid, b, g, c, d1, d2, cap, tile, stream);
+}
+
+// K5's bf16 variant: as dclx_compact_bwd, with dv [B,cap,C] and dgrid
+// [B,G,C] bf16.
+extern "C" int dclx_compact_bwd_bf16(const void* dv, const void* coords,
+                                     const void* vmask, void* dgrid, int b, int g,
+                                     int c, int d1, int d2, int cap, int tile,
+                                     void* stream) {
+  return compact_bwd<__nv_bfloat16>(dv, coords, vmask, dgrid, b, g, c, d1, d2, cap, tile,
+                                    stream);
 }

@@ -74,8 +74,15 @@
 // bfloat16) is the same kernel body over K2's bf16 rows: coords, mask,
 // decoded centers, distances and weights stay f32, so idx and w are the f32
 // variant's, and the weighted sum is taken in f32 and rounded to bf16 once;
-// it is torch.equal to K2 -> centers -> K3 in bf16. K7 has no bf16 variant:
-// training in bf16 is not ported, and its wrapper refuses a bf16 cotangent.
+// it is torch.equal to K2 -> centers -> K3 in bf16.
+//
+// K7's bf16 variant (dclx_compact_interp_bwd_bf16; bf16 training) replaces the
+// same Pallas backward under bf16, which summed the widened bf16 cotangent
+// into f32 rows, cast them to bf16 once and copied them onto a bf16 grid. It
+// is K7 with g and dgrid bf16: the f32 ordered sum of each (slot, channel),
+// as K4's bf16 variant takes it, rounded to bf16 once and stored at its cell
+// over the bf16 zeros. The wrapper sizes the tiles in bytes, as K5's bf16
+// variant.
 
 #include <cuda_runtime.h>
 
@@ -87,18 +94,19 @@ namespace {
 
 using inverse_index::kWriterThreads;
 
+template <class T>
 __global__ void __launch_bounds__(kWriterThreads)
-compact_interp_grid_bwd(const float* __restrict__ g, const float* __restrict__ w,
+compact_interp_grid_bwd(const T* __restrict__ g, const float* __restrict__ w,
                         const int* __restrict__ start, const int* __restrict__ ent,
                         const int* __restrict__ coords, const float* __restrict__ vmask,
-                        float* __restrict__ dgrid, int n, int cap, int cells, int c,
+                        T* __restrict__ dgrid, int n, int cap, int cells, int c,
                         int d1, int d2, int tile) {
   __shared__ int slot_range[2];
   __shared__ inverse_index::Stage stage;
   const int b = blockIdx.y;
   const long long lo = (long long)blockIdx.x * tile;
   const long long hi = min(lo + tile, (long long)cells);
-  float* out = dgrid + ((long long)b * cells + lo) * c;
+  T* out = dgrid + ((long long)b * cells + lo) * c;
   const int* xyz_b = coords + (long long)b * cap * 3;
   const int warp = threadIdx.x >> 5;
   if (warp < 2) {  // the search's chain of loads first: the zeros need no wait
@@ -116,8 +124,26 @@ compact_interp_grid_bwd(const float* __restrict__ g, const float* __restrict__ w
       w + b * m, g + (long long)b * n * c, n, c, [&](int r, int ch, float x) {
         const long long cell =
             ((long long)xyz[3 * r] * d1 + xyz[3 * r + 1]) * d2 + xyz[3 * r + 2] - lo;
-        out[cell * c + ch] = x;
+        out[cell * c + ch] = elem::from_float<T>(x);
       });
+}
+
+template <class T>
+int compact_interp_bwd(const void* g, const void* w, const void* idx, const void* coords,
+                       const void* vmask, void* dgrid, void* scratch, int b, int n, int cap,
+                       int cells, int c, int d1, int d2, int tile, cudaStream_t s) {
+  if (b <= 0 || cells <= 0 || c <= 0) return (int)cudaGetLastError();
+  int* start = static_cast<int*>(scratch);
+  int* ent = start + (long long)b * (cap + 1);
+  const int err = inverse_index::launch_csr(static_cast<const int*>(idx), start, ent, b,
+                                            3 * n, cap, s);
+  if (err != (int)cudaSuccess) return err;
+  const dim3 blocks((unsigned)((cells + tile - 1) / tile), (unsigned)b);
+  compact_interp_grid_bwd<T><<<blocks, kWriterThreads, 0, s>>>(
+      static_cast<const T*>(g), static_cast<const float*>(w), start, ent,
+      static_cast<const int*>(coords), static_cast<const float*>(vmask),
+      static_cast<T*>(dgrid), n, cap, cells, c, d1, d2, tile);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -170,17 +196,18 @@ extern "C" int dclx_compact_interp_bwd(const void* g, const void* w, const void*
                                        const void* coords, const void* vmask, void* dgrid,
                                        void* scratch, int b, int n, int cap, int cells,
                                        int c, int d1, int d2, int tile, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (b <= 0 || cells <= 0 || c <= 0) return (int)cudaGetLastError();
-  int* start = static_cast<int*>(scratch);
-  int* ent = start + (long long)b * (cap + 1);
-  const int err = inverse_index::launch_csr(static_cast<const int*>(idx), start, ent, b,
-                                            3 * n, cap, s);
-  if (err != (int)cudaSuccess) return err;
-  const dim3 blocks((unsigned)((cells + tile - 1) / tile), (unsigned)b);
-  compact_interp_grid_bwd<<<blocks, kWriterThreads, 0, s>>>(
-      static_cast<const float*>(g), static_cast<const float*>(w), start, ent,
-      static_cast<const int*>(coords), static_cast<const float*>(vmask),
-      static_cast<float*>(dgrid), n, cap, cells, c, d1, d2, tile);
-  return (int)cudaGetLastError();
+  return compact_interp_bwd<float>(g, w, idx, coords, vmask, dgrid, scratch, b, n, cap,
+                                   cells, c, d1, d2, tile, static_cast<cudaStream_t>(stream));
+}
+
+// K7's bf16 variant: as dclx_compact_interp_bwd, with g [B,N,C] and dgrid
+// [B,G,C] bf16.
+extern "C" int dclx_compact_interp_bwd_bf16(const void* g, const void* w, const void* idx,
+                                            const void* coords, const void* vmask,
+                                            void* dgrid, void* scratch, int b, int n,
+                                            int cap, int cells, int c, int d1, int d2,
+                                            int tile, void* stream) {
+  return compact_interp_bwd<__nv_bfloat16>(g, w, idx, coords, vmask, dgrid, scratch, b, n,
+                                           cap, cells, c, d1, d2, tile,
+                                           static_cast<cudaStream_t>(stream));
 }

@@ -217,9 +217,12 @@ int dclx_png_decode(const uint8_t* data, size_t len, uint8_t* out) {
       }
       off += 12 + clen;
     }
+    // Every row must come from the stream: one that ends short of raw_size
+    // (Z_STREAM_END early) would leave its last rows to whatever the failed
+    // fast path wrote there.
     const bool filled = (zs.avail_out == 0);
     inflateEnd(&zs);
-    if (!filled && zrc != Z_STREAM_END) return -4;
+    if (!filled) return -4;
   }
 
   // Unfilter rows in place, then emit into the caller buffer.

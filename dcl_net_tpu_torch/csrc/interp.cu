@@ -77,9 +77,15 @@
 // K3's bf16 variant (dclx_interp_bf16; model.compute_dtype: bfloat16) is the
 // same kernel body with bf16 features and output: f32 points, centers,
 // distances and weights, so idx and w are the f32 variant's; the weighted
-// sum is taken in f32 and rounded to bf16 once (three_nn_lanes.cuh). K4 has
-// no bf16 variant: training in bf16 is not ported, and its wrapper refuses a
-// bf16 cotangent.
+// sum is taken in f32 and rounded to bf16 once (three_nn_lanes.cuh).
+//
+// K4's bf16 variant (dclx_interp_bwd_bf16; bf16 training) replaces the same
+// Pallas backward under bf16, which widened the bf16 cotangent to f32, summed
+// in f32 and cast the [V, C] rows to bf16 once. It is K4 with g and dfeats
+// bf16: each g is widened to f32 as it is loaded, the products, the order of
+// the sums and the sums are the f32 variant's, and each (row, channel) is
+// rounded to bf16 once, at its store. It is bit-equal to the f32 variant's
+// result on the widened g, rounded once.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -93,18 +99,37 @@ namespace tl = three_nn_lanes;
 
 using inverse_index::kWriterThreads;
 
+template <class T>
 __global__ void __launch_bounds__(kWriterThreads)
-interp_rows_bwd(const float* __restrict__ g, const float* __restrict__ w,
+interp_rows_bwd(const T* __restrict__ g, const float* __restrict__ w,
                 const int* __restrict__ start, const int* __restrict__ ent,
-                float* __restrict__ dfeats, int n, int v, int c, int rows) {
+                T* __restrict__ dfeats, int n, int v, int c, int rows) {
   __shared__ inverse_index::Stage stage;
   const int b = blockIdx.y;
   const int r0 = blockIdx.x * rows;
   const long long m = 3LL * n;
-  float* out = dfeats + ((long long)b * v + r0) * c;
+  T* out = dfeats + ((long long)b * v + r0) * c;
   inverse_index::write_rows(stage, start + (long long)b * (v + 1) + r0, min(rows, v - r0),
                             ent + b * m, w + b * m, g + (long long)b * n * c, n, c,
-                            [&](int r, int ch, float x) { out[(long long)r * c + ch] = x; });
+                            [&](int r, int ch, float x) {
+                              out[(long long)r * c + ch] = elem::from_float<T>(x);
+                            });
+}
+
+template <class T>
+int interp_bwd(const void* g, const void* w, const void* idx, void* dfeats, void* scratch,
+               int b, int n, int v, int c, int rows, cudaStream_t s) {
+  if (b <= 0 || v <= 0 || c <= 0) return (int)cudaGetLastError();
+  int* start = static_cast<int*>(scratch);
+  int* ent = start + (long long)b * (v + 1);
+  const int err = inverse_index::launch_csr(static_cast<const int*>(idx), start, ent, b,
+                                            3 * n, v, s);
+  if (err != (int)cudaSuccess) return err;
+  const dim3 blocks((unsigned)((v + rows - 1) / rows), (unsigned)b);
+  interp_rows_bwd<T><<<blocks, kWriterThreads, 0, s>>>(
+      static_cast<const T*>(g), static_cast<const float*>(w), start, ent,
+      static_cast<T*>(dfeats), n, v, c, rows);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -154,16 +179,15 @@ extern "C" int dclx_inverse_index(const void* idx, void* scratch, int b, int n, 
 extern "C" int dclx_interp_bwd(const void* g, const void* w, const void* idx,
                                void* dfeats, void* scratch, int b, int n, int v, int c,
                                int rows, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (b <= 0 || v <= 0 || c <= 0) return (int)cudaGetLastError();
-  int* start = static_cast<int*>(scratch);
-  int* ent = start + (long long)b * (v + 1);
-  const int err = inverse_index::launch_csr(static_cast<const int*>(idx), start, ent, b,
-                                            3 * n, v, s);
-  if (err != (int)cudaSuccess) return err;
-  const dim3 blocks((unsigned)((v + rows - 1) / rows), (unsigned)b);
-  interp_rows_bwd<<<blocks, kWriterThreads, 0, s>>>(
-      static_cast<const float*>(g), static_cast<const float*>(w), start, ent,
-      static_cast<float*>(dfeats), n, v, c, rows);
-  return (int)cudaGetLastError();
+  return interp_bwd<float>(g, w, idx, dfeats, scratch, b, n, v, c, rows,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// K4's bf16 variant: as dclx_interp_bwd, with g [B,N,C] and dfeats [B,V,C]
+// bf16 (w, idx and scratch as there).
+extern "C" int dclx_interp_bwd_bf16(const void* g, const void* w, const void* idx,
+                                    void* dfeats, void* scratch, int b, int n, int v,
+                                    int c, int rows, void* stream) {
+  return interp_bwd<__nv_bfloat16>(g, w, idx, dfeats, scratch, b, n, v, c, rows,
+                                   static_cast<cudaStream_t>(stream));
 }

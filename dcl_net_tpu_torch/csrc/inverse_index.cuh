@@ -26,6 +26,9 @@
 //    its loads: the block stages the rows' (t, w) in shared memory, a few
 //    loads per thread, and each thread keeps 32 loads of g for its row in
 //    flight (4 channels, 8 positions).
+//    g may be f32 or bf16 (elem.cuh): a bf16 cotangent is widened to f32 as
+//    it is loaded, so the products and the sums are the f32 ones, and the
+//    caller's store rounds the f32 sum to its output type once.
 // The CSR lives in a scratch buffer that the wrapper allocates:
 // start [B, V + 1] then ent [B, 3N], int32.
 
@@ -34,6 +37,8 @@
 #include <cuda_runtime.h>
 
 #include <cub/block/block_radix_sort.cuh>
+
+#include "elem.cuh"
 
 namespace inverse_index {
 namespace {  // each source that includes this gets its own copy of the kernels
@@ -118,21 +123,28 @@ struct Stage {
   float w[kChunk];
 };
 
+// g[i] widened to f32, through the read-only cache.
+__device__ __forceinline__ float load_g(const float* __restrict__ p) { return __ldg(p); }
+__device__ __forceinline__ float load_g(const __nv_bfloat16* __restrict__ p) {
+  return __bfloat162float(__ldg(p));
+}
+
 // Writes rows [0, rows) of a writer block, row r holding the CSR positions
 // [sb[r], sb[r + 1]) of the sample (eb: its ent; wb: its w [3N]; gb: its g
-// [N, C], C <= kWriterThreads): for each (row, channel), the sum from 0.f
-// over the row's positions in order of w[e] * g[t(e), ch], each product
-// and each sum rounded once, handed to store(row, ch, sum). Called by every
+// [N, C] of type G, f32 or bf16, C <= kWriterThreads): for each (row,
+// channel), the f32 sum from 0.f over the row's positions in order of
+// w[e] * g[t(e), ch], each product and each sum rounded once, handed to
+// store(row, ch, sum). Called by every
 // thread of the block (it synchronises it). In passes of kWriterThreads / C
 // rows, one thread a (row, channel): the pass's positions, contiguous in
 // the CSR, go through shared memory a chunk at a time, loaded by the whole
 // block; then each thread adds its row's positions kUnroll at a time, the
 // loads of g first.
-template <typename Store>
+template <typename G, typename Store>
 __device__ __forceinline__ void write_rows(Stage& st, const int* __restrict__ sb, int rows,
                                            const int* __restrict__ eb,
                                            const float* __restrict__ wb,
-                                           const float* __restrict__ gb, int n, int c,
+                                           const G* __restrict__ gb, int n, int c,
                                            Store store) {
   const int pass_rows = kWriterThreads / c;
   const int my_row = threadIdx.x / c;  // in the pass; idle from pass_rows on
@@ -159,12 +171,12 @@ __device__ __forceinline__ void write_rows(Stage& st, const int* __restrict__ sb
       for (; k + kUnroll <= len; k += kUnroll) {  // whole steps
         float gv[kUnroll];
 #pragma unroll
-        for (int u = 0; u < kUnroll; ++u) gv[u] = __ldg(gb + (long long)st.t[a + k + u] * c + ch);
+        for (int u = 0; u < kUnroll; ++u) gv[u] = load_g(gb + (long long)st.t[a + k + u] * c + ch);
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u) acc = __fadd_rn(acc, __fmul_rn(st.w[a + k + u], gv[u]));
       }
       for (; k < len; ++k) {  // the tail
-        acc = __fadd_rn(acc, __fmul_rn(st.w[a + k], __ldg(gb + (long long)st.t[a + k] * c + ch)));
+        acc = __fadd_rn(acc, __fmul_rn(st.w[a + k], load_g(gb + (long long)st.t[a + k] * c + ch)));
       }
     }
     if (on_row) store(r, ch, acc);

@@ -44,7 +44,9 @@ class Evaluator:
       template_bank: optional {"feats": [C, M, 7], "voxel_idx": [C, M, 3]}
         per-class template inputs; the template branch is then encoded once
         per class and gathered per instance (in the model's compute type: a
-        bf16 model's cache holds bf16 features).
+        bf16 model's cache holds bf16 features). The cache depends on the
+        weights: after the model's weights change (load_state_dict, a train
+        step between evaluations), update_variables re-encodes it.
       device: CUDA unless the caller names another.
     """
 
@@ -68,15 +70,35 @@ class Evaluator:
         self.diameters = None if diameters is None else list(diameters)
         self.count_lost = bool(count_lost)
         self.logger = logger
+        self._bank_inputs = None
         self._tmp_cache = None
         if template_bank is not None:
-            bank = batch_to_torch({"tmp": dict(template_bank)}, self.device)
-            with torch.inference_mode():
-                self._tmp_cache = self.model.encode_template(bank)
+            self._bank_inputs = batch_to_torch({"tmp": dict(template_bank)}, self.device)
+            self._refresh_template_cache()
+
+    def _refresh_template_cache(self) -> None:
+        """Encode the per-class template cache from the model's weights as
+        they are now, in eval mode."""
+        self.model.eval()
+        with torch.inference_mode():
+            self._tmp_cache = self.model.encode_template(self._bank_inputs)
+
+    def update_variables(self, state_dict=None) -> "Evaluator":
+        """Swap in new weights and re-encode the template cache, which
+        depends on them (dcl_net_tpu/eval/evaluator.py::update_variables).
+        state_dict: the model's new state (a checkpoint's "model" entry),
+        loaded into the evaluated model; None when the model was changed in
+        place, as by a train step between evaluations."""
+        if state_dict is not None:
+            self.model.load_state_dict(state_dict)
+        if self._bank_inputs is not None:
+            self._refresh_template_cache()
+        return self
 
     def _run(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """Forward + ADD-S (and ADD under add_0.1d) for one device batch."""
         cls = batch["labels"]["obj_idx"].long()
+        self.model.eval()  # a trainer may share the model and leave it in train mode
         with torch.inference_mode():
             if self._tmp_cache is not None:
                 obs = self.model.encode_observed(batch)

@@ -27,10 +27,14 @@ def l2_distance(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
 
 
 def pairwise_sq_dist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Squared distances [..., N, M] by |a|^2 - 2ab + |b|^2, clamped at 0."""
+    """Squared distances [..., N, M] by |a|^2 - 2ab + |b|^2, clamped at 0.
+    Each norm in its operand's type; the cross term in the two operands'
+    promoted type (a bf16 prediction against f32 targets: f32), as JAX's
+    einsum promotes them."""
     a2 = (a * a).sum(-1)[..., :, None]
     b2 = (b * b).sum(-1)[..., None, :]
-    return torch.clamp(a2 - 2.0 * (a @ b.transpose(-1, -2)) + b2, min=0.0)
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return torch.clamp(a2 - 2.0 * (a.to(dt) @ b.to(dt).transpose(-1, -2)) + b2, min=0.0)
 
 
 def chamfer_distance(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:

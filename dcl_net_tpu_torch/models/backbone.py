@@ -19,7 +19,8 @@ grids; on the fused path the two run as its backward, K7.
 
 With dtype bfloat16 (model.compute_dtype) the grids, the pooled levels and
 the interpolated features are bf16 and K2, K3 and K6 run their bf16
-variants; masks, occupancies, voxel centers and points stay f32.
+variants, as K4, K5 and K7 do in the backward, whose gradients are bf16;
+masks, occupancies, voxel centers and points stay f32.
 """
 
 from __future__ import annotations

@@ -14,9 +14,10 @@ voxels (MaskedBatchNorm), the per-point MLPs as flax's nn.BatchNorm.
 `dtype` is the compute type of the convolutions and dense layers, as the
 JAX blocks' `dtype` (flax's): None computes in the input's type (f32 on
 the main path); torch.bfloat16 casts inputs and parameters to bf16 at use,
-the parameters staying f32 in the module. bf16 is for eval mode: DCLNet
-refuses to train in it (queue A 5b of ROADMAP.md), and the train branches
-here compute in f32.
+the parameters staying f32 in the module (so their gradients are f32). In
+both modes the BN statistics, the running statistics and the normalisation
+run in f32 and the normalised output is cast to the compute type, as the
+JAX blocks do.
 """
 
 from __future__ import annotations
@@ -85,7 +86,9 @@ def init_weights(model: nn.Module, seed: int = 0) -> None:
 class MaskedBatchNorm(nn.Module):
     """BatchNorm whose statistics run over occupied voxels only: biased
     variance to normalise, unbiased for the running update, momentum 0.1
-    (flax 0.9), eps 1e-5. Parameters follow nn.BatchNorm1d's names."""
+    (flax 0.9), eps 1e-5. Parameters follow nn.BatchNorm1d's names.
+    Statistics and output are at least f32: a bf16 input is widened for
+    them, and the caller casts the output back."""
 
     def __init__(self, num_features: int, momentum: float = 0.1,
                  eps: float = 1e-5):
@@ -130,10 +133,13 @@ class SparseConvBlock(nn.Module):
     voxels active after the conv (dcl_net_tpu/models/blocks.py:130-145).
     Input invariant: x is zero at inactive voxels.
 
-    With dtype bfloat16 (eval only) the fold runs in f32, then the conv
-    takes bf16 inputs and the bf16 folded kernel and returns bf16 (cuDNN and
-    the CPU accumulate in f32), b' is added in bf16, and the ReLU and the
-    re-mask run in bf16, as dcl_net_tpu/models/blocks.py:124-130 does."""
+    With dtype bfloat16 the conv takes bf16 inputs and a bf16 kernel and
+    returns bf16 (cuDNN and the CPU accumulate in f32), and the ReLU and the
+    re-mask run in bf16, as dcl_net_tpu/models/blocks.py:124-145 does. In
+    eval mode the fold runs in f32 before the kernel is cast and b' is added
+    in bf16. In train mode the masked statistics, the running update and the
+    normalisation run in f32 on the bf16 conv output, whose normalised value
+    is cast to bf16."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int = 3,
                  subm: bool = True, dtype: Optional[torch.dtype] = None):
@@ -149,14 +155,15 @@ class SparseConvBlock(nn.Module):
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         k = self.kernel_size
         new_mask = mask if self.subm else dilate_mask(mask, k)
+        dt = self.dtype or x.dtype
         if self.training:
-            y = F.conv3d(x.permute(0, 4, 1, 2, 3), self.conv.weight, padding=k // 2)
-            y = self.bn(y.permute(0, 2, 3, 4, 1), new_mask)
+            y = F.conv3d(x.to(dt).permute(0, 4, 1, 2, 3), self.conv.weight.to(dt),
+                         padding=k // 2)
+            y = self.bn(y.permute(0, 2, 3, 4, 1), new_mask).to(dt)
             return torch.relu(y) * new_mask[..., None].to(y.dtype), new_mask
         s = self.bn.weight / torch.sqrt(self.bn.running_var + self.bn.eps)
         w_eff = self.conv.weight * s[:, None, None, None, None]
         b_eff = self.bn.bias - self.bn.running_mean * s
-        dt = self.dtype or x.dtype
         y = F.conv3d(x.to(dt).permute(0, 4, 1, 2, 3), w_eff.to(dt),
                      padding=k // 2).permute(0, 2, 3, 4, 1)
         # in place on the conv's fresh output: the values of y + b_eff, relu
@@ -179,11 +186,12 @@ class PointMLP(nn.Module):
     running variance is updated with that biased variance (momentum 0.1,
     flax's 0.9); then (x - mean) * (rsqrt(var + eps) * scale) + bias.
 
-    With dtype bfloat16 (eval only), as flax's Dense and BatchNorm with
-    dtype=bfloat16: each dense layer multiplies the bf16 input by the bf16
-    kernel (accumulating in f32, rounding to bf16), then adds the bf16 bias
-    in bf16; each BN normalises in f32 with the f32 statistics and
-    parameters and returns bf16; the activations run in bf16."""
+    With dtype bfloat16, as flax's Dense and BatchNorm with dtype=bfloat16:
+    each dense layer multiplies the bf16 input by the bf16 kernel
+    (accumulating in f32, rounding to bf16), then adds the bf16 bias in
+    bf16; each BN takes its statistics of the input widened to f32 (train
+    mode) and normalises in f32 with the f32 statistics and parameters,
+    then returns bf16; the activations run in bf16."""
 
     def __init__(self, in_dim: int, dims: Sequence[int], acts: Sequence[str],
                  bns: Sequence[bool], bn_before_act: bool = False,

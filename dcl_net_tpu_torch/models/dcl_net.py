@@ -27,8 +27,10 @@ the point features, the heads, the attention and the neck in bf16 (K1, K2,
 K3 and K6 through their bf16 variants), with the parameters kept in f32
 and cast at use. Voxel counts and masks, points, distances, the SVD and the
 pose stay f32: rot_pred is f32, trans_pred, conf and F_Xo_p are bf16, as in
-the JAX model. bf16 runs in eval mode only (training in bf16 is queue A 5b
-of ROADMAP.md).
+the JAX model. A bf16 model trains too: the gradients flow back through the
+bf16 variants of the backward kernels (K4 and K5, or K7), the BN statistics
+and running statistics stay f32, and the parameters and their gradients
+stay f32 (bf16 is the compute type only).
 """
 
 from __future__ import annotations
@@ -88,8 +90,8 @@ class DCLNet(nn.Module):
     seed: the weights are drawn from a torch.Generator with this seed
     (lecun-normal kernels, zero biases, identity BN statistics), on the CPU
     and then moved, so the same seed gives the same weights everywhere.
-    dtype: the feature compute type, None (f32) or torch.bfloat16 (eval
-    only; the module docstring says what runs in which type)."""
+    dtype: the feature compute type, None (f32) or torch.bfloat16 (the
+    module docstring says what runs in which type); another raises."""
 
     def __init__(
         self,
@@ -158,13 +160,6 @@ class DCLNet(nn.Module):
 
     def reset_parameters(self, seed: int = 0) -> None:
         init_weights(self, seed)
-
-    def train(self, mode: bool = True) -> "DCLNet":
-        if mode and self.dtype is not None:
-            raise NotImplementedError(
-                f"training DCLNet in {self.dtype}: the port trains in f32 only "
-                "(bf16 training is queue A 5b of ROADMAP.md)")
-        return super().train(mode)
 
     # ------------------------------------------------------------------
     # Branch encoders
@@ -271,7 +266,13 @@ def dcl_losses(pred: Dict[str, torch.Tensor], batch: Dict[str, Any]
 
     Rows with valid = 0 weigh nothing and the denominator counts the valid
     rows, so shapes stay fixed. Each jax.lax.stop_gradient of the JAX
-    function is a .detach() here."""
+    function is a .detach() here.
+
+    A bf16 model's trans_pred, conf, Xo_pred and Yc_pred are bf16 (rot_pred
+    and the points f32). Each term takes the type JAX's promotion gives it:
+    a bf16 value meeting an f32 one is widened, so every per-point loss is
+    f32, while the confidence's log term stays bf16, its constant 0.01
+    rounded to bf16 first, as JAX does with a Python scalar."""
     rot_pred = pred["rot_pred"]
     trans_pred = pred["trans_pred"]
     sym = batch["sym_flag"][:, None]                            # [B, 1]
@@ -308,7 +309,9 @@ def dcl_losses(pred: Dict[str, torch.Tensor], batch: Dict[str, Any]
 
     # confidence self-calibration against the detached per-point losses
     pp = torch.cat([loss_xo_pp, loss_yc_pp], dim=1).detach()    # [B, N+M]
-    conf_term = pp * conf - 0.01 * torch.log(torch.clamp(conf, min=1e-12))
+    # JAX takes the weak scalar in conf's type: bf16(0.01) under bf16
+    log_weight = float(torch.tensor(0.01, dtype=conf.dtype))
+    conf_term = pp * conf - log_weight * torch.log(torch.clamp(conf, min=1e-12))
     loss_conf = torch.sum(w * conf_term.mean(dim=1))
 
     loss_all = loss_pose + 5.0 * loss_xo + 1.0 * loss_yc + 1.0 * loss_conf

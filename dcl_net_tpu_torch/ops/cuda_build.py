@@ -46,10 +46,13 @@ SIGNATURES = {
     "dclx_interp_bf16": [_P] * 8 + [_I] * 6 + [_P],
     "dclx_inverse_index": [_P] * 2 + [_I] * 3 + [_P],
     "dclx_interp_bwd": [_P] * 5 + [_I] * 5 + [_P],
+    "dclx_interp_bwd_bf16": [_P] * 5 + [_I] * 5 + [_P],
     "dclx_compact_bwd": [_P] * 4 + [_I] * 7 + [_P],
+    "dclx_compact_bwd_bf16": [_P] * 4 + [_I] * 7 + [_P],
     "dclx_compact_interp": [_P] * 8 + [_I] * 6 + [_F] * 6 + [_P],
     "dclx_compact_interp_bf16": [_P] * 8 + [_I] * 6 + [_F] * 6 + [_P],
     "dclx_compact_interp_bwd": [_P] * 7 + [_I] * 8 + [_P],
+    "dclx_compact_interp_bwd_bf16": [_P] * 7 + [_I] * 8 + [_P],
 }
 
 

@@ -12,9 +12,9 @@ there is no fallback.
 
 bf16 features (model.compute_dtype: bfloat16) go through K2's bf16
 variant, which copies the bf16 rows as they are; coords, vmask and the
-occupancy are the f32 variant's. It has its own launch count,
-`launches_bf16`. K5 has no bf16 variant (training in bf16 is queue A 5b of
-ROADMAP.md): its wrapper refuses a bf16 cotangent on every device.
+occupancy are the f32 variant's. A bf16 cotangent goes through K5's bf16
+variant, which copies the bf16 rows onto a bf16 grid bit for bit. Each
+variant has its own launch count (`launches_bf16`, `bwd_launches_bf16`).
 """
 
 from __future__ import annotations
@@ -26,11 +26,12 @@ import torch
 from dcl_net_tpu_torch.ops import cuda_build
 from dcl_net_tpu_torch.ops import sparse_conv
 
-# Launches of K2, of its bf16 variant and of K5 since the last reset (set
-# to 0 to reset).
+# Launches of K2, of K5 and of their bf16 variants since the last reset
+# (set to 0 to reset).
 launches = 0
 launches_bf16 = 0
 bwd_launches = 0
+bwd_launches_bf16 = 0
 
 BWD_TILE_BYTES = 16 * 1024  # K5 and K7 (ops/cuda_fused.py): output bytes per block
 # K2's cells per block (csrc/compact.cu: 256, 512 or 1024), 4 cells a thread
@@ -38,19 +39,19 @@ TILE_CELLS = 1024
 TILE_CHOICES = (256, 512, 1024)
 
 
-def bwd_tile(c: int) -> int:
-    """K5's cells per block: about BWD_TILE_BYTES of a [B, G, C] f32 grid
-    (128 cells at C = 32, 16 at C = 256)."""
-    return max(1, BWD_TILE_BYTES // (4 * c))
+def bwd_tile(c: int, itemsize: int = 4) -> int:
+    """K5's cells per block: about BWD_TILE_BYTES of a [B, G, C] grid of
+    `itemsize`-byte elements (f32: 128 cells at C = 32, 16 at C = 256; bf16
+    twice as many)."""
+    return max(1, BWD_TILE_BYTES // (itemsize * c))
 
 
-def refuse_bf16_cotangent(name: str, g: torch.Tensor) -> None:
-    """Raise ValueError for a bf16 cotangent: the backward kernels (K4, K5,
-    K7) have no bf16 variant yet, and none may run on an upcast copy."""
-    cuda_build.require(
-        g.dtype != torch.bfloat16, name,
-        "bf16 cotangent: the backward kernels run f32 only (bf16 training is "
-        "queue A 5b of ROADMAP.md)")
+def refuse_f16_cotangent(name: str, g: torch.Tensor) -> None:
+    """Raise ValueError for a float16 cotangent, on every device: the
+    backward kernels (K4, K5, K7) have an f32 and a bf16 variant, the model
+    no float16 path, and no cotangent may run on a converted copy."""
+    cuda_build.require(g.dtype != torch.float16, name,
+                       "float16 cotangent: the backward kernels run f32 or bf16")
 
 
 def dense_to_sparse_reference(
@@ -120,7 +121,8 @@ def dense_to_sparse_bwd_reference(dv: torch.Tensor, coords: torch.Tensor,
                                   vmask: torch.Tensor, grid_shape) -> torch.Tensor:
     """Plain version of K5: each valid slot's row of dv [B, cap, C] written
     back onto the grid cell coords [B, cap, 3] names, zeros elsewhere.
-    Returns [B, D0, D1, D2, C]."""
+    Returns [B, D0, D1, D2, C] of dv's type (a bf16 row is copied as it
+    is)."""
     b, cap, c = dv.shape
     d0, d1, d2 = (int(d) for d in grid_shape)
     lin = (coords[..., 0].long() * d1 + coords[..., 1]) * d2 + coords[..., 2]
@@ -133,8 +135,10 @@ def dense_to_sparse_bwd_reference(dv: torch.Tensor, coords: torch.Tensor,
 
 def dense_to_sparse_bwd_cuda(dv: torch.Tensor, coords: torch.Tensor,
                              vmask: torch.Tensor, grid_shape) -> torch.Tensor:
-    """K5: the grid gradient [B, D0, D1, D2, C] f32 of the compaction, from
-    the cotangent dv [B, cap, C] of vfeats and the forward's coords, vmask.
+    """K5: the grid gradient [B, D0, D1, D2, C] of the compaction, from the
+    cotangent dv [B, cap, C] of vfeats and the forward's coords, vmask. dv
+    is f32, or bf16 (the bf16 variant: a bf16 grid, the rows copied bit for
+    bit).
 
     Precondition, which K2 (dense_to_sparse_cuda) and the plain
     sparse_conv.dense_to_sparse guarantee: the valid slots (vmask > 0) of a
@@ -143,15 +147,16 @@ def dense_to_sparse_bwd_cuda(dv: torch.Tensor, coords: torch.Tensor,
     `bwd_tile(C)` cells of one sample, stores their zeros, finds its slots
     by a search of that prefix and copies their rows in. Bound: the bytes
     of the grid, nearly all zeros. Bit-equal to the plain version."""
-    global bwd_launches
+    global bwd_launches, bwd_launches_bf16
     name = "dense_to_sparse_bwd_cuda"
-    refuse_bf16_cotangent(name, dv)
+    refuse_f16_cotangent(name, dv)
     if dv.device.type == "cpu":
         return dense_to_sparse_bwd_reference(dv, coords, vmask, grid_shape)
     req = cuda_build.require
     req(dv.is_cuda, name, lambda: f"unsupported device {dv.device}")
-    req(dv.dtype == torch.float32 and dv.dim() == 3, name,
-        lambda: f"dv must be f32 [B, cap, C], got {dv.dtype} {tuple(dv.shape)}")
+    req(dv.dtype in (torch.float32, torch.bfloat16) and dv.dim() == 3, name,
+        lambda: f"dv must be f32 or bf16 [B, cap, C], got {dv.dtype} {tuple(dv.shape)}")
+    bf16 = dv.dtype == torch.bfloat16
     b, cap, c = dv.shape
     req(coords.dtype == torch.int32 and tuple(coords.shape) == (b, cap, 3),
         name, lambda: f"coords must be int32 [{b}, {cap}, 3]")
@@ -164,18 +169,22 @@ def dense_to_sparse_bwd_cuda(dv: torch.Tensor, coords: torch.Tensor,
     g = d0 * d1 * d2
     req(0 < cap <= g, name, lambda: f"capacity {cap} outside [1, {g}]")
     req(b <= 65535, name, lambda: f"batch {b} above 65535 (the kernel's grid y)")
-    dgrid = torch.empty((b, d0, d1, d2, c), dtype=torch.float32, device=dv.device)
+    dgrid = torch.empty((b, d0, d1, d2, c), dtype=dv.dtype, device=dv.device)
     cuda_build.launch(
-        "dclx_compact_bwd", name, dv.device,
+        "dclx_compact_bwd_bf16" if bf16 else "dclx_compact_bwd", name, dv.device,
         dv.data_ptr(), coords.data_ptr(), vmask.data_ptr(), dgrid.data_ptr(),
-        b, g, c, d1, d2, cap, bwd_tile(c))
-    bwd_launches += 1
+        b, g, c, d1, d2, cap, bwd_tile(c, dv.element_size()))
+    if bf16:
+        bwd_launches_bf16 += 1
+    else:
+        bwd_launches += 1
     return dgrid
 
 
 class DenseToSparse(torch.autograd.Function):
     """K2 forward, K5 backward. The backward reuses the forward's coords and
-    vmask (no second scan); only the features get a gradient."""
+    vmask (no second scan); only the features get a gradient, in their type
+    (the kernel makes it so: autograd would cast another type silently)."""
 
     @staticmethod
     def forward(ctx, feats, mask, capacity):

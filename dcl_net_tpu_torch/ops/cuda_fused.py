@@ -21,9 +21,10 @@ fallback.
 bf16 grids (model.compute_dtype: bfloat16) go through K2's and K6's bf16
 variants: K6 reads K2's bf16 rows, keeps the centers, distances, w and idx
 in f32 and rounds the weighted sum to bf16 once, torch.equal to K2 ->
-centers -> K3 in bf16. It has its own launch count, `launches_bf16`. K7
-has no bf16 variant (training in bf16 is queue A 5b of ROADMAP.md): its
-wrapper refuses a bf16 cotangent on every device.
+centers -> K3 in bf16. A bf16 cotangent goes through K7's bf16 variant:
+K4's f32 sums of the widened g, each rounded to bf16 once, then copied onto
+a bf16 grid, as pallas_fused's backward does. Each variant has its own
+launch count (`launches_bf16`, `bwd_launches_bf16`).
 """
 
 from __future__ import annotations
@@ -34,11 +35,12 @@ import torch
 
 from dcl_net_tpu_torch.ops import cuda_build, cuda_compact, cuda_interp
 
-# Launches of K6, of its bf16 variant and of K7 since the last reset (set to
-# 0 to reset).
+# Launches of K6, of K7 and of their bf16 variants since the last reset (set
+# to 0 to reset).
 launches = 0
 launches_bf16 = 0
 bwd_launches = 0
+bwd_launches_bf16 = 0
 
 # K7's blocks at least, where the grid has the cells for them: at the coarse
 # levels, where nearly every cell is a slot, a slot's serial sum and not the
@@ -46,11 +48,12 @@ bwd_launches = 0
 BWD_MIN_BLOCKS = 2048
 
 
-def bwd_tile(b: int, cells: int, c: int) -> int:
-    """K7's grid cells per block of a [b, cells, c] f32 grid: K5's tile
-    (cuda_compact.bwd_tile), or fewer, down to one, so that at least
-    BWD_MIN_BLOCKS blocks run (128 at [32, 32^3, 32]; 1 at [32, 4^3, 256])."""
-    return min(cuda_compact.bwd_tile(c), max(1, b * cells // BWD_MIN_BLOCKS))
+def bwd_tile(b: int, cells: int, c: int, itemsize: int = 4) -> int:
+    """K7's grid cells per block of a [b, cells, c] grid of `itemsize`-byte
+    elements: K5's tile (cuda_compact.bwd_tile), or fewer, down to one, so
+    that at least BWD_MIN_BLOCKS blocks run (f32: 128 at [32, 32^3, 32]; 1
+    at [32, 4^3, 256])."""
+    return min(cuda_compact.bwd_tile(c, itemsize), max(1, b * cells // BWD_MIN_BLOCKS))
 
 
 def compact_interpolate_reference(
@@ -136,7 +139,8 @@ def compact_interpolate_bwd_reference(g: torch.Tensor, w: torch.Tensor,
                                       idx: torch.Tensor, coords: torch.Tensor,
                                       vmask: torch.Tensor, grid_shape) -> torch.Tensor:
     """Plain version of K7: the plain K4 into [B, cap, C], then the plain
-    K5 onto the grid (invalid slots dropped). Returns [B, D0, D1, D2, C]."""
+    K5 onto the grid (invalid slots dropped). Returns [B, D0, D1, D2, C] of
+    g's type (bf16: K4's f32 sums rounded once, then copied)."""
     dv = cuda_interp.nn_interpolate_bwd_reference(g, w, idx, coords.shape[1])
     return cuda_compact.dense_to_sparse_bwd_reference(dv, coords, vmask, grid_shape)
 
@@ -144,9 +148,10 @@ def compact_interpolate_bwd_reference(g: torch.Tensor, w: torch.Tensor,
 def compact_interpolate_bwd_cuda(g: torch.Tensor, w: torch.Tensor,
                                  idx: torch.Tensor, coords: torch.Tensor,
                                  vmask: torch.Tensor, grid_shape) -> torch.Tensor:
-    """K7: the grid gradient [B, D0, D1, D2, C] f32 of the fused op, from
-    the output cotangent g [B, N, C], K6's w, idx [B, 3, N] and K2's coords
-    [B, cap, 3], vmask [B, cap].
+    """K7: the grid gradient [B, D0, D1, D2, C] of the fused op, of g's
+    type, from the output cotangent g [B, N, C] (f32, or bf16: the bf16
+    variant), K6's w, idx [B, 3, N] and K2's coords [B, cap, 3], vmask
+    [B, cap].
 
     Replaces pallas_fused._vjp_bwd. Precondition, as K5's (K2 and the plain
     sparse_conv.dense_to_sparse guarantee it): the valid slots of a sample
@@ -156,9 +161,9 @@ def compact_interpolate_bwd_cuda(g: torch.Tensor, w: torch.Tensor,
     cells of one sample: zeros, then each valid slot's ordered sum at its
     cell. Bound: the bytes of the grid, nearly all zeros. Bit-equal to the
     plain version on the CPU, and deterministic."""
-    global bwd_launches
+    global bwd_launches, bwd_launches_bf16
     name = "compact_interpolate_bwd_cuda"
-    cuda_compact.refuse_bf16_cotangent(name, g)
+    cuda_compact.refuse_f16_cotangent(name, g)
     if g.device.type == "cpu":
         return compact_interpolate_bwd_reference(g, w, idx, coords, vmask, grid_shape)
     b, n, c = cuda_interp.check_bwd_inputs(name, g, w, idx)
@@ -177,22 +182,26 @@ def compact_interpolate_bwd_cuda(g: torch.Tensor, w: torch.Tensor,
     cells = d0 * d1 * d2
     req(0 < cap <= cells, name, lambda: f"capacity {cap} outside [1, {cells}]")
     dev = g.device
-    dgrid = torch.empty((b, d0, d1, d2, c), dtype=torch.float32, device=dev)
+    bf16 = g.dtype == torch.bfloat16
+    dgrid = torch.empty((b, d0, d1, d2, c), dtype=g.dtype, device=dev)
     scratch = torch.empty(cuda_interp.index_scratch_words(b, n, cap), dtype=torch.int32,
                           device=dev)
     cuda_build.launch(
-        "dclx_compact_interp_bwd", name, dev,
+        "dclx_compact_interp_bwd_bf16" if bf16 else "dclx_compact_interp_bwd", name, dev,
         g.data_ptr(), w.data_ptr(), idx.data_ptr(), coords.data_ptr(), vmask.data_ptr(),
         dgrid.data_ptr(), scratch.data_ptr(),
-        b, n, cap, cells, c, d1, d2, bwd_tile(b, cells, c))
-    bwd_launches += 1
+        b, n, cap, cells, c, d1, d2, bwd_tile(b, cells, c, g.element_size()))
+    if bf16:
+        bwd_launches_bf16 += 1
+    else:
+        bwd_launches += 1
     return dgrid
 
 
 class CompactInterpolate(torch.autograd.Function):
     """K2 then K6 forward, K7 backward. Only the grid features get a
-    gradient: the mask is occupancy, the points are data, and the centers
-    come from integer voxel coordinates."""
+    gradient, in their type: the mask is occupancy, the points are data,
+    and the centers come from integer voxel coordinates."""
 
     @staticmethod
     def forward(ctx, feats, mask, points, capacity, unit_s, off_c):

@@ -16,9 +16,11 @@ the plain version's order (`inverse_index_reference`).
 bf16 features (model.compute_dtype: bfloat16) go through K3's bf16
 variant: points, centers, mask, distances, w and idx stay f32 (idx and w
 equal the f32 variant's), and the weighted sum is taken in f32 and rounded
-to bf16 once, as pallas_interp does. It has its own launch count,
-`launches_bf16`. K4 has no bf16 variant (training in bf16 is queue A 5b of
-ROADMAP.md): its wrapper refuses a bf16 cotangent on every device.
+to bf16 once, as pallas_interp does. A bf16 cotangent goes through K4's
+bf16 variant: g is widened to f32, summed in K4's order in f32, and each
+row of the bf16 gradient is rounded once, as pallas_interp's backward does.
+Each variant has its own launch count (`launches_bf16`,
+`bwd_launches_bf16`).
 """
 
 from __future__ import annotations
@@ -28,14 +30,15 @@ from typing import Optional, Tuple
 import torch
 
 from dcl_net_tpu_torch.ops import cuda_build
-from dcl_net_tpu_torch.ops.cuda_compact import refuse_bf16_cotangent
+from dcl_net_tpu_torch.ops.cuda_compact import refuse_f16_cotangent
 from dcl_net_tpu_torch.ops.knn import BIG, iterated_argmin
 
-# Launches of K3, of its bf16 variant, of K4 and of the inverse index alone
-# (inverse_index_cuda) since the last reset (set to 0 to reset).
+# Launches of K3, of K4, of their bf16 variants and of the inverse index
+# alone (inverse_index_cuda) since the last reset (set to 0 to reset).
 launches = 0
 launches_bf16 = 0
 bwd_launches = 0
+bwd_launches_bf16 = 0
 index_launches = 0
 
 # The block of K3 and K6: QUERIES queries, each scanned by SCAN_LANES lanes of
@@ -176,15 +179,18 @@ def nn_interpolate_bwd_reference(g: torch.Tensor, w: torch.Tensor,
                                  idx: torch.Tensor, v: int) -> torch.Tensor:
     """Plain version of K4: dfeats[b, idx[b,k,t], :] += w[b,k,t] * g[b,t,:].
 
-    g [B, N, C]; w, idx [B, 3, N] as K3 writes them. Returns [B, V, C]. On
-    the CPU, index_add_ adds each row's terms w * g (each rounded once) one
-    by one in ascending e = k * N + t from 0, the order K4 sums in."""
+    g [B, N, C]; w, idx [B, 3, N] as K3 writes them. Returns [B, V, C] of
+    g's type. On the CPU, index_add_ adds each row's terms w * g (each
+    rounded once) one by one in ascending e = k * N + t from 0, the order K4
+    sums in. A bf16 g is widened to f32 and the f32 sums are rounded to bf16
+    once."""
     b, n, c = g.shape
-    terms = w[..., None] * g[:, None, :, :]                     # [B, 3, N, C]
+    acc = torch.promote_types(g.dtype, torch.float32)
+    terms = w[..., None].to(acc) * g[:, None, :, :].to(acc)     # [B, 3, N, C]
     rows = (idx.long() + v * torch.arange(b, device=g.device)[:, None, None])
-    out = torch.zeros((b * v, c), dtype=g.dtype, device=g.device)
+    out = torch.zeros((b * v, c), dtype=acc, device=g.device)
     out.index_add_(0, rows.reshape(-1), terms.reshape(-1, c))
-    return out.reshape(b, v, c)
+    return out.reshape(b, v, c).to(g.dtype)
 
 
 def inverse_index_reference(idx: torch.Tensor, v: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -205,12 +211,13 @@ def inverse_index_reference(idx: torch.Tensor, v: int) -> Tuple[torch.Tensor, to
 def check_bwd_inputs(name: str, g: torch.Tensor, w: torch.Tensor,
                      idx: torch.Tensor) -> Tuple[int, int, int]:
     """Check the inputs that K4 and K7 share (the cotangent g [B, N, C] f32
-    and K3's or K6's w [B, 3, N] f32, idx [B, 3, N] int32, contiguous, on
-    one CUDA device); raise ValueError otherwise. Returns (B, N, C)."""
+    or bf16 and K3's or K6's w [B, 3, N] f32, idx [B, 3, N] int32,
+    contiguous, on one CUDA device); raise ValueError otherwise. Returns
+    (B, N, C)."""
     req = cuda_build.require
     req(g.is_cuda, name, lambda: f"unsupported device {g.device}")
-    req(g.dtype == torch.float32 and g.dim() == 3, name,
-        lambda: f"g must be f32 [B, N, C], got {g.dtype} {tuple(g.shape)}")
+    req(g.dtype in (torch.float32, torch.bfloat16) and g.dim() == 3, name,
+        lambda: f"g must be f32 or bf16 [B, N, C], got {g.dtype} {tuple(g.shape)}")
     b, n, c = g.shape
     req(w.dtype == torch.float32 and tuple(w.shape) == (b, 3, n), name,
         lambda: f"w must be f32 [{b}, 3, {n}]")
@@ -254,34 +261,42 @@ def inverse_index_cuda(idx: torch.Tensor, v: int) -> Tuple[torch.Tensor, torch.T
 
 def nn_interpolate_bwd_cuda(g: torch.Tensor, w: torch.Tensor,
                             idx: torch.Tensor, v: int) -> torch.Tensor:
-    """K4: the features' gradient of the 3-NN interpolation, [B, V, C] f32,
-    from the output cotangent g [B, N, C] and K3's w, idx [B, 3, N].
+    """K4: the features' gradient of the 3-NN interpolation, [B, V, C] of
+    g's type, from the output cotangent g [B, N, C] and K3's w, idx
+    [B, 3, N]. g is f32, or bf16 (the bf16 variant: f32 sums, each row
+    rounded to bf16 once).
 
     One kernel entry point: the inverse index into an int32 scratch, then
     blocks of `writer_rows(C)` rows sum each (row, channel)'s contributions
     in the plain version's order and write every row once (allocated
     empty). Bit-equal to the plain version on the CPU, and deterministic."""
-    global bwd_launches
+    global bwd_launches, bwd_launches_bf16
     name = "nn_interpolate_bwd_cuda"
-    refuse_bf16_cotangent(name, g)
+    refuse_f16_cotangent(name, g)
     if g.device.type == "cpu":
         return nn_interpolate_bwd_reference(g, w, idx, v)
     b, n, c = check_bwd_inputs(name, g, w, idx)
     cuda_build.require(v > 0, name, "no centers")
-    dfeats = torch.empty((b, v, c), dtype=torch.float32, device=g.device)
+    bf16 = g.dtype == torch.bfloat16
+    dfeats = torch.empty((b, v, c), dtype=g.dtype, device=g.device)
     scratch = torch.empty(index_scratch_words(b, n, v), dtype=torch.int32, device=g.device)
     cuda_build.launch(
-        "dclx_interp_bwd", name, g.device,
+        "dclx_interp_bwd_bf16" if bf16 else "dclx_interp_bwd", name, g.device,
         g.data_ptr(), w.data_ptr(), idx.data_ptr(), dfeats.data_ptr(), scratch.data_ptr(),
         b, n, v, c, writer_rows(c))
-    bwd_launches += 1
+    if bf16:
+        bwd_launches_bf16 += 1
+    else:
+        bwd_launches += 1
     return dfeats
 
 
 class NNInterpolate(torch.autograd.Function):
     """K3 forward, K4 backward. Points, centers and mask get no gradient
     (None), as in dcl_net_tpu/ops/pallas_interp.py::_vjp_bwd: the points are
-    data and the centers come from integer voxel coordinates."""
+    data and the centers come from integer voxel coordinates. The features'
+    gradient has their type, as the kernel makes it (the cotangent has the
+    output's type, which is the features')."""
 
     @staticmethod
     def forward(ctx, points, centers, feats, mask, n_valid):

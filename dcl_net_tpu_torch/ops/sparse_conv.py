@@ -45,7 +45,10 @@ def window_sum(x: torch.Tensor, kernel: int, stride: int, padding: int,
     and rounds to bf16, so the result is rounded three times. On the card
     each pass is avg_pool3d on the bf16 buffer, which sums in f32 and
     rounds its output to bf16; torch has no BFloat16 avg_pool3d on the CPU,
-    so there each pass sums in f32 and is rounded to bf16 after it."""
+    so there each pass sums in f32 and is rounded to bf16 after it. Autograd
+    differentiates the three passes, each backward pass rounded to bf16,
+    which is where XLA rounds the transposes of its three bf16 convolutions
+    (bit-equal to the JAX pool's gradient on the CPU)."""
     b, d0, d1, d2, c = x.shape
     p = padding
     xp = x.new_zeros((b, c, d0 + 2 * p, d1 + 2 * p, d2 + 2 * p))

@@ -64,9 +64,10 @@ def build_model(cfg: Config, device=None, seed: int = 0):
     two-stage path (kernels K2-K5), "pallas_fused" the fused one (K2, K6,
     K7). cfg.model.compute_dtype "float32" (the default) or "bfloat16"
     picks the feature compute type; a bf16 model evaluates through the bf16
-    variants of K1, K2, K3 and K6 and refuses to train (queue A 5b). The
-    model keys the port does not run yet raise: remat and interp_mode
-    "local"."""
+    variants of K1, K2, K3 and K6 and trains through those of K4, K5 and
+    K7, its parameters kept in f32 (so a checkpoint of either type loads
+    into either). The model keys the port does not run yet raise: remat and
+    interp_mode "local"."""
     from dcl_net_tpu_torch.models.dcl_net import DCLNet
 
     m = cfg.model

@@ -27,19 +27,6 @@ from dcl_net_tpu_torch.config import Config
 from dcl_net_tpu_torch.data.schema import batch_to_torch
 
 
-def refuse_bf16_training(*models: torch.nn.Module) -> None:
-    """Raise NotImplementedError for a model with a bf16 compute type
-    (model.compute_dtype: bfloat16): the port trains in f32 only, and a bf16
-    model must not train quietly in f32. bf16 training (the bf16 backward
-    kernels, the masked BN's bf16 train path) is queue A 5b of ROADMAP.md."""
-    for m in models:
-        dtype = getattr(m, "dtype", None)
-        if dtype is not None:
-            raise NotImplementedError(
-                f"training with model.compute_dtype {str(dtype).replace('torch.', '')}: "
-                "the port trains in f32 only (bf16 training is queue A 5b of ROADMAP.md)")
-
-
 # ---------------------------------------------------------------------------
 # AutoClip
 # ---------------------------------------------------------------------------
@@ -268,10 +255,11 @@ def make_train_step(model: torch.nn.Module, opt: Optimizer, loss_fn: Callable,
     each stage has been queued (scripts/profile_torch_train.py records a
     CUDA event there); None costs nothing.
 
-    Turns TF32 off (strict_f32): the step runs in f32. A bf16 model raises
-    (refuse_bf16_training).
+    Turns TF32 off (strict_f32). A bf16 model (model.compute_dtype:
+    bfloat16) computes its forward and backward in bf16 as the JAX package
+    does; its parameters, their gradients, the optimizer state and the BN
+    running statistics stay f32.
     """
-    refuse_bf16_training(model)
     strict_f32()
     params = [p for p in model.parameters() if p.requires_grad]
     stats = bn_statistics(model)
@@ -333,8 +321,7 @@ class Solver:
         `model` and loss_fn None.
 
         Turns TF32 off (strict_f32) and cuDNN's algorithm autotuning on
-        (autotune_convs). A bf16 model raises in the step's builder
-        (refuse_bf16_training)."""
+        (autotune_convs)."""
         strict_f32()
         autotune_convs()
         self.device = resolve_device(device)

@@ -9,6 +9,11 @@ the reference's .detach() do, so the summed loss has the reference's
 accumulated gradient. The optimizer is the Solver's (AutoClip, Adam, the
 schedule) over the refiner's parameters, with the non-finite skip on the
 device (solver.apply_gradients).
+
+The stage-1 model may run in bf16 (model.compute_dtype: bfloat16), the JAX
+package's production setting: its pose is taken to f32 before the first
+composition, and every composition runs in f32. The refiner trains in f32,
+as the JAX tool builds it.
 """
 
 from __future__ import annotations
@@ -19,9 +24,19 @@ import torch
 
 from dcl_net_tpu_torch import strict_f32
 from dcl_net_tpu_torch.models.refiner import compose_pose, refiner_inputs, refiner_losses
-from dcl_net_tpu_torch.train.solver import (
-    Optimizer, TrainState, apply_gradients, refuse_bf16_training,
-)
+from dcl_net_tpu_torch.train.solver import Optimizer, TrainState, apply_gradients
+
+
+def refuse_bf16_refiner(refiner: torch.nn.Module) -> None:
+    """Raise NotImplementedError for a refiner that computes in another type
+    than f32 (a `dtype` set, or parameters of another type): the refiner
+    trains in f32, and must not train quietly in a converted copy."""
+    dtype = getattr(refiner, "dtype", None)
+    other = {p.dtype for p in refiner.parameters()} - {torch.float32}
+    if dtype is not None or other:
+        raise NotImplementedError(
+            f"training a refiner in {dtype or sorted(map(str, other))}: the "
+            "refiner trains in f32 (a bf16 stage-1 model is taken)")
 
 
 def make_stage2_train_step(main_model: torch.nn.Module, refiner: torch.nn.Module,
@@ -34,8 +49,9 @@ def make_stage2_train_step(main_model: torch.nn.Module, refiner: torch.nn.Module
     state.opt_state in place and returns 0-d device tensors: loss_all (the
     sum over iterations), loss_last_iter, grad_norm, overflow_frac (of the
     stage-1 forward) and skipped_nonfinite. Turns TF32 off (strict_f32).
-    A bf16 stage 1 or refiner raises (refuse_bf16_training)."""
-    refuse_bf16_training(main_model, refiner)
+    main_model may be bf16; a refiner in another type than f32 raises
+    (refuse_bf16_refiner)."""
+    refuse_bf16_refiner(refiner)
     strict_f32()
     params = [p for p in refiner.parameters() if p.requires_grad]
 

@@ -1,7 +1,9 @@
 """The plain versions of the bf16 kernels (K1, K2, K3, K6 with
 model.compute_dtype: bfloat16) against the JAX package's Pallas functions
 in bf16, run as the JAX tests run them on the CPU (interpret mode), and the
-guards that keep bf16 out of the backward kernels and out of training.
+dtype guards: the backward kernels take a bf16 cotangent and refuse a
+float16 one, a bf16 model trains with f32 parameters, and a refiner trains
+in f32 only.
 
 The JAX bf16 kernels cast their blocks to f32 and their outputs to bf16;
 the port's plain versions take the same rounding points, so the outputs
@@ -21,13 +23,16 @@ from dcl_net_tpu.ops.pallas_compact import (
     capacity_overflow, compact_raw, pallas_dense_to_sparse,
 )
 from dcl_net_tpu.ops.pallas_voxelize import pallas_voxelize
-from dcl_net_tpu_torch.models.dcl_net import DCLNet
+from dcl_net_tpu_torch.config import Config
+from dcl_net_tpu_torch.data.schema import batch_to_torch, make_batch
+from dcl_net_tpu_torch.data.synthetic import SyntheticPoseDataset
+from dcl_net_tpu_torch.models.dcl_net import DCLNet, dcl_losses
 from dcl_net_tpu_torch.models.refiner import Refiner
 from dcl_net_tpu_torch.ops import cuda_compact, cuda_fused, cuda_interp, cuda_voxelize
 from dcl_net_tpu_torch.ops import knn as tknn
 from dcl_net_tpu_torch.ops import sparse_conv as tsc
 from dcl_net_tpu_torch.ops.sparse_conv import voxel_center_affine
-from dcl_net_tpu_torch.train.solver import make_train_step, refuse_bf16_training
+from dcl_net_tpu_torch.train.solver import TrainState, build_optimizer, make_train_step
 from dcl_net_tpu_torch.train.stage2 import make_stage2_train_step
 from tests.test_torch_train_ops import _occupied_grid
 
@@ -221,42 +226,68 @@ def test_bf16_exact_interp_is_the_f32_interp_rounded_once():
     assert got.dtype == BF16 and torch.equal(got, want.to(BF16))
 
 
-def test_backward_kernels_refuse_bf16_cotangents():
-    """K4, K5 and K7 have no bf16 variant: a bf16 cotangent is refused on
-    every device, and never runs upcast."""
+def test_backward_kernels_take_bf16_cotangents_and_refuse_float16():
+    """K4, K5 and K7 take a bf16 cotangent (their plain versions here, their
+    bf16 variants on the card) and give a bf16 gradient; a float16 one is
+    refused on every device, and never runs converted."""
     rng = np.random.RandomState(0)
     b, n, v, c = 2, 16, 8, 4
-    g = torch.zeros((b, n, c), dtype=BF16)
+    g = torch.randn((b, n, c)).to(BF16)
     w = torch.full((b, 3, n), 1 / 3)
     idx = torch.from_numpy(rng.randint(0, v, (b, 3, n)).astype(np.int32))
     coords = torch.zeros((b, v, 3), dtype=torch.int32)
-    vmask = torch.zeros((b, v))
-    with pytest.raises(ValueError, match="A 5b"):
-        cuda_interp.nn_interpolate_bwd_cuda(g, w, idx, v)
-    with pytest.raises(ValueError, match="A 5b"):
-        cuda_compact.dense_to_sparse_bwd_cuda(torch.zeros((b, v, c), dtype=BF16), coords,
-                                              vmask, (4, 4, 4))
-    with pytest.raises(ValueError, match="A 5b"):
-        cuda_fused.compact_interpolate_bwd_cuda(g, w, idx, coords, vmask, (4, 4, 4))
-    # a gradient through the bf16 forward reaches the same refusal
+    coords[:, :, 2] = torch.arange(v)
+    vmask = torch.ones((b, v))
+    dv = torch.randn((b, v, c)).to(BF16)
+    calls = (lambda t: cuda_interp.nn_interpolate_bwd_cuda(t, w, idx, v),
+             lambda t: cuda_compact.dense_to_sparse_bwd_cuda(t[:, :v], coords, vmask,
+                                                             (1, 1, v)),
+             lambda t: cuda_fused.compact_interpolate_bwd_cuda(t, w, idx, coords, vmask,
+                                                               (1, 1, v)))
+    for call, cot in zip(calls, (g, dv, g)):
+        assert call(cot).dtype == BF16
+        for dev in ("cpu", "meta"):
+            with pytest.raises(ValueError, match="float16 cotangent"):
+                call(cot.to(device=dev, dtype=torch.float16))
+    # a gradient through the bf16 forward comes back bf16
     feats = torch.randn((b, v, c)).to(BF16).requires_grad_()
     out = cuda_interp.nn_interpolate(torch.randn(b, n, 3), torch.randn(b, v, 3), feats,
                                      torch.ones(b, v))
-    with pytest.raises(ValueError, match="A 5b"):
-        out.float().sum().backward()
+    out.float().sum().backward()
+    assert feats.grad.dtype == BF16 and bool(torch.isfinite(feats.grad.float()).all())
+    assert (cuda_interp.bwd_launches_bf16 == cuda_compact.bwd_launches_bf16
+            == cuda_fused.bwd_launches_bf16 == 0)
 
 
-def test_bf16_model_refuses_to_train():
-    model = DCLNet(unit_voxel_extent=(0.024,) * 3, voxel_num_limit=(D,) * 3,
-                   capacities=(256, 64, 16, 8), device="cpu", dtype=BF16)
-    assert not model.training
-    refiner = Refiner(n_inp=128, device="cpu")
-    for call in (model.train, lambda: refuse_bf16_training(model),
-                 lambda: make_train_step(model, None, None),
-                 lambda: make_stage2_train_step(model, refiner, None, 2, None)):
-        with pytest.raises(NotImplementedError, match="f32 only.*A 5b"):
-            call()
-    # its parameters stay f32: bf16 is the compute type only
+def test_bf16_model_trains_with_f32_parameters():
+    """A bf16 model takes train mode and a step of make_train_step, whose
+    gradients, optimizer state and BN statistics stay f32; a bf16 stage 1
+    goes into make_stage2_train_step, but a refiner in bf16 does not, and a
+    float16 model cannot be built."""
+    kw = dict(unit_voxel_extent=(0.024,) * 3, voxel_num_limit=(D,) * 3)
+    model = DCLNet(capacities=(256, 64, 16, 8), device="cpu", dtype=BF16, **kw)
+    assert model.train() is model and model.training
+    ds = SyntheticPoseDataset(n_objects=2, n_points=128, seed=0, **kw)
+    batch = batch_to_torch(make_batch([ds[0], ds[1]]).to_dict(), "cpu")
+    opt, _ = build_optimizer(Config({"optimizer": {"type": "Adam", "lr": 1e-3}}), 1)
+    step = make_train_step(model, opt, dcl_losses)
+    state = TrainState(opt.init(sum(p.numel() for p in model.parameters())))
+    before = [p.detach().clone() for p in model.parameters()]
+    stats_before = [t.clone() for n, t in model.named_buffers() if "running" in n]
+    metrics = step(state, batch)
+    assert float(metrics["skipped_nonfinite"]) == 0.0
+    assert np.isfinite(float(metrics["loss_all"])) and float(metrics["grad_norm"]) > 0
+    assert all(not torch.equal(a, p) for a, p in zip(before, model.parameters()))
+    stats = [t for n, t in model.named_buffers() if "running" in n]
+    assert all(not torch.equal(a, t) for a, t in zip(stats_before, stats))
+    # bf16 is the compute type only: parameters, statistics, Adam state f32
     assert {p.dtype for p in model.parameters()} == {torch.float32}
+    assert {t.dtype for t in stats} == {torch.float32}
+    assert {v.dtype for v in state.opt_state.values() if v.is_floating_point()} == {
+        torch.float32}
+    refiner = Refiner(n_inp=128, device="cpu")
+    make_stage2_train_step(model, refiner, opt, 2, torch.zeros(2, 32, 3))
+    with pytest.raises(NotImplementedError, match="refiner trains in f32"):
+        make_stage2_train_step(model, refiner.to(BF16), opt, 2, torch.zeros(2, 32, 3))
     with pytest.raises(ValueError, match="bfloat16"):
         DCLNet(device="cpu", dtype=torch.float16)

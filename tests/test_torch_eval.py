@@ -135,3 +135,36 @@ def test_data_copies_match_jax():
     for k in ("valid", "pad", "sym_flag"):
         np.testing.assert_array_equal(got[k], want[k])
     np.testing.assert_array_equal(got["inp"]["feats"], want["inp"]["feats"])
+
+
+def test_update_variables_refreshes_template_cache():
+    """update_variables re-encodes the per-class template cache from the new
+    weights: the results after it equal a fresh Evaluator's with those
+    weights (a stale cache would fuse new observed features with old
+    templates), whether the weights come as a state dict or were changed in
+    place, as a train step between evaluations changes them."""
+    ds = SyntheticPoseDataset(**DS_KW)
+    bank = ds.template_bank()
+    model_points = np.stack([ds.model_points(c, 64) for c in range(N_CLASSES)])
+    batch = batch_to_torch(_batches(ds)[0], "cpu")
+    a, b = DCLNet(device="cpu", seed=0, **KW), DCLNet(device="cpu", seed=1, **KW)
+    ev = Evaluator(a, model_points, template_bank=bank, device="cpu")
+    res_a = ev._run(batch)["adds"]
+    ev.update_variables(b.state_dict())
+    res_b = ev._run(batch)["adds"]
+    fresh = Evaluator(DCLNet(device="cpu", seed=1, **KW), model_points, template_bank=bank,
+                      device="cpu")
+    res_fresh = fresh._run(batch)["adds"]
+    assert torch.equal(res_b, res_fresh)
+    assert not torch.allclose(res_a, res_fresh)  # the weights do differ
+    # in place: the evaluated model (a, now holding b's weights) takes its
+    # first weights back, as a train step would change them, and leaves eval
+    # mode
+    assert ev.model is a
+    with torch.no_grad():
+        for p, q in zip(a.parameters(), DCLNet(device="cpu", seed=0, **KW).parameters()):
+            p.copy_(q)
+    ev.model.train()
+    assert not torch.equal(ev._run(batch)["adds"], res_a)  # the stale cache shows
+    ev.update_variables()
+    assert torch.equal(ev._run(batch)["adds"], res_a)

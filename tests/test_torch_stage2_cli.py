@@ -1,7 +1,7 @@
 """The port's stage-2 training CLI on the CPU at tiny shapes: from a stage-1
 checkpoint of the port it trains the refiner, writes its run directory with
-the per_val probe score, resumes from it, and refuses what it does not run
-yet."""
+the per_val probe score, resumes from it, also on a bf16 stage 1, and
+refuses what it does not run yet."""
 
 import json
 import os
@@ -107,3 +107,23 @@ def test_train_stage2_reads_a_reference_pth(tmp_path, stage1_checkpoint):
         _run(log_root, ckpt, "model.interp_mode=pallas_fused")
         losses.append([r["loss_all"] for r in _records(os.path.join(log_root, EXP), "train")])
     assert len(losses[0]) == 2 and losses[1] == losses[0]
+
+
+def test_train_stage2_on_a_bf16_stage1(tmp_path, stage1_checkpoint):
+    """--override model.compute_dtype=bfloat16: stage 1 runs frozen in bf16
+    (its f32 checkpoint loads into it), the refiner trains in f32, and the
+    steps and the probe score are finite."""
+    log_root = str(tmp_path / "log")
+    _run(log_root, stage1_checkpoint, "model.interp_mode=pallas_fused",
+         "model.compute_dtype=bfloat16")
+    exp_dir = os.path.join(log_root, EXP)
+    train = _records(exp_dir, "train")
+    assert len(train) == 2
+    for rec in train:
+        for key in ("loss_all", "loss_last_iter", "grad_norm"):
+            assert np.isfinite(rec[key]), key
+        assert rec["skipped_nonfinite"] == 0.0
+    (ev,) = _records(exp_dir, "eval")
+    assert np.isfinite(ev["refined_adds_mean"])
+    state = torch.load(os.path.join(exp_dir, "epoch_1", "state.pt"), weights_only=True)
+    assert {t.dtype for t in state["model"].values()} == {torch.float32}

@@ -122,6 +122,39 @@ def test_imread_raises_on_what_it_cannot_read(tmp_path):
         png.imread(path)
 
 
+def _png(width, height, idat: bytes) -> bytes:
+    """An 8-bit grayscale PNG of the given size whose one IDAT chunk holds
+    `idat` (a zlib stream), chunk CRCs included."""
+    import struct
+    import zlib
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    ihdr = struct.pack(">IIBBBBB", width, height, 8, 0, 0, 0, 0)
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr) + chunk(b"IDAT", idat)
+            + chunk(b"IEND", b""))
+
+
+def test_imread_raises_on_an_idat_stream_that_inflates_short(tmp_path):
+    """A complete zlib stream that holds fewer rows than the header gives
+    must not decode: its missing rows would be stale bytes. The same
+    stream with every row decodes."""
+    import zlib
+
+    width, height = 16, 12
+    rows = np.random.RandomState(2).randint(0, 256, (height, width)).astype(np.uint8)
+    raw = np.concatenate([np.zeros((height, 1), np.uint8), rows], axis=1)  # filter 0
+    good = tmp_path / "good.png"
+    good.write_bytes(_png(width, height, zlib.compress(raw.tobytes())))
+    np.testing.assert_array_equal(png.imread(str(good)), rows)
+    short = tmp_path / "short.png"
+    short.write_bytes(_png(width, height, zlib.compress(raw[: height // 2].tobytes())))
+    with pytest.raises(ValueError, match="decode failed"):
+        png.imread(str(short))
+
+
 @pytest.mark.parametrize("cxx, match", [("no-such-compiler-dclx", "needs a C\\+\\+ compiler"),
                                         ("false", "failed")])
 def test_host_library_build_raises_without_a_working_compiler(tmp_path, cxx, match):
