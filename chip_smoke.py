@@ -87,6 +87,10 @@ Phases, any failure exits non-zero:
     (instances/s end to end and of the evaluate loop, the loader's and
     reader's share, peak device memory), then two-stage and fused on the
     same inputs (poses per instance within POSE_ATOL), then at batch 32;
+    on the device preprocessing path (--override
+    hyper_dataset_test.device_preprocess=True: raw candidates, the numpy
+    tail on the card) at 512 with the config's loader threads: instances/s,
+    the wait on the loader beside the numpy path's, n_overflow;
     then in bf16 (--override model.compute_dtype=bfloat16) at 512: rate,
     the model's seconds, peak memory, n_overflow; then
     tools/test_ycbv_stage2.main with a refiner checkpoint. Each run's
@@ -126,7 +130,27 @@ Phases, any failure exits non-zero:
     plain versions with K4's, K5's and K7's run on CPU copies, and within
     BF16_TRAIN_GRAD_REL_L2 of the plain versions run on the card; then
     BF16_STAGE2_TRAIN_STEPS refiner steps on the frozen fused bf16 stage 1;
-13. prints the per-kernel JSON line (the f32 kernels and the bf16
+13. the throughput training path: (a) one train-mode forward and
+    backward at batch 32 without and with model.remat (losses and BN
+    running statistics torch.equal, gradient within TRAIN_GRAD_REL_L2,
+    the same launches, peak memory of each); (e) preprocess_core on the
+    card against its CPU run on a raw batch of 128 x 8192 candidates from
+    a YCB-V tree, the draws injected (PREPROCESS_ATOL; voxel ids within one
+    on voxel boundaries, equal elsewhere), and DevicePreprocessor's time a
+    batch; (b) configs/config_YCBV_bs128_throughput.yaml as written through
+    tools/train_stage1.main on that tree (device preprocessing, 2 draws a
+    frame, 10 process workers, the template bank; a train list of 256
+    frames: a warm-up and THROUGHPUT_TIMED_STEPS timed steps), then the
+    same config on the numpy path (device_preprocess False,
+    samples_per_frame 1, thread workers; 512 frames); (c)
+    configs/config_YCBV_bs256_peak.yaml with PEAK_OVERRIDES (768 frames: a
+    warm-up and PEAK_TIMED_STEPS timed steps). Each training run: finite
+    losses, no skipped step, the launches of the two-stage path, and
+    samples/s, T_step, the wait on the loader, the device idle share
+    (torch.profiler, kernels only) and peak memory; then no process this
+    script started may still run (the process workers' forkserver and
+    multiprocessing's resource tracker are stopped and waited for);
+14. prints the per-kernel JSON line (the f32 kernels and the bf16
     variants), then the result line {"ok": true, "device": {...}} last.
 """
 
@@ -212,6 +236,40 @@ class SmokeFailure(RuntimeError):
 def check(cond, msg: str) -> None:
     if not cond:
         raise SmokeFailure(msg)
+
+
+def child_processes() -> list:
+    """(pid, command line) of every live process whose parent is this one."""
+    import os
+
+    me, out = os.getpid(), []
+    for d in Path("/proc").iterdir():
+        if not d.name.isdigit():
+            continue
+        try:
+            stat = (d / "stat").read_text()
+            cmd = (d / "cmdline").read_bytes().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:  # it has exited meanwhile
+            continue
+        if int(stat.rsplit(")", 1)[1].split()[1]) == me:
+            out.append((int(d.name), cmd.strip()[:120]))
+    return out
+
+
+def stop_child_processes() -> None:
+    """Stop what the process workers leave behind and fail if any process
+    this script started is still alive. The loaders stop the forkserver
+    when their last pool closes; multiprocessing's resource tracker would
+    exit only after this process has, so it is stopped here, once the
+    pools' semaphores are collected (their finalizers would start it again)."""
+    import gc
+    from multiprocessing import resource_tracker
+
+    gc.collect()
+    resource_tracker._resource_tracker._stop()
+    left = child_processes()
+    check(not left, f"processes this script started are still running: {left}")
+    print("child processes: none left running", flush=True)
 
 
 def cuda_ms(fn, reps: int = 15, warmup: int = 3) -> float:
@@ -1632,13 +1690,16 @@ def ycbv_cli_phase(card: str, model, n_points: int, entries: dict) -> None:
                                        TrainState(opt_state={}), 1)
         runs = itertools.count()
 
-        def cli(tool, config, bs, workers=None, mode=None, extra=(), bf16=False):
+        def cli(tool, config, bs, workers=None, mode=None, extra=(), bf16=False,
+                device_path=False):
             """One CLI run at eval batch bs, with `workers` loader threads
             (default: the config's) and model.interp_mode `mode` (default:
-            the config's), in bf16 where asked (BF16_CLI); returns (result,
+            the config's), in bf16 where asked (BF16_CLI), on the device
+            preprocessing path where asked (DEVICE_PATH); returns (result,
             seconds of main, launch counts)."""
             log_root = tmp / f"log{next(runs)}"
-            over = [f"hyper_dataloader_test.bs={bs}"] + ([BF16_CLI] if bf16 else [])
+            over = [f"hyper_dataloader_test.bs={bs}"] + ([BF16_CLI] if bf16 else []) + (
+                [DEVICE_PATH] if device_path else [])
             if mode is not None:
                 over.append(f"model.interp_mode={mode}")
             if workers is not None:
@@ -1706,6 +1767,26 @@ def ycbv_cli_phase(card: str, model, n_points: int, entries: dict) -> None:
               f"({probe.t_read / probe.frames * 1e3:.1f} ms a frame); peak device memory "
               f"{peak / 2 ** 30:.2f} GiB ({(peak - base) / 2 ** 30:.2f} GiB above the "
               f"{base / 2 ** 30:.2f} GiB held before the run)", flush=True)
+        t_wait = probe.t_evaluate - probe.t_run
+
+        # the device preprocessing path (raw candidates, the numpy tail on the
+        # card), the config's loader threads, beside the run above
+        torch.cuda.reset_peak_memory_stats()
+        res_d, t_d, counts_d = cli(test_ycbv_stage1, "config_YCBV_bs32.yaml", bs, extra=stage1,
+                                   device_path=True)
+        peak_d = torch.cuda.max_memory_allocated()
+        print(f"stage-1 CLI on the device preprocessing path ({DEVICE_PATH}) at batch {bs} on "
+              f"{card}: main {t_d:.3f} s = {rows / t_d:.1f} instances/s end to end (numpy "
+              f"path above: {rows / t_main:.1f}); evaluate loop {probe.t_evaluate:.3f} s = "
+              f"{rows / probe.t_evaluate:.1f} instances/s, of which {probe.t_run:.3f} s in the "
+              f"model and ADD-S and {probe.t_evaluate - probe.t_run:.3f} s waiting on the loader "
+              f"(numpy path above: {t_wait:.3f} s); reader {probe.t_read:.3f} s over "
+              f"{probe.frames} frames ({probe.t_read / probe.frames * 1e3:.1f} ms a frame); "
+              f"peak device memory {peak_d / 2 ** 30:.2f} GiB; auc_mean {res_d['auc_mean']} "
+              f"n_scored {res_d['n_scored']} n_lost {res_d['n_lost']} n_overflow "
+              f"{res_d['n_overflow']}; launches {counts_d}", flush=True)
+        for key in ("voxelize", "compact", "interp"):
+            entries[key]["ycbv_cli_device_path_launches"] = counts_d[key]
 
         # the two paths on the same inputs: one loader thread, same seed
         poses, aucs = {}, {}
@@ -2051,6 +2132,342 @@ def lm_phase(card: str, entries: dict) -> None:
               f"{[round(r['T_step'], 4) for r in records]} s; peak memory {peak:.2f} GiB; "
               f"launches {counts}", flush=True)
     print(f"LineMOD phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+# ---- phase 13: the throughput training path ------------------------------------
+THROUGHPUT_TIMED_STEPS = 3  # bs128 (device path and host path), after one warm-up step
+PEAK_TIMED_STEPS = 2        # bs256 with remat, after one warm-up step
+# bs256 in f32 with remat: a peak of 58.84 GiB on an 80 GB card (PERF.md,
+# section 6)
+PEAK_OVERRIDES = ["model.remat=true"]
+DEVICE_PATH = "hyper_dataset_test.device_preprocess=True"
+# preprocess_core on the card against its CPU run, the same draws: the
+# einsums and sums in another order (tests/test_torch_device_preprocess.py)
+PREPROCESS_ATOL = 3e-5
+
+
+def busy_us(prof) -> float:
+    """The union of the device kernels' intervals of a profile, in us."""
+    import torch
+
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    return busy + (cur_e - cur_s if cur_e is not None else 0.0)
+
+
+@contextmanager
+def timed_steps(warmup: int):
+    """Around one tools/train_stage1.main run: the host time from the start
+    of the first step after `warmup` steps to the exit (after a
+    synchronise), and the device's busy time in it from torch.profiler
+    (kernels only). Yields a dict filled at the exit: seconds, busy_s,
+    steps (train_step calls)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from dcl_net_tpu_torch.train import solver as solver_mod
+
+    out = {"steps": 0}
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    make = solver_mod.make_train_step
+
+    def wrapped_make(*a, **kw):
+        step = make(*a, **kw)
+
+        def counted(state, batch):
+            if out["steps"] == warmup:
+                prof.__enter__()
+                out["t0"] = time.perf_counter()
+            out["steps"] += 1
+            return step(state, batch)
+
+        return counted
+
+    solver_mod.make_train_step = wrapped_make
+    try:
+        yield out
+    except BaseException:
+        if "t0" in out:
+            prof.__exit__(None, None, None)
+        raise
+    finally:
+        solver_mod.make_train_step = make
+    torch.cuda.synchronize()
+    out["seconds"] = time.perf_counter() - out["t0"]
+    prof.__exit__(None, None, None)
+    out["busy_s"] = busy_us(prof) / 1e6
+
+
+def train_cli_run(tree: dict, tmp: Path, name: str, config: str, frames: int,
+                  steps: int, overrides=()):
+    """tools/train_stage1.main with `config` on the YCB-V tree, its train
+    list `frames` entries long (the tree's frames cycled: each is decoded),
+    one epoch of `steps` steps, the first a warm-up; checks finite losses,
+    no skipped step, the launches of the two-stage path (K1 2, K2-K5 8 a
+    step, in the model's dtype) and returns (figures, launch counts)."""
+    import numpy as np
+    import torch
+
+    from dcl_net_tpu_torch.config import Config
+    from dcl_net_tpu_torch.tools import train_stage1
+
+    cfg = Config.fromfile(str(ROOT / "configs" / config)).apply_overrides(list(overrides))
+    bs = int(cfg.hyper_dataloader_train.bs)
+    spf = int(cfg.hyper_dataset_train.get("samples_per_frame", 1)) \
+        if cfg.hyper_dataset_train.get("device_preprocess", False) else 1
+    check(frames == steps * bs // spf, f"{name}: {frames} frames for {steps} steps")
+    listed = (tree["frame_names"] * (frames // len(tree["frame_names"]) + 1))[:frames]
+    Path(tree["assets"], "train_data_list.txt").write_text("\n".join(listed) + "\n")
+    log_root = tmp / f"train_{name}"
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    with timed_steps(warmup=1) as timed:
+        train_stage1.main(["--config", str(ROOT / "configs" / config), "--path_data",
+                           tree["path_data"], "--log_root", str(log_root), "--override",
+                           "max_epoch=1", "per_write=1", "per_save=0", *overrides])
+    t_main = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    counts = read_counts()
+    (exp_dir,) = log_root.glob("*")
+    records = [json.loads(line) for line in
+               (exp_dir / "scalars.jsonl").read_text().strip().splitlines()]
+    check(len(records) == steps == timed["steps"], f"{name}: {len(records)} step records")
+    for rec in records:
+        for key in ("loss_all", "loss_pose", "loss_Xo", "loss_Yc", "loss_conf", "grad_norm"):
+            check(bool(np.isfinite(rec[key])), f"{name}: {key} not finite: {rec[key]}")
+        check(rec["skipped_nonfinite"] == 0.0, f"{name}: a step was skipped")
+    per_step = TWO_STAGE_TRAIN if cfg.model.get("compute_dtype") != "bfloat16" \
+        else TWO_STAGE_TRAIN_BF16
+    expect_counts(counts, per_step, steps, name)
+    timed_recs = records[1:]
+    fig = {"rate": (steps - 1) * bs / timed["seconds"],
+           "t_step": float(np.mean([r["T_step"] for r in timed_recs])),
+           "t_data": float(np.sum([r["T_data"] for r in timed_recs])),
+           "seconds": timed["seconds"], "idle": 1.0 - timed["busy_s"] / timed["seconds"],
+           "peak_gib": peak, "warmup_s": timed["t0"] - t0,
+           "first_batch_s": records[0]["T_data"],
+           "main_s": t_main, "losses": [round(r["loss_all"], 5) for r in records]}
+    return fig, counts
+
+
+def print_train_run(name: str, card: str, bs: int, steps: int, fig: dict) -> None:
+    print(f"{name} on {card}: {steps - 1} timed steps of batch {bs} in {fig['seconds']:.3f} s "
+          f"= {fig['rate']:.2f} samples/s; T_step mean {fig['t_step']:.4f} s; waiting on "
+          f"the loader {fig['t_data']:.3f} s of the {steps - 1} steps; device idle share "
+          f"{100 * fig['idle']:.1f} % (torch.profiler, kernels only); peak device memory "
+          f"{fig['peak_gib']:.2f} GiB; set-up and warm-up step {fig['warmup_s']:.3f} s (the "
+          f"first batch's wait {fig['first_batch_s']:.3f} s of it; cuDNN's autotuning at new "
+          f"shapes), main {fig['main_s']:.3f} s; losses {fig['losses']}", flush=True)
+
+
+def remat_parity(card: str, mcfg, batch) -> None:
+    """(a) One train-mode forward and backward at full width in f32 from one
+    state, without and with model.remat: losses torch.equal, the flat
+    gradient within TRAIN_GRAD_REL_L2, the BN running statistics after the
+    forward torch.equal (the recomputation leaves them), the same kernel
+    launches (no hand kernel lies inside the backbone); peak memory of each."""
+    import torch
+
+    from dcl_net_tpu_torch.models.dcl_net import DCLNet, dcl_losses
+    from dcl_net_tpu_torch.train.solver import bn_statistics
+
+    def one_pass(model):
+        model.train()
+        stats = bn_statistics(model)
+        saved = [s.clone() for s in stats]
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        losses = dcl_losses(model(batch), batch)
+        grads = torch.autograd.grad(losses["loss_all"], list(model.parameters()))
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        counts = read_counts()
+        after = [s.clone() for s in stats]
+        with torch.no_grad():
+            for s, v in zip(stats, saved):
+                s.copy_(v)
+        return ({k: v.detach() for k, v in losses.items()},
+                torch.cat([g.reshape(-1) for g in grads]), after, counts, peak)
+
+    plain = DCLNet.from_config(mcfg, seed=0)
+    one_pass(plain)  # warm-up: cuDNN's algorithm choice, the allocator
+    l0, g0, s0, c0, p0 = one_pass(plain)
+    del plain
+    remat = DCLNet.from_config({**mcfg.to_dict(), "remat": True}, seed=0)
+    check(remat.remat, "model.remat did not reach the model")
+    l1, g1, s1, c1, p1 = one_pass(remat)
+    del remat
+    rel = float((g1 - g0).norm()) / float(g0.norm())
+    same_loss = all(torch.equal(l0[k], l1[k]) for k in l0)
+    same_stats = all(torch.equal(a, b) for a, b in zip(s0, s1))
+    print(f"remat at batch {BATCH}, f32, full width, on {card}: losses torch.equal "
+          f"{same_loss}, gradient rel L2 {rel:.3g}, BN running statistics torch.equal "
+          f"{same_stats}, launches {c1} (without remat {c0}); peak device memory of a "
+          f"forward + backward {p1:.2f} GiB with remat, {p0:.2f} GiB without", flush=True)
+    check(same_loss, "remat changed the losses")
+    check(rel <= TRAIN_GRAD_REL_L2, f"remat moved the gradient by {rel} in relative L2")
+    check(same_stats, "remat changed the BN running statistics")
+    check(c0 == c1, "remat changed the kernels' launch counts")
+    expect_counts(c1, TWO_STAGE_TRAIN, 1, "one train pass with remat")
+
+
+def preprocess_on_card(card: str, tree: dict) -> None:
+    """(e) preprocess_core on the card against its CPU run, on one raw batch
+    of the bs128 shape (64 frames of the YCB-V tree, 2 draws each, 8192
+    candidates) with injected draws, for the train path (augmentation,
+    min_points 50) and the eval path (keep-clamp 32): outputs within
+    PREPROCESS_ATOL, voxel ids equal off voxel boundaries and within one on
+    them; then DevicePreprocessor's time a batch on the card."""
+    import random
+
+    import numpy as np
+    import torch
+
+    from dcl_net_tpu_torch.config import Config
+    from dcl_net_tpu_torch.data import device_preprocess as dp
+    from dcl_net_tpu_torch.data.ycbv import YCBVTrainDataset
+
+    cfg = Config.fromfile(str(ROOT / "configs" / "config_YCBV_bs128_throughput.yaml"))
+    ds_cfg = cfg.hyper_dataset_train
+    frames = tree["frame_names"] * 3
+    Path(tree["assets"], "train_data_list.txt").write_text("\n".join(frames[:64]) + "\n")
+    ds = YCBVTrainDataset(ds_cfg, tree["root"], assets_dir=tree["assets"])
+    np.random.seed(0)
+    random.seed(0)
+    t0 = time.perf_counter()
+    samples = [s for i in range(len(ds)) for s in ds[i]]
+    t_read = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    raw = dp.make_raw_batch(samples, pad_to=int(cfg.hyper_dataloader_train.bs))
+    t_collate = time.perf_counter() - t0
+    b = raw["valid"].shape[0]
+    rng = np.random.RandomState(1)
+    angles = rng.uniform(-np.pi / 36, np.pi / 36, (b, 3)).astype(np.float32)
+    tjit = rng.uniform(-0.03, 0.03, (b, 3)).astype(np.float32)
+    n_points = int(ds_cfg.input_size)
+    idx = np.stack([rng.randint(0, max(int(c), 1), n_points) for c in raw["n_cand"]])
+    unit = tuple(float(u) for u in ds_cfg.unit_voxel_extent)
+    limit = tuple(int(v) for v in ds_cfg.voxel_num_limit)
+    static = dict(n_points=n_points, unit=unit, total=tuple(u * v for u, v in zip(unit, limit)),
+                  limit=limit, min_points=50)
+    for what, kw in (("train", dict(augment=True, eval_keep_clamp=False)),
+                     ("eval", dict(augment=False, eval_keep_clamp=True,
+                                   keep_clamp_threshold=32))):
+        outs = {}
+        for dev in ("cuda", "cpu"):
+            d = torch.device(dev)
+            rawt = {k: dp._to_device(raw[k], d) for k in dp.RAW_KEYS}
+            outs[dev] = {k: v.cpu() for k, v in dp.preprocess_core(
+                rawt, torch.from_numpy(angles).to(d), torch.from_numpy(tjit).to(d),
+                torch.from_numpy(idx).to(d), None, **static, **kw).items()}
+        got, want = outs["cuda"], outs["cpu"]
+        errs = {k: max_err(got[k], want[k]) for k in ("inp_feats", "rot_gt", "trans_gt")}
+        xyz = want["inp_feats"][..., 4:7].double()
+        pos = (xyz + static["total"][0] / 2) / unit[0]
+        near = ((pos - pos.round()).abs() * unit[0] < PREPROCESS_ATOL).any(-1)
+        diff = (got["inp_voxel_idx"] - want["inp_voxel_idx"]).abs().amax(-1)
+        k = raw["cand_depth"].shape[1]
+        print(f"preprocess_core ({what}) on the card vs the CPU, [{b}, {k}] candidates -> "
+              f"{n_points} points: max abs error {errs}; voxel ids differ at "
+              f"{int((diff > 0).sum())} points, all within one and on a voxel boundary: "
+              f"{bool((diff <= 1).all() and not ((diff > 0) & ~near).any())}; valid equal "
+              f"{torch.equal(got['valid'], want['valid'])}", flush=True)
+        check(all(e <= PREPROCESS_ATOL for e in errs.values()),
+              f"preprocess_core ({what}) on the card is off its CPU run: {errs}")
+        check(bool((diff <= 1).all()) and not bool(((diff > 0) & ~near).any()),
+              f"preprocess_core ({what}): voxel ids differ off a voxel boundary")
+        check(torch.equal(got["valid"], want["valid"]), f"preprocess_core ({what}): valid")
+    pre = dp.DevicePreprocessor(n_points, unit, limit, augment=True, min_points=50, seed=1)
+    for _ in range(3):
+        pre(raw)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        out = pre(raw)
+        out.ready.synchronize()
+        times.append(time.perf_counter() - t0)
+    print(f"DevicePreprocessor on {card}, batch {b} of {raw['cand_depth'].shape[1]} candidates: "
+          f"{1e3 * statistics.median(times):.2f} ms a batch (host clock to its event, median "
+          f"of 10, host-to-device copies included); the host's read of the 64 frames "
+          f"{t_read:.3f} s in one thread, make_raw_batch {1e3 * t_collate:.1f} ms", flush=True)
+
+
+def throughput_phase(card: str, entries: dict, mcfg, train_batch) -> None:
+    """Phase 13, the throughput training path: (a) remat parity at batch 32;
+    (b) configs/config_YCBV_bs128_throughput.yaml as written through
+    tools/train_stage1.main on a YCB-V tree (device preprocessing, 2 draws
+    a frame, 10 process workers, the template bank), then the same config
+    on the numpy path (device_preprocess False, samples_per_frame 1, thread
+    workers); (c) configs/config_YCBV_bs256_peak.yaml with PEAK_OVERRIDES;
+    (e) preprocess_core on the card against the CPU."""
+    import importlib.util
+    import tempfile
+
+    import torch
+
+    t_phase = time.perf_counter()
+    remat_parity(card, mcfg, train_batch)
+    torch.cuda.empty_cache()
+    spec = importlib.util.spec_from_file_location("ycbv_tree", ROOT / "scripts" / "ycbv_tree.py")
+    writer = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(writer)
+    with tempfile.TemporaryDirectory(prefix="dclx_train_") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        tree = writer.write_tree(str(tmp / "data"), n_classes=21, n_frames=YCBV_FRAMES)
+        tree["frame_names"] = Path(tree["assets"], "train_data_list.txt").read_text().split()
+        print(f"YCB-V tree for training: {YCBV_FRAMES} frames written in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        preprocess_on_card(card, tree)
+
+        steps = THROUGHPUT_TIMED_STEPS + 1
+        dev_fig, counts = train_cli_run(tree, tmp, "bs128_device",
+                                        "config_YCBV_bs128_throughput.yaml",
+                                        frames=steps * 64, steps=steps)
+        for key, n in counts.items():
+            if n:
+                entries[key]["throughput_train_launches"] = n
+        print_train_run(f"config_YCBV_bs128_throughput.yaml as written ({steps * 64} frames in "
+                        "the train list, device preprocessing, 2 draws a frame, 10 process "
+                        "workers, template bank)", card, 128, steps, dev_fig)
+        host_fig, _ = train_cli_run(
+            tree, tmp, "bs128_host", "config_YCBV_bs128_throughput.yaml", frames=steps * 128,
+            steps=steps, overrides=["hyper_dataset_train.device_preprocess=False",
+                                    "hyper_dataset_train.samples_per_frame=1",
+                                    "hyper_dataloader_train.worker_type=thread"])
+        print_train_run(f"config_YCBV_bs128_throughput.yaml on the numpy path ({steps * 128} "
+                        "frames, device_preprocess False, samples_per_frame 1, 10 thread "
+                        "workers, template bank)", card, 128, steps, host_fig)
+        print(f"bs128 on {card}: device path {dev_fig['rate']:.2f} samples/s, loader wait "
+              f"{dev_fig['t_data']:.3f} s; numpy path {host_fig['rate']:.2f} samples/s, loader "
+              f"wait {host_fig['t_data']:.3f} s", flush=True)
+
+        steps = PEAK_TIMED_STEPS + 1
+        peak_fig, counts = train_cli_run(tree, tmp, "bs256_peak", "config_YCBV_bs256_peak.yaml",
+                                         frames=steps * 256, steps=steps,
+                                         overrides=PEAK_OVERRIDES)
+        for key, n in counts.items():
+            if n:
+                entries[key]["peak_train_launches"] = n
+        print_train_run(f"config_YCBV_bs256_peak.yaml with {' '.join(PEAK_OVERRIDES)} "
+                        f"({steps * 256} frames, 10 process workers, template bank)", card, 256,
+                        steps, peak_fig)
+    print(f"throughput training phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 def main() -> int:
@@ -2723,7 +3140,12 @@ def main() -> int:
                        per_step=(("voxelize_bf16", 2), ("compact_bf16", 8), ("fused_bf16", 8)))
     del model_bf
 
-    # ---- 13. result lines -----------------------------------------------------
+    # ---- 13. the throughput training path ---------------------------------------
+    torch.cuda.empty_cache()
+    throughput_phase(card, entries, mcfg, batch_to_torch(batches[0], dev))
+    stop_child_processes()
+
+    # ---- 14. result lines -----------------------------------------------------
     print(json.dumps({"kernels": [entries[k] for k in KERNEL_ORDER]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -15,8 +15,14 @@ reader's array for array:
   does this copy.
 
 An empty mask is a lost detection: a valid = 0 row (LMO keeps its class).
-The raw-candidate mode of device-side preprocessing (device_preprocess,
-samples_per_frame > 1) is not ported and raises.
+
+Raw-candidate mode (device_preprocess: True), as in data/ycbv.py: the host
+keeps the decode, the occlusion augmentation (it pastes another frame's
+crop: compositing two decoded frames on the device would ship both), the
+mask, the bbox and the pixel gather; data/device_preprocess.py does the
+rest. LM depths are in mm, so the camera's scale is 1000 (metres in one
+step). The device filter's validity threshold is device_min_points: 128 for
+LM (the reference's min_keep), 0 for LMO.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from dcl_net_tpu_torch.data import png
 from dcl_net_tpu_torch.data import preprocess as pp
 from dcl_net_tpu_torch.data.ply import read_ply, sample_points_uniformly
 from dcl_net_tpu_torch.data.png import imread
@@ -123,21 +130,15 @@ def _load_lm_cads(models_dir: str, objlist: List[int], n_tmp: int, seed: int = 0
     return rgb_cad, pc_cad, radius
 
 
-def _refuse_raw_mode(cfg) -> None:
-    if bool(cfg.get("device_preprocess", False)):
-        raise NotImplementedError(
-            "device_preprocess: the raw-candidate mode of device-side "
-            "preprocessing (queue A 6) is not ported yet")
-    if int(cfg.get("samples_per_frame", 1)) > 1:
-        raise NotImplementedError("samples_per_frame > 1: not ported yet (queue A 6)")
-
-
 class _LMBase:
     """What the LineMOD readers share: the config's sizes and volume, the
     volume filter and resample, the lift, the template inputs."""
 
     def _read_cfg(self, cfg) -> None:
-        _refuse_raw_mode(cfg)
+        pp.read_raw_cfg(self, cfg, train=self.mode == "train")
+        # the readers' workers load the PNG host library: built here, in the
+        # parent, so process workers do not each compile it
+        png.build()
         self.n_inp = int(cfg.input_size)
         self.n_tmp = int(cfg.tmp_size)
         self.unit = np.asarray(cfg.unit_voxel_extent, np.float32)
@@ -206,6 +207,30 @@ class _LMBase:
         return pp.assemble_features(
             pts, self.rgb_cad[obj].astype(np.float32), self.unit, self.total, self.limit)
 
+    def _raw_sample(self, img, depth, obj: int, rows, cols, target_r, target_t,
+                    obj_index: int, sym: float) -> Dict:
+        """A raw-candidate sample of object `obj`: the candidate pixels at
+        (rows, cols), the camera (scale 1000: mm depths to metres), the
+        labels and the template branch."""
+        feats_tmp, vidx_tmp = self._tmp_branch(obj)
+        return {
+            **pp.gather_candidates(img, depth, rows, cols, self.cand_k),
+            "cam": np.asarray([CAM["cx"], CAM["cy"], CAM["fx"], CAM["fy"], 1000.0],
+                              np.float32),
+            "tmp_feats": feats_tmp, "tmp_voxel_idx": vidx_tmp,
+            "rot_gt": target_r.astype(np.float32),
+            "trans_gt": target_t.astype(np.float32),
+            "obj_idx": np.int32(obj_index),
+            "sym_flag": np.float32(sym),
+            "valid": 1.0,
+        }
+
+    def _invalid_raw(self):
+        return {**pp.invalid_candidates(self.cand_k, self.n_tmp),
+                "rot_gt": np.zeros((3, 3), np.float32),
+                "trans_gt": np.zeros(3, np.float32),
+                "obj_idx": np.int32(0), "sym_flag": np.float32(-1.0), "valid": 0.0}
+
     def model_points_array(self) -> np.ndarray:
         """[num_objects, n_tmp, 3] CAD clouds in metres for the metric
         (reference tools/test_LM.py: pc_cad / 1000)."""
@@ -268,6 +293,7 @@ class LineMODDataset(_LMBase):
         self.rgb_cad, self.pc_cad, self.radius = _load_lm_cads(
             os.path.join(root, "models"), self.objlist, self.n_tmp)
         self.length = len(self.list_rgb)
+        self.device_min_points = 128  # the reference's min_keep
 
     def __len__(self):
         return self.length
@@ -340,6 +366,35 @@ class LineMODDataset(_LMBase):
             return next(m for m in self.meta[obj][rank] if m["obj_id"] == 2)
         return self.meta[obj][rank][0]
 
+    def _draw_raw(self, img, depth, label, obj: int, rank: int) -> Dict:
+        """One raw-candidate draw (reference LM/dataloader_train_LM.py:164-218
+        up to the pixel gather): the occlusion augmentation of train mode on
+        copies of the frame, the mask and bbox, the candidate pixels."""
+        if self.mode == "train":
+            img, depth, label = self.occlude_with_another_object(
+                img.copy(), depth.copy(), label.copy(), obj)
+        meta = self._meta_of(obj, rank)
+        mask_depth = depth != 0
+        if self.mode == "eval":
+            mask_label = label == 255
+        else:
+            mask_label = (label == np.array([255, 255, 255]))[:, :, 0]
+        mask = mask_label & mask_depth
+        if self.mode == "eval":
+            if not mask_label.any():
+                return self._invalid_raw()
+            rmin, rmax, cmin, cmax = lm_bbox_snap(pp.mask_to_bbox(mask_label))
+        else:
+            rmin, rmax, cmin, cmax = lm_bbox_snap(meta["obj_bb"])
+        target_r = np.resize(np.array(meta["cam_R_m2c"]), (3, 3))
+        target_t = np.array(meta["cam_t_m2c"], np.float32) / 1000.0
+        r_loc, c_loc = np.nonzero(mask[rmin:rmax, cmin:cmax])
+        if len(r_loc) == 0:
+            return self._invalid_raw()
+        sym = 1.0 if self.objlist.index(obj) in LM_SYM_IDX else 0.0
+        return self._raw_sample(img, depth, obj, rmin + r_loc, cmin + c_loc,
+                                target_r, target_t, self.objlist.index(obj), sym)
+
     def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
         rng = np.random
         img = imread(self.list_rgb[index])[:, :, :3]
@@ -347,6 +402,12 @@ class LineMODDataset(_LMBase):
         label = imread(self.list_label[index])
         obj = self.list_obj[index]
         rank = self.list_rank[index]
+
+        if self.raw_mode:
+            # decode once; each draw runs the occlusion augmentation anew
+            out = [self._draw_raw(img, depth, label, obj, rank)
+                   for _ in range(self.samples_per_frame)]
+            return out if self.samples_per_frame > 1 else out[0]
 
         if self.mode == "train":
             img, depth, label = self.occlude_with_another_object(img, depth, label, obj)
@@ -425,6 +486,7 @@ class OcclusionLineMODDataset(_LMBase):
                 self.list_trans.append(t.reshape(3))
                 self.list_obj.append(item)
         self.length = len(self.list_rgb)
+        self.device_min_points = 0  # the reference's min_keep
 
     @staticmethod
     def _read_pose(filename: str):
@@ -462,7 +524,7 @@ class OcclusionLineMODDataset(_LMBase):
         return [meta[obj]["diameter"] / 1000.0 * 0.1 for obj in self.objlist]
 
     def _lost(self, obj: int) -> Dict[str, np.ndarray]:
-        out = self._invalid()
+        out = self._invalid_raw() if self.raw_mode else self._invalid()
         out["obj_idx"] = np.int32(self.objlist.index(obj))
         return out
 
@@ -489,13 +551,18 @@ class OcclusionLineMODDataset(_LMBase):
         if len(choose) == 0:
             return self._lost(obj)
 
+        sym = 1.0 if self.objlist.index(obj) in LMO_SYM_IDX else 0.0
+        if self.raw_mode:
+            w = cmax - cmin
+            return self._raw_sample(img, depth, obj, rmin + choose // w, cmin + choose % w,
+                                    target_r.astype(np.float32),
+                                    target_t.astype(np.float32), self.objlist.index(obj), sym)
         rgb = pp.normalize_rgb(img[rmin:rmax, cmin:cmax].reshape(-1, 3)[choose])
         cloud = self._lift(depth, choose, rmin, rmax, cmin, cmax).astype(np.float32)
         centroid = cloud.mean(axis=0)
         cloud = cloud - centroid
         target_t = (target_t - centroid).astype(np.float32)
 
-        sym = 1.0 if self.objlist.index(obj) in LMO_SYM_IDX else 0.0
         # the global generator, the reference eval loader's call sequence
         # (LM/dataloader_test_LMO.py:267-269)
         return self._finalize(

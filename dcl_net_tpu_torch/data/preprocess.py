@@ -12,6 +12,8 @@ bit-compatible given the same RNG draws:
 - feature assembly [1, rgb - imagenet_mean, xyz] + voxel indices (:202-205)
 - mask_to_bbox, the largest contour's box (reference LM/dataloader_test_LM.py:16-32),
   through scipy.ndimage instead of cv2
+- gather_candidates, the raw-candidate readers' pixel gather for
+  data/device_preprocess.py
 """
 
 from __future__ import annotations
@@ -200,3 +202,49 @@ def assemble_features(
 def normalize_rgb(img_crop: np.ndarray) -> np.ndarray:
     """uint8 RGB -> float, /255, minus ImageNet mean (reference :142-144)."""
     return img_crop.astype(np.float32) / 255.0 - IMAGENET_MEAN
+
+
+def gather_candidates(img: np.ndarray, depth: np.ndarray, rows: np.ndarray,
+                      cols: np.ndarray, k: int) -> dict:
+    """The raw-candidate mode's host work after the mask: depth (u16),
+    row/col (i16) and rgb (u8) at the candidate pixels, zero-padded to k,
+    and their count n_cand. More than k candidates are thinned to k
+    uniformly, without replacement, from the global np.random (the JAX
+    readers' draw)."""
+    n = len(rows)
+    if n > k:
+        sel = np.random.choice(n, k, replace=False)
+        rows, cols = rows[sel], cols[sel]
+        n = k
+    cand_depth = np.zeros(k, np.uint16)
+    cand_rc = np.zeros((k, 2), np.int16)
+    cand_rgb = np.zeros((k, 3), np.uint8)
+    cand_depth[:n] = depth[rows, cols]
+    cand_rc[:n, 0] = rows
+    cand_rc[:n, 1] = cols
+    cand_rgb[:n] = img[rows, cols]
+    return {"cand_depth": cand_depth, "cand_rc": cand_rc, "cand_rgb": cand_rgb,
+            "n_cand": np.int32(n)}
+
+
+def invalid_candidates(k: int, n_tmp: int) -> dict:
+    """The inputs of a raw-candidate row without candidates (valid = 0):
+    zero pixels, a unit camera, zero template grids."""
+    return {"cand_depth": np.zeros(k, np.uint16), "cand_rc": np.zeros((k, 2), np.int16),
+            "cand_rgb": np.zeros((k, 3), np.uint8), "n_cand": np.int32(0),
+            "cam": np.ones(5, np.float32),
+            "tmp_feats": np.zeros((n_tmp, 7), np.float32),
+            "tmp_voxel_idx": np.zeros((n_tmp, 3), np.int32)}
+
+
+def read_raw_cfg(reader, cfg, train: bool) -> None:
+    """The raw-candidate keys of a reader's config: raw_mode, cand_k and,
+    for a train reader, samples_per_frame (1 for an eval reader, as in the
+    JAX readers)."""
+    reader.raw_mode = bool(cfg.get("device_preprocess", False))
+    reader.cand_k = int(cfg.get("device_cand_k", 8192))
+    spf = int(cfg.get("samples_per_frame", 1)) if train else 1
+    if spf > 1 and not reader.raw_mode:
+        raise ValueError(f"samples_per_frame {spf} needs device_preprocess: True "
+                         "(the numpy path draws one instance a frame)")
+    reader.samples_per_frame = max(spf, 1)

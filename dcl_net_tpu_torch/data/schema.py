@@ -3,7 +3,8 @@
 The port's own copy of dcl_net_tpu/data/schema.py: fixed [B, N, ...] host
 batches with per-point voxel indices, `valid` flags instead of dropped
 samples, and `pad` flags for fill rows; batch_to_torch moves one onto a
-device.
+device. A DeviceBatch is a batch whose tensors a producer already made on
+the device (data/device_preprocess.py), on a stream of its own.
 """
 
 from __future__ import annotations
@@ -103,16 +104,49 @@ def make_batch(samples, pad_to: Optional[int] = None) -> PoseBatch:
     )
 
 
+class DeviceBatch(dict):
+    """A batch dict whose tensors already lie on the device, made by a
+    producer thread on a CUDA stream of its own; `ready` is the event that
+    stream recorded after the batch (None when no stream was used).
+
+    hand_over(stream) makes `stream` wait for that event and records every
+    tensor of the batch on it, so the caching allocator does not reuse the
+    memory of a tensor the consumer's queued work still reads once the
+    producer drops it."""
+
+    ready = None
+
+    def hand_over(self, stream) -> None:
+        if self.ready is None:
+            return
+        stream.wait_event(self.ready)
+
+        def record(x):
+            if isinstance(x, Mapping):
+                for v in x.values():
+                    record(v)
+            elif isinstance(x, torch.Tensor):
+                x.record_stream(stream)
+
+        record(self)
+        self.ready = None
+
+
 def batch_to_torch(batch: Mapping[str, Any], device,
                    non_blocking: bool = False) -> Dict[str, Any]:
     """Nested dict of arrays -> the same dict of tensors on `device`
-    (floats as f32, integers as int32, contiguous).
+    (floats as f32, integers as int32, contiguous). Tensors already on
+    `device` are taken as they are, without a copy; a DeviceBatch is first
+    handed over to the current stream of `device` (DeviceBatch.hand_over),
+    without a host sync.
 
     non_blocking: for a CUDA device, stage the arrays in pinned memory and
     copy them asynchronously, so the host does not wait for the work
     already queued on the stream (a copy from pageable memory would)."""
     device = torch.device(device)
     asynchronous = non_blocking and device.type == "cuda"
+    if isinstance(batch, DeviceBatch) and device.type == "cuda":
+        batch.hand_over(torch.cuda.current_stream(device))
 
     def conv(x):
         if isinstance(x, Mapping):

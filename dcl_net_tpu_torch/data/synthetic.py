@@ -1,10 +1,10 @@
 """Synthetic pose dataset: procedurally generated CAD-like objects.
 
 The port's own copy of dcl_net_tpu/data/synthetic.py (same draws from the
-same seeds), without the frame mode: a template cloud on a superquadric
-surface or on an on-disk CAD cloud (cad_dir), an observed cloud = the
-visible part under a random rigid transform with depth-like noise, and sym
-flags.
+same seeds): a template cloud on a superquadric surface or on an on-disk
+CAD cloud (cad_dir), an observed cloud = the visible part under a random
+rigid transform with depth-like noise, and sym flags. Its frame mode is
+the in-memory stand-in of the raw-mode readers' samples_per_frame.
 """
 
 from __future__ import annotations
@@ -50,11 +50,22 @@ class SyntheticPoseDataset:
         seed: int = 0,
         noise: float = 0.002,
         cad_dir: Optional[str] = None,
+        frame_mode: bool = False,
+        samples_per_frame: int = 1,
     ):
         """cad_dir: read the objects from its *_pc.ply clouds (xyz + rgb,
         e.g. the 21 YCB-V object clouds) instead of drawing superquadrics;
         n_objects then keeps the first n of the sorted files (0: all). The
-        sym flags follow the YCB-V table when there are 21 files."""
+        sym flags follow the YCB-V table when there are 21 files.
+
+        frame_mode: __getitem__(f) returns samples_per_frame draws of one
+        scene (object, base pose, view: what a decoded frame fixes) that
+        differ in their per-draw streams (the pose's SE(3) augmentation,
+        the resample, the noise), as the raw-mode readers' samples_per_frame
+        draws do; BatchLoader(samples_per_item=samples_per_frame) keeps each
+        frame's draws in one batch."""
+        self.frame_mode = bool(frame_mode)
+        self.samples_per_frame = int(samples_per_frame)
         self.n_points = n_points
         self.unit = np.asarray(unit_voxel_extent, np.float32)
         self.limit = np.asarray(voxel_num_limit, np.int32)
@@ -104,6 +115,8 @@ class SyntheticPoseDataset:
     def __getitem__(self, index: int):
         from scipy.spatial.transform import Rotation
 
+        if self.frame_mode:
+            return self._frame_item(index)
         rng = np.random.RandomState(index & 0x7FFFFFFF)
         obj = rng.randint(len(self.cad_points))
         cad = self.cad_points[obj]
@@ -138,6 +151,53 @@ class SyntheticPoseDataset:
             "valid": 1.0,
             "radius": np.float32(np.linalg.norm(cad, axis=1).max()),
         }
+
+    def _frame_item(self, index: int):
+        """One synthetic frame: the scene from RandomState(index), then
+        samples_per_frame draws, each from a RandomState of its own: an
+        Euler perturbation of +-5 degrees and a translation jitter of +-3 cm
+        of the pose (the device path's augmentation), the template and
+        observed resamples and the noise. A list of the draws (one: the
+        bare sample)."""
+        from scipy.spatial.transform import Rotation
+
+        scene = np.random.RandomState(index & 0x7FFFFFFF)
+        obj = scene.randint(len(self.cad_points))
+        cad = self.cad_points[obj]
+        col = self.cad_colors[obj]
+        n = self.n_points
+        rot = Rotation.random(random_state=scene).as_matrix().astype(np.float32)
+        trans = (scene.rand(3).astype(np.float32) - 0.5) * 0.06
+        view = scene.randn(3).astype(np.float32)
+        view /= np.linalg.norm(view)
+        visible = (cad @ view) > np.percentile(cad @ view, 40)
+        vis_idx = np.where(visible)[0]
+
+        out = []
+        for j in range(self.samples_per_frame):
+            draw = np.random.RandomState((index * 1000003 + 7919 * j + 1) & 0x7FFFFFFF)
+            ang = draw.uniform(-np.pi / 36, np.pi / 36, 3)
+            aug_r = Rotation.from_euler("xyz", ang).as_matrix().astype(np.float32)
+            rot_j = (rot @ aug_r).astype(np.float32)
+            trans_j = trans + draw.uniform(-0.03, 0.03, 3).astype(np.float32)
+            tsel = draw.choice(len(cad), n, replace=n > len(cad))
+            osel = vis_idx[draw.choice(len(vis_idx), n, replace=True)]
+            obs = cad[osel] @ rot_j.T + trans_j
+            obs = obs + draw.randn(n, 3).astype(np.float32) * self.noise
+            ones = np.ones((n, 1), np.float32)
+            out.append({
+                "inp_feats": np.concatenate([ones, col[osel], obs], -1),
+                "inp_voxel_idx": self._voxel_index(obs),
+                "tmp_feats": np.concatenate([ones, col[tsel], cad[tsel]], -1),
+                "tmp_voxel_idx": self._voxel_index(cad[tsel]),
+                "rot_gt": rot_j,
+                "trans_gt": trans_j.astype(np.float32),
+                "obj_idx": np.int32(obj),
+                "sym_flag": np.float32(self.sym_flags[obj]),
+                "valid": 1.0,
+                "radius": np.float32(np.linalg.norm(cad, axis=1).max()),
+            })
+        return out if self.samples_per_frame > 1 else out[0]
 
     def template_bank(self) -> Dict[str, np.ndarray]:
         """Per-class template inputs {"feats": [C, M, 7], "voxel_idx":

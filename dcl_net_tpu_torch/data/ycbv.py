@@ -14,9 +14,17 @@ array for array:
   global np.random.
 
 Instances are padded to a fixed batch with valid flags (data/schema.py)
-instead of ragged batches. The raw-candidate mode of device-side
-preprocessing (device_preprocess, samples_per_frame > 1) is not ported and
-raises.
+instead of ragged batches.
+
+Raw-candidate mode (config key device_preprocess: True; device_cand_k,
+default 8192): a sample is the mask's candidate pixels (data/preprocess.py::
+gather_candidates) with the camera, the labels and the template branch, and
+data/device_preprocess.py does the lift, centering, augmentation, filter,
+resample and assembly on the device. The train reader then decodes a frame
+once and draws samples_per_frame instances from it (a list of samples,
+which BatchLoader(samples_per_item=...) flattens); samples_per_frame > 1
+without device_preprocess raises, since the numpy path draws one instance
+a frame.
 """
 
 from __future__ import annotations
@@ -27,6 +35,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from dcl_net_tpu_torch.data import png
 from dcl_net_tpu_torch.data import preprocess as pp
 from dcl_net_tpu_torch.data.ply import read_ply
 from dcl_net_tpu_torch.data.png import imread
@@ -103,22 +112,16 @@ def roi_bbox(posecnn_rois: np.ndarray, idx: int):
     return rmin, rmax, cmin, cmax
 
 
-def _refuse_raw_mode(cfg) -> None:
-    if bool(cfg.get("device_preprocess", False)):
-        raise NotImplementedError(
-            "device_preprocess: the raw-candidate mode of device-side "
-            "preprocessing is not ported yet")
-    if int(cfg.get("samples_per_frame", 1)) > 1:
-        raise NotImplementedError("samples_per_frame > 1: not ported yet")
-
-
 class _YCBVBase:
     """What the train and test readers share: the config's sizes and volume,
     the file list and the CAD clouds (loaded once, from a seeded draw)."""
 
     def __init__(self, cfg, root: str, assets_dir: Optional[str],
-                 list_file: Optional[str], default_list: str):
-        _refuse_raw_mode(cfg)
+                 list_file: Optional[str], default_list: str, train: bool):
+        pp.read_raw_cfg(self, cfg, train)
+        # the readers' workers load the PNG host library: built here, in the
+        # parent, so process workers do not each compile it
+        png.build()
         assets = assets_dir or os.path.join(root, "..")
         self.root = root
         self.assets = assets
@@ -133,6 +136,7 @@ class _YCBVBase:
          self.radius) = _load_cads(os.path.join(assets, "CADs"),
                                    os.path.join(assets, "classes.txt"), self.n_tmp)
         self.min_pt = 50
+        self.device_min_points = 50  # the device filter's min_keep (train)
 
     def __len__(self):
         return len(self.list)
@@ -145,6 +149,23 @@ class _YCBVBase:
             self.unit, self.total, self.limit,
         )
 
+    def _raw_sample(self, img, depth, obj_id: int, rows, cols, cam, cam_scale: float,
+                    target_r, target_t) -> Dict:
+        """A raw-candidate sample of class obj_id (1-based): the candidate
+        pixels at (rows, cols), the camera [cx, cy, fx, fy, scale], the
+        labels and the template branch."""
+        feats_tmp, vidx_tmp = self._tmp_branch(obj_id)
+        return {
+            **pp.gather_candidates(img, depth, rows, cols, self.cand_k),
+            "cam": np.asarray([cam["cx"], cam["cy"], cam["fx"], cam["fy"], cam_scale],
+                              np.float32),
+            "tmp_feats": feats_tmp, "tmp_voxel_idx": vidx_tmp,
+            "rot_gt": target_r, "trans_gt": target_t,
+            "obj_idx": np.int32(obj_id - 1),
+            "sym_flag": np.float32(1.0 if (obj_id - 1) in SYMMETRY_OBJ_IDX else 0.0),
+            "valid": 1.0,
+        }
+
     def template_bank(self) -> Dict[str, np.ndarray]:
         """Per-class template inputs {feats [C,M,7], voxel_idx [C,M,3]}:
         the CAD clouds sampled once at init (reference :59-76), so the
@@ -156,7 +177,7 @@ class _YCBVBase:
 class YCBVTrainDataset(_YCBVBase):
     def __init__(self, cfg, root: str, list_file: Optional[str] = None,
                  assets_dir: Optional[str] = None):
-        super().__init__(cfg, root, assets_dir, list_file, "train_data_list.txt")
+        super().__init__(cfg, root, assets_dir, list_file, "train_data_list.txt", train=True)
 
     def _intrinsics(self, path: str) -> Dict[str, float]:
         # videos >= 60 use the second camera (reference :113-122)
@@ -177,6 +198,12 @@ class YCBVTrainDataset(_YCBVBase):
         cam = self._intrinsics(path)
 
         mask_depth = depth != 0
+
+        if self.raw_mode:
+            # decode once, draw samples_per_frame instances from the frame
+            out = [self._draw_raw(img, depth, label, objs, meta, cam, mask_depth, rng)
+                   for _ in range(self.samples_per_frame)]
+            return out if self.samples_per_frame > 1 else out[0]
 
         # random instance with enough pixels (reference :126-132)
         for _ in range(100):
@@ -246,6 +273,39 @@ class YCBVTrainDataset(_YCBVBase):
             "valid": 0.0, "radius": np.float32(-1.0),
         }
 
+    def _draw_raw(self, img, depth, label, objs, meta, cam, mask_depth, rng):
+        """One instance draw as a raw-candidate sample: the numpy path's
+        instance choice (reference :126-132) and bbox snap, then the
+        candidate pixels of the mask in the box."""
+        for _ in range(100):
+            idx = rng.randint(0, len(objs))
+            mask_label = label == objs[idx]
+            mask = mask_label & mask_depth
+            if mask.sum() > self.min_pt:
+                break
+        else:
+            return self._invalid_raw()
+        rmin, rmax, cmin, cmax = pp.get_bbox(mask_label)
+        target_r = meta["poses"][:, :, idx][:, 0:3].astype(np.float32)
+        target_t = meta["poses"][:, :, idx][:, 3].astype(np.float32)
+        r_loc, c_loc = np.nonzero(mask[rmin:rmax, cmin:cmax])
+        if len(r_loc) < self.min_pt:
+            return self._invalid_raw()
+        obj_id = int(objs[idx])
+        sample = self._raw_sample(img, depth, obj_id, rmin + r_loc, cmin + c_loc, cam,
+                                  float(meta["factor_depth"][0][0]), target_r, target_t)
+        sample["radius"] = np.float32(self.radius[obj_id])
+        return sample
+
+    def _invalid_raw(self):
+        return {
+            **pp.invalid_candidates(self.cand_k, self.n_tmp),
+            "rot_gt": np.zeros((3, 3), np.float32),
+            "trans_gt": np.zeros(3, np.float32),
+            "obj_idx": np.int32(-1), "sym_flag": np.float32(-1.0),
+            "valid": 0.0, "radius": np.float32(-1.0),
+        }
+
 
 class YCBVTestDataset(_YCBVBase):
     """Per-frame eval dataset with FFB6D masks (reference
@@ -255,7 +315,7 @@ class YCBVTestDataset(_YCBVBase):
 
     def __init__(self, cfg, root: str, masks_dir: Optional[str] = None,
                  list_file: Optional[str] = None, assets_dir: Optional[str] = None):
-        super().__init__(cfg, root, assets_dir, list_file, "test_data_list.txt")
+        super().__init__(cfg, root, assets_dir, list_file, "test_data_list.txt", train=False)
         self.masks_dir = masks_dir or os.path.join(self.assets, "YCBV_Masks",
                                                    "Masks_FFB6D")
 
@@ -310,6 +370,16 @@ class YCBVTestDataset(_YCBVBase):
                              "trans_gt": target_t, "gt_pos": idx})
                 continue
 
+            if self.raw_mode:
+                # the device filter applies the keep-clamp (eval_keep_clamp)
+                w = cmax - cmin
+                sample = self._raw_sample(img, depth, obj_id, rmin + choose // w,
+                                          cmin + choose % w, CAM_1, TEST_CAM_SCALE,
+                                          target_r, target_t)
+                sample["gt_pos"] = idx
+                samples.append(sample)
+                continue
+
             rgb = pp.normalize_rgb(img[rmin:rmax, cmin:cmax].reshape(-1, 3)[choose])
             cloud = pp.depth_to_cloud(
                 depth, choose, rmin, rmax, cmin, cmax,
@@ -350,7 +420,13 @@ class YCBVTestDataset(_YCBVBase):
 
     def invalid_row(self) -> Dict:
         """A valid=0 placeholder row (lost detection / padding); its input
-        features are replaced by a real sample's in make_batch."""
+        features are replaced by a real sample's in make_batch (or
+        make_raw_batch in raw mode)."""
+        if self.raw_mode:
+            return {**pp.invalid_candidates(self.cand_k, self.n_tmp),
+                    "rot_gt": np.zeros((3, 3), np.float32),
+                    "trans_gt": np.zeros(3, np.float32),
+                    "obj_idx": np.int32(0), "sym_flag": np.float32(0.0), "valid": 0.0}
         n, m = self.n_inp, self.n_tmp
         return {
             "inp_feats": np.zeros((n, 7), np.float32),
@@ -370,9 +446,14 @@ class YCBVTestDataset(_YCBVBase):
         detections as valid=0 rows carrying their true labels (reference
         YCBV/dataloader_test_YCBV.py:116-144 marks all_flags=0 in place and
         :259-260 batches all instances of one image together). Yields
-        (batch_dict, path)."""
+        (batch_dict, path). Raw mode raises: this iteration needs the numpy
+        path (the device path serves EvalFrameLoader)."""
         from dcl_net_tpu_torch.data.schema import make_batch
 
+        if self.raw_mode:
+            raise ValueError("frames() needs the numpy path: construct the dataset "
+                             "without device_preprocess (the device path serves "
+                             "EvalFrameLoader)")
         for i in range(len(self)):
             frame = self[i]
             rows = list(frame["samples"])

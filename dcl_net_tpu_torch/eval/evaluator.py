@@ -28,6 +28,11 @@ from dcl_net_tpu_torch.models.refiner import refine_pose
 PROTOCOLS = ("adds_auc", "add_0.1d")
 
 
+def _host(x) -> np.ndarray:
+    """A host array of a batch entry: numpy as it is, a tensor copied back."""
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
 class Evaluator:
     """Stage-1 evaluator.
 
@@ -121,7 +126,8 @@ class Evaluator:
         return out["rot_pred"], out["trans_pred"]
 
     def evaluate(self, loader: Iterable[Dict[str, Any]]) -> Dict[str, object]:
-        """One pass over host batches (make_batch(...).to_dict()); returns
+        """One pass over batches (make_batch(...).to_dict(), or the
+        DeviceBatch of device preprocessing); returns
         the protocol's report plus n_overflow, n_scored (the distances
         aggregated) and n_lost (the lost detections among the real rows)."""
         distances: List[float] = []
@@ -134,10 +140,11 @@ class Evaluator:
             adds = res["adds"].cpu().numpy()
             add = res["add"].cpu().numpy() if "add" in res else adds
             ovf = res["overflow"].cpu().numpy()
-            valid = np.asarray(batch["valid"])
-            pad = np.asarray(batch.get("pad", np.zeros_like(valid)))
-            cls = np.asarray(batch["labels"]["obj_idx"], np.int64)
-            sym = np.asarray(batch["sym_flag"])
+            # the flags of a host batch, or of a device-preprocessed one
+            valid = _host(batch["valid"])
+            pad = _host(batch["pad"]) if "pad" in batch else np.zeros_like(valid)
+            cls = _host(batch["labels"]["obj_idx"]).astype(np.int64)
+            sym = _host(batch["sym_flag"])
             n_overflow += int((ovf & (valid > 0) & ~(pad > 0)).sum())
             n_lost += int(((valid <= 0) & ~(pad > 0)).sum())
             self._score_batch(adds, add, valid, cls, sym, pad,

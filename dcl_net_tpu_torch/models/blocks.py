@@ -83,12 +83,77 @@ def init_weights(model: nn.Module, seed: int = 0) -> None:
             mod.reset_parameters()
 
 
+# rows of the leading dim per chunk of _MaskedBatchNormTrain's backward: a
+# chunk's f32 temporaries stay near 2^27 elements (512 MB) each
+_CHUNK_ELEMENTS = 1 << 27
+
+
+class _MaskedBatchNormTrain(torch.autograd.Function):
+    """Train-mode MaskedBatchNorm: y = (x - mean) / sqrt(var + eps) * weight
+    + bias with the masked batch statistics of x (masked_batch_norm_stats)
+    in x's statistics type, the values of that expression as autograd would
+    run it. Returns (y, mean, var); mean and var carry no gradient.
+
+    Autograd of the expression keeps four full-size copies of x in the
+    statistics type (f32 under bf16), the most memory of a training step on
+    the dense 64^3 grids. This saves x, the mask and the statistics only,
+    and the backward recomputes x - mean in chunks of the leading dim. It
+    returns x's gradient as autograd does: the normalisation's term and the
+    statistics' term each in x's type, then their sum."""
+
+    @staticmethod
+    def forward(ctx, x, mask, weight, bias, eps: float):
+        xs = x.to(_stat_dtype(x))
+        mean, var = masked_batch_norm_stats(xs, mask)
+        y = xs - mean
+        del xs
+        y.div_(torch.sqrt(var + eps)).mul_(weight).add_(bias)
+        ctx.save_for_backward(x, mask, mean, var, weight)
+        ctx.eps = eps
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, gy, _gmean, _gvar):
+        x, mask, mean, var, weight = ctx.saved_tensors
+        sdt = mean.dtype
+        r = 1.0 / torch.sqrt(var + ctx.eps)
+        w = weight.to(sdt)
+        n = torch.clamp(mask.to(sdt).sum(), min=1.0)
+        axes = tuple(range(x.dim() - 1))
+        rows = max(1, _CHUNK_ELEMENTS // max(x[0].numel(), 1))
+        chunks = list(zip(x.split(rows), mask.split(rows), gy.split(rows)))
+        s_g = torch.zeros_like(mean)   # sum of gy
+        s_gd = torch.zeros_like(mean)  # sum of gy * (x - mean)
+        s_md = torch.zeros_like(mean)  # sum of mask * (x - mean)
+        for xc, mc, gc in chunks:
+            d = xc.to(sdt) - mean
+            s_g += gc.sum(dim=axes)
+            s_gd += (gc * d).sum(dim=axes)
+            s_md += (d * mc.to(sdt)[..., None]).sum(dim=axes)
+        d_var = -0.5 * w * s_gd * r ** 3
+        d_mean = -w * r * s_g + d_var * (-2.0 * s_md / n)
+        dx = torch.empty_like(x)
+        for (xc, mc, gc), out in zip(chunks, dx.split(rows)):
+            m = mc.to(sdt)[..., None]
+            norm = (gc * (w * r)).to(x.dtype)
+            stats = (m * (d_mean / n + d_var * 2.0 / n * (xc.to(sdt) - mean))).to(x.dtype)
+            torch.add(norm, stats, out=out)
+        return dx, None, (s_gd * r).to(weight.dtype), s_g.to(weight.dtype), None
+
+
 class MaskedBatchNorm(nn.Module):
     """BatchNorm whose statistics run over occupied voxels only: biased
     variance to normalise, unbiased for the running update, momentum 0.1
     (flax 0.9), eps 1e-5. Parameters follow nn.BatchNorm1d's names.
     Statistics and output are at least f32: a bf16 input is widened for
-    them, and the caller casts the output back."""
+    them, and the caller casts the output back. In train mode the
+    normalisation runs as _MaskedBatchNormTrain, which keeps only its input
+    and the statistics for the backward. update_running = False leaves the
+    running statistics alone in train mode (a checkpointed recomputation,
+    models/dcl_net.py)."""
+
+    update_running = True
 
     def __init__(self, num_features: int, momentum: float = 0.1,
                  eps: float = 1e-5):
@@ -108,16 +173,17 @@ class MaskedBatchNorm(nn.Module):
         self.running_var.fill_(1.0)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            mean, var = masked_batch_norm_stats(x.to(_stat_dtype(x)), mask)
+        if not self.training:
+            return ((x - self.running_mean) / torch.sqrt(self.running_var + self.eps)
+                    * self.weight + self.bias)
+        y, mean, var = _MaskedBatchNormTrain.apply(x, mask, self.weight, self.bias, self.eps)
+        if self.update_running:
             with torch.no_grad():
                 m = torch.clamp(mask.to(torch.float32).sum(), min=2.0)
                 unbiased = var * m / (m - 1.0)
                 self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean)
                 self.running_var.mul_(1 - self.momentum).add_(self.momentum * unbiased)
-        else:
-            mean, var = self.running_mean, self.running_var
-        return (x - mean) / torch.sqrt(var + self.eps) * self.weight + self.bias
+        return y
 
 
 class SparseConvBlock(nn.Module):

@@ -31,14 +31,22 @@ the JAX model. A bf16 model trains too: the gradients flow back through the
 bf16 variants of the backward kernels (K4 and K5, or K7), the BN statistics
 and running statistics stay f32, and the parameters and their gradients
 stay f32 (bf16 is the compute type only).
+
+remat (model.remat) recomputes each backbone's activations in the backward
+instead of keeping them (torch.utils.checkpoint around SparseBackbone, as
+the JAX model wraps it in nn.remat): the dense-grid conv activations are
+most of a training step's memory. The recomputation leaves the BN running
+statistics alone, so a step updates them once, as without remat.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, Mapping, Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from dcl_net_tpu_torch import resolve_device
 from dcl_net_tpu_torch.geometry.rotation import ortho9d_to_matrix
@@ -49,7 +57,9 @@ from dcl_net_tpu_torch.geometry.transform import (
     untransform_points,
 )
 from dcl_net_tpu_torch.models.backbone import MultiScalePointFeatures, SparseBackbone
-from dcl_net_tpu_torch.models.blocks import PointMLP, init_weights, sigmoid, softmax
+from dcl_net_tpu_torch.models.blocks import (
+    MaskedBatchNorm, PointMLP, init_weights, sigmoid, softmax,
+)
 from dcl_net_tpu_torch.ops.knn import knn
 from dcl_net_tpu_torch.ops.cuda_voxelize import voxelize_cuda
 from dcl_net_tpu_torch.ops.voxelize import MODE_MEAN, MODE_SUM
@@ -91,7 +101,9 @@ class DCLNet(nn.Module):
     (lecun-normal kernels, zero biases, identity BN statistics), on the CPU
     and then moved, so the same seed gives the same weights everywhere.
     dtype: the feature compute type, None (f32) or torch.bfloat16 (the
-    module docstring says what runs in which type); another raises."""
+    module docstring says what runs in which type); another raises.
+    remat: recompute the backbones' activations in the backward of a
+    train-mode forward (the module docstring)."""
 
     def __init__(
         self,
@@ -104,15 +116,17 @@ class DCLNet(nn.Module):
         device=None,
         seed: int = 0,
         dtype=None,
+        remat: bool = False,
     ):
         super().__init__()
+        self.remat = bool(remat)
         if dtype not in COMPUTE_DTYPES.values():
             raise ValueError(f"dtype {dtype}: None (f32) or torch.bfloat16")
         self.dtype = dtype
         if voxelization_mode not in (MODE_SUM, MODE_MEAN):
             raise NotImplementedError(
-                f"voxelization mode {voxelization_mode}: the port runs 3 (sum) "
-                "and 4 (mean)")
+                f"voxelization mode {voxelization_mode}: not ported; the port runs "
+                "3 (sum) and 4 (mean)")
         self.voxelization_mode = int(voxelization_mode)
         self.grid_shape = tuple(int(d) for d in voxel_num_limit)
         self.backbone_inp = SparseBackbone(kernel_size=kernel_size, dtype=dtype)
@@ -152,6 +166,7 @@ class DCLNet(nn.Module):
             kernel_size=int(model_cfg.get("backbone", {}).get("kernel_size", 3)),
             interp_mode=str(model_cfg.get("interp_mode", "exact")),
             dtype=compute_dtype(model_cfg),
+            remat=bool(model_cfg.get("remat", False)),
         )
         if "capacities" in model_cfg:
             args["capacities"] = tuple(model_cfg["capacities"])
@@ -168,7 +183,12 @@ class DCLNet(nn.Module):
         grid, count = voxelize_cuda(feats, voxel_idx, self.grid_shape,
                                     mode=self.voxelization_mode, out_dtype=self.dtype)
         mask = (count > 0).to(feats.dtype)
-        pyramid = backbone(grid, mask)
+        if self.remat and self.training and torch.is_grad_enabled():
+            pyramid = checkpoint(
+                backbone, grid, mask, use_reentrant=False,
+                context_fn=lambda: (contextlib.nullcontext(), _frozen_statistics(backbone)))
+        else:
+            pyramid = backbone(grid, mask)
         points = feats[..., 4:7].contiguous()
         interp, overflow = point_feats(points, pyramid)
         return points, interp, overflow
@@ -248,6 +268,22 @@ class DCLNet(nn.Module):
         tmp_all = self.encode_template({"tmp": bank})
         cls = batch["labels"]["obj_idx"].long()
         return self.fuse(obs, {k: v[cls] for k, v in tmp_all.items()})
+
+
+@contextlib.contextmanager
+def _frozen_statistics(backbone: nn.Module):
+    """The context of a checkpointed backbone's recomputation: its
+    MaskedBatchNorms normalise with the batch statistics as in the forward
+    but leave their running statistics as the forward left them (flax's
+    nn.remat keeps the forward's batch_stats)."""
+    norms = [m for m in backbone.modules() if isinstance(m, MaskedBatchNorm)]
+    for m in norms:
+        m.update_running = False
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.update_running = True
 
 
 def compute_dtype(model_cfg: Mapping[str, Any]):

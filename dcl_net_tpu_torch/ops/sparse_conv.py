@@ -26,6 +26,9 @@ def _ndhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 4, 1)
 
 
+WINDOW_SUM_CHUNK = 1 << 30  # elements of one padded buffer of window_sum
+
+
 def window_sum(x: torch.Tensor, kernel: int, stride: int, padding: int,
                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """k^3 box sum with zero padding of a channel-last grid [B, D0, D1, D2, C],
@@ -48,9 +51,20 @@ def window_sum(x: torch.Tensor, kernel: int, stride: int, padding: int,
     so there each pass sums in f32 and is rounded to bf16 after it. Autograd
     differentiates the three passes, each backward pass rounded to bf16,
     which is where XLA rounds the transposes of its three bf16 convolutions
-    (bit-equal to the JAX pool's gradient on the CPU)."""
+    (bit-equal to the JAX pool's gradient on the CPU).
+
+    The batch is summed in chunks whose padded buffer holds at most
+    WINDOW_SUM_CHUNK elements: a 64^3 level of 32 channels at batch 256
+    holds 2^31 (the padded buffer more), past the 32-bit element indices
+    that avg_pool3d's CUDA kernels take; the sums are per sample, so the
+    chunks change no value."""
     b, d0, d1, d2, c = x.shape
     p = padding
+    rows = max(1, WINDOW_SUM_CHUNK // (c * (d0 + 2 * p) * (d1 + 2 * p) * (d2 + 2 * p)))
+    if b > rows:
+        return torch.cat([window_sum(x[i:i + rows], kernel, stride, padding,
+                                     None if mask is None else mask[i:i + rows])
+                          for i in range(0, b, rows)])
     xp = x.new_zeros((b, c, d0 + 2 * p, d1 + 2 * p, d2 + 2 * p))
     inner = xp[:, :, p:p + d0, p:p + d1, p:p + d2]
     inner.copy_(_ncdhw(x))

@@ -2,10 +2,10 @@
 
 Counterpart of dcl_net_tpu/tools/common.py: argparse -> Config.fromfile ->
 overrides -> run directory, logger, source backup and seeds; the model, the
-training dataset (synthetic, YCB-V or LineMOD), the YCB-V eval dataset and
-loader and the instance loader of the LineMOD eval sets from the config; model
-weights from a checkpoint of the port or a reference .pth; the eval tools'
-result file.
+training dataset (synthetic, YCB-V or LineMOD), the device preprocessing of
+a dataset's raw-candidate mode, the YCB-V eval dataset and loader and the
+instance loader of the LineMOD eval sets from the config; model weights from
+a checkpoint of the port or a reference .pth; the eval tools' result file.
 """
 
 from __future__ import annotations
@@ -66,16 +66,45 @@ def build_model(cfg: Config, device=None, seed: int = 0):
     picks the feature compute type; a bf16 model evaluates through the bf16
     variants of K1, K2, K3 and K6 and trains through those of K4, K5 and
     K7, its parameters kept in f32 (so a checkpoint of either type loads
-    into either). The model keys the port does not run yet raise: remat and
-    interp_mode "local"."""
+    into either). cfg.model.remat recomputes the backbones' activations in
+    the backward (models/dcl_net.py). interp_mode "local" is not ported yet
+    and raises."""
     from dcl_net_tpu_torch.models.dcl_net import DCLNet
 
     m = cfg.model
     if m.get("name", "DCL_Net") != "DCL_Net":
         raise NotImplementedError(f"model {m.name}: the port builds DCL_Net")
-    if m.get("remat"):
-        raise NotImplementedError("model.remat: not ported yet")
     return DCLNet.from_config(m, device=device, seed=seed)
+
+
+def build_device_preprocess(ds_cfg, dataset, *, augment: bool, eval_keep_clamp: bool = False,
+                            keep_clamp_threshold: int = 32, seed: int = 1, device=None,
+                            logger=None):
+    """(collate, batch_transform) of device-side preprocessing when
+    ds_cfg.device_preprocess is set, else (None, None): make_raw_batch and
+    a DevicePreprocessor on `device` (data/device_preprocess.py). The
+    device filter's validity threshold is the dataset's device_min_points
+    (YCB-V train 50, LM 128, LMO 0, each reference loader's min_keep); the
+    eval keep-clamp and its threshold come from the caller (YCB-V test
+    32, LM eval 0, LMO none)."""
+    if not bool(ds_cfg.get("device_preprocess", False)):
+        return None, None
+    if not getattr(dataset, "raw_mode", False):
+        raise ValueError("device_preprocess needs a dataset with a raw-candidate mode, "
+                         f"got {type(dataset).__name__}")
+    from dcl_net_tpu_torch.data.device_preprocess import DevicePreprocessor, make_raw_batch
+
+    transform = DevicePreprocessor(
+        n_points=int(ds_cfg.input_size),
+        unit_voxel_extent=tuple(ds_cfg.unit_voxel_extent),
+        voxel_num_limit=tuple(int(v) for v in ds_cfg.voxel_num_limit),
+        augment=augment, min_points=int(dataset.device_min_points),
+        eval_keep_clamp=eval_keep_clamp, keep_clamp_threshold=keep_clamp_threshold,
+        seed=seed, device=device)
+    if logger is not None:
+        logger.warning("device-side preprocessing: lift/center" + ("/aug" if augment else "")
+                       + f"/filter/resample on {transform.device} (cand_k={dataset.cand_k})")
+    return make_raw_batch, transform
 
 
 def build_train_dataset(cfg: Config):
@@ -113,41 +142,49 @@ def ycbv_dirs(cfg: Config) -> Tuple[str, str]:
     return os.path.join(assets, "root"), assets
 
 
-def build_ycbv_eval(cfg: Config):
+def build_ycbv_eval(cfg: Config, device=None, logger=None):
     """The YCB-V test dataset of cfg.hyper_dataset_test and its
-    EvalFrameLoader at hyper_dataloader_test's bs and num_workers.
-    device_preprocess and process workers raise: not ported yet."""
+    EvalFrameLoader at hyper_dataloader_test's bs, num_workers and
+    worker_type; with hyper_dataset_test.device_preprocess, the raw
+    candidates go through device preprocessing on `device` with YCB-V
+    test's keep-clamp at 32 (reference YCBV/dataloader_test_YCBV.py:
+    164-180)."""
     from dcl_net_tpu_torch.data.loader import EvalFrameLoader
     from dcl_net_tpu_torch.data.ycbv import YCBVTestDataset
 
     ds_cfg = cfg.hyper_dataset_test
-    if ds_cfg.get("device_preprocess", False):
-        raise NotImplementedError(
-            "hyper_dataset_test.device_preprocess: device-side preprocessing "
-            "is not ported yet")
     root, assets = ycbv_dirs(cfg)
     dataset = YCBVTestDataset(ds_cfg, root, assets_dir=assets)
+    collate, transform = build_device_preprocess(
+        ds_cfg, dataset, augment=False, eval_keep_clamp=True, keep_clamp_threshold=32,
+        seed=int(cfg.get("rd_seed", 1)), device=device, logger=logger)
     dl = cfg.hyper_dataloader_test
     loader = EvalFrameLoader(
         dataset, batch_size=int(dl.get("bs", 256)),
         num_workers=int(dl.get("num_workers", 8)),
-        worker_type=str(dl.get("worker_type", "thread")))
+        worker_type=str(dl.get("worker_type", "thread")),
+        collate=collate, batch_transform=transform)
     return dataset, loader
 
 
-def build_instance_eval_loader(cfg: Config, dataset):
+def build_instance_eval_loader(cfg: Config, dataset, device=None, logger=None,
+                               **keep_clamp):
     """The data/loader.py::BatchLoader of an instance-style eval dataset
     (LineMOD, Occlusion-LineMOD): dataset order, every row, the last batch
-    padded, at hyper_dataloader_test's bs and num_workers threads. Process
-    workers raise: not ported yet."""
+    padded, at hyper_dataloader_test's bs, num_workers and worker_type;
+    with hyper_dataset_test.device_preprocess, the raw candidates go
+    through device preprocessing on `device`, keep_clamp being
+    build_device_preprocess's eval_keep_clamp and keep_clamp_threshold."""
     from dcl_net_tpu_torch.data.loader import BatchLoader
 
+    collate, transform = build_device_preprocess(
+        cfg.hyper_dataset_test, dataset, augment=False, seed=int(cfg.get("rd_seed", 1)),
+        device=device, logger=logger, **keep_clamp)
     dl = cfg.hyper_dataloader_test
-    if str(dl.get("worker_type", "thread")) != "thread":
-        raise NotImplementedError(
-            f"worker_type {dl.worker_type!r}: the port's loaders run thread workers only")
     return BatchLoader(dataset, batch_size=int(dl.get("bs", 256)), shuffle=False,
-                       drop_last=False, num_workers=int(dl.get("num_workers", 8)))
+                       drop_last=False, num_workers=int(dl.get("num_workers", 8)),
+                       worker_type=str(dl.get("worker_type", "thread")),
+                       collate=collate, batch_transform=transform)
 
 
 def load_model_weights(model, path: str):

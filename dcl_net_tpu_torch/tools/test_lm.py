@@ -16,7 +16,10 @@ instance by ADD, or ADD-S for eggbox and glue, against 0.1 x its diameter;
 a lost detection (empty SegNet mask) is skipped. Writes
 <log_dir>/results_test_lm.json. model.interp_mode picks the point-feature
 path: the config's two-stage path (K2 -> centers -> K3), or pallas_fused
-(K2 -> K6).
+(K2 -> K6). hyper_dataset_test.device_preprocess runs the reader's numpy
+tail on the device (data/device_preprocess.py), with LM eval's volume filter
+whenever any candidate survives it (keep-clamp threshold 0, reference
+LM/dataloader_test_LM.py:195-204).
 """
 
 from __future__ import annotations
@@ -29,14 +32,17 @@ def main(argv=None):
     return run_add_eval(argv, "test_lm", "DCL-Net LineMOD eval (PyTorch)",
                         lambda cfg: LineMODDataset("eval", cfg.hyper_dataset_test,
                                                    lm_root(cfg)),
-                        lambda cfg, ds: ds.diameters(), LM_SYM_IDX, count_lost=False)
+                        lambda cfg, ds: ds.diameters(), LM_SYM_IDX, count_lost=False,
+                        keep_clamp=dict(eval_keep_clamp=True, keep_clamp_threshold=0))
 
 
 def run_add_eval(argv, tool_name: str, description: str, make_dataset, diameters,
-                 sym_class_ids, count_lost: bool):
+                 sym_class_ids, count_lost: bool, keep_clamp: dict):
     """The add_0.1d eval CLI: config, model and weights, the dataset
-    make_dataset(cfg) in a BatchLoader, Evaluator with diameters(cfg,
-    dataset), the results file <log_dir>/results_<tool_name>.json."""
+    make_dataset(cfg) in a BatchLoader (keep_clamp: the device
+    preprocessing's eval keep-clamp, build_device_preprocess's arguments),
+    Evaluator with diameters(cfg, dataset), the results file
+    <log_dir>/results_<tool_name>.json."""
     from dcl_net_tpu_torch import resolve_device, strict_f32
     from dcl_net_tpu_torch.eval.evaluator import Evaluator
     from dcl_net_tpu_torch.tools.common import (
@@ -54,13 +60,17 @@ def run_add_eval(argv, tool_name: str, description: str, make_dataset, diameters
     model = build_model(cfg, device=device)
     dataset = make_dataset(cfg)
     load_model_weights(model, checkpoint_path(args, cfg))
-    loader = build_instance_eval_loader(cfg, dataset)
+    loader = build_instance_eval_loader(cfg, dataset, device=device, logger=logger,
+                                        **keep_clamp)
     evaluator = Evaluator(model, dataset.model_points_array(), protocol="add_0.1d",
                           sym_class_ids=sym_class_ids,
                           diameters=diameters(cfg, dataset), count_lost=count_lost,
                           template_bank=dataset.template_bank(), device=device,
                           logger=logger)
-    result = evaluator.evaluate(iter(loader))
+    try:
+        result = evaluator.evaluate(iter(loader))
+    finally:
+        loader.close()  # a process pool's workers
     logger.warning(f"mean success rate: {result['success_mean']}")
     write_result_json(cfg, tool_name, result)
     return result

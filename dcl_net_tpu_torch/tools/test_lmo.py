@@ -10,7 +10,10 @@ Counterpart of dcl_net_tpu/tools/test_lmo.py. Reads
 <path_data>/LMO_Masks and LineMOD's meshes and models_info.yml under
 <path_data>/Linemod_preprocessed/models (data/linemod.py::
 OcclusionLineMODDataset), and scores as tools/test_lm.py does, except that
-a lost detection (empty mask) counts as a failure of its object. Writes
+a lost detection (empty mask) counts as a failure of its object, and the
+device preprocessing (hyper_dataset_test.device_preprocess) has no
+keep-clamp: a row is invalid when no candidate survives the volume filter
+(reference LM/dataloader_test_LMO.py, min_keep 0). Writes
 <log_dir>/results_test_lmo.json.
 """
 
@@ -34,7 +37,7 @@ def main(argv=None):
         return dataset.diameters(os.path.join(lm_root(cfg), "models", "models_info.yml"))
 
     return run_add_eval(argv, "test_lmo", "DCL-Net Occlusion-LineMOD eval (PyTorch)",
-                        make_dataset, diameters, LMO_SYM_IDX, count_lost=True)
+                        make_dataset, diameters, LMO_SYM_IDX, count_lost=True, keep_clamp={})
 
 
 if __name__ == "__main__":

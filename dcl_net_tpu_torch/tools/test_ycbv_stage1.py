@@ -12,6 +12,8 @@ port or a reference .pth, encodes each class's template once, scores every
 ground-truth instance by ADD-S (a lost detection scores inf), logs the mean
 AUC and <2 cm accuracy, and writes <log_dir>/results_test_ycbv_stage1.json.
 model.interp_mode picks the point-feature path (default two-stage).
+hyper_dataset_test.device_preprocess runs the readers' numpy tail on the
+device (data/device_preprocess.py) with the test loader's keep-clamp at 32.
 """
 
 from __future__ import annotations
@@ -39,11 +41,14 @@ def main(argv=None):
 
     model = build_model(cfg, device=device)
     load_model_weights(model, checkpoint_path(args, cfg))
-    dataset, loader = build_ycbv_eval(cfg)
+    dataset, loader = build_ycbv_eval(cfg, device=device, logger=logger)
     evaluator = Evaluator(model, dataset.model_points_array(),
                           template_bank=dataset.template_bank(), device=device,
                           logger=logger)
-    result = evaluator.evaluate(iter(loader))
+    try:
+        result = evaluator.evaluate(iter(loader))
+    finally:
+        loader.close()  # a process pool's workers
     logger.warning(f"ADD-S AUC mean: {result['auc_mean']}  <2cm: {result['acc_mean']}")
     write_result_json(cfg, "test_ycbv_stage1", result)
     return result

@@ -42,12 +42,15 @@ def main(argv=None):
     load_model_weights(model, args.checkpoint_stage1)
     refiner = Refiner(n_inp=int(cfg.model.n_inp), device=device)
     load_model_weights(refiner, checkpoint_path(args, cfg))
-    dataset, loader = build_ycbv_eval(cfg)
+    dataset, loader = build_ycbv_eval(cfg, device=device, logger=logger)
     evaluator = Stage2Evaluator(model, refiner, dataset.model_points_array(),
                                 iterations=args.iteration,
                                 template_bank=dataset.template_bank(),
                                 device=device, logger=logger)
-    result = evaluator.evaluate(iter(loader))
+    try:
+        result = evaluator.evaluate(iter(loader))
+    finally:
+        loader.close()  # a process pool's workers
     logger.warning(f"ADD-S AUC mean: {result['auc_mean']}  <2cm: {result['acc_mean']}")
     write_result_json(cfg, "test_ycbv_stage2", result)
     return result

@@ -10,6 +10,12 @@ Trains on the config's dataset with its optimizer and schedule, writes
 <log_root>/<model>_<config>_id<exp_id>/ (logger, scalars.jsonl, epoch_<n>/
 checkpoints) and resumes from the newest checkpoint there.
 cfg.train_template_bank encodes the per-class template bank once per step.
+hyper_dataloader_train.worker_type picks thread or process workers;
+hyper_dataset_train.device_preprocess runs the reader's numpy tail on the
+device (data/device_preprocess.py) in the loader's producer thread, and
+samples_per_frame then draws that many instances from each decoded frame.
+Process workers need a __main__ that is a file (python -m or a script):
+forkserver imports it in each worker.
 """
 
 from __future__ import annotations
@@ -20,7 +26,8 @@ def main(argv=None) -> None:
     from dcl_net_tpu_torch.data.loader import BatchLoader
     from dcl_net_tpu_torch.models.dcl_net import dcl_losses
     from dcl_net_tpu_torch.tools.common import (
-        base_parser, build_model, build_train_dataset, init, refuse_data_parallel,
+        base_parser, build_device_preprocess, build_model, build_train_dataset, init,
+        refuse_data_parallel,
     )
     from dcl_net_tpu_torch.train.checkpoints import latest_checkpoint
     from dcl_net_tpu_torch.train.logging import ScalarWriter, parameter_count
@@ -38,11 +45,17 @@ def main(argv=None) -> None:
     logger.info("=> creating model ...")
     model = build_model(cfg, device=device, seed=seed)
     dataset = build_train_dataset(cfg)
+    collate, transform = build_device_preprocess(
+        cfg.hyper_dataset_train, dataset, augment=True, seed=seed, device=device,
+        logger=logger)
     dl = cfg.hyper_dataloader_train
     loader = BatchLoader(
         dataset, batch_size=int(dl.bs), shuffle=bool(dl.get("shuffle", True)),
         drop_last=bool(dl.get("drop_last", True)),
-        num_workers=int(dl.get("num_workers", 8)), seed=seed)
+        num_workers=int(dl.get("num_workers", 8)), seed=seed,
+        worker_type=str(dl.get("worker_type", "thread")), collate=collate,
+        batch_transform=transform,
+        samples_per_item=getattr(dataset, "samples_per_frame", 1))
     writer = ScalarWriter(cfg.log_dir)
     bank = None
     if cfg.get("train_template_bank") and hasattr(dataset, "template_bank"):
@@ -58,8 +71,11 @@ def main(argv=None) -> None:
     if resume:
         logger.warning(f"resuming from {resume}")
         solver.restore(resume)
-    solver.solve()
-    writer.close()
+    try:
+        solver.solve()
+    finally:
+        loader.close()
+        writer.close()
     logger.warning("training done")
 
 

@@ -1,11 +1,15 @@
 #!/usr/bin/env python3
 """Where the time of the PyTorch port's stage-1 training step goes, on one GPU.
 
-Usage, from the root of the repository:  python3 scripts/profile_torch_train.py
+Usage, from the root of the repository:
+  python3 scripts/profile_torch_train.py [--config configs/config_YCBV_bs32.yaml]
+                                         [--override key=value ...]
 
-Runs the training path of chip_smoke.py (the full-width DCLNet of
-configs/config_YCBV_bs32.yaml with seeded random weights, that config's
-optimizer and schedule, batches of 32 from the synthetic dataset) and prints:
+Runs the training path of chip_smoke.py (the full-width DCLNet of the
+config, configs/config_YCBV_bs32.yaml by default, with seeded random
+weights, its optimizer and schedule, its batch size and template bank
+(train_template_bank), batches from the synthetic dataset's 16 classes)
+and prints:
  1. the device time of one train step by stage, from CUDA events that the
     step records as it queues each stage (make_train_step's on_stage hook):
     forward, loss, backward, optimizer (flat gradient, AutoClip, Adam,
@@ -25,7 +29,6 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
-BATCH = 32
 WARMUP = 2
 STAGE_STEPS = 5
 EPOCH_STEPS = 4
@@ -91,8 +94,16 @@ def print_groups(title: str, kernels) -> None:
         print(f"  {g:22s} {d / 1e3:9.3f} ms  {100 * d / total:5.1f} %")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
+
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--config", default=str(ROOT / "configs" / "config_YCBV_bs32.yaml"))
+    parser.add_argument("--override", nargs="*", default=[],
+                        help="config overrides key.subkey=value")
+    args = parser.parse_args(argv)
 
     if not torch.cuda.is_available():
         print("profile_torch_train: no CUDA device", file=sys.stderr)
@@ -116,20 +127,26 @@ def main() -> int:
     strict_f32()
     dev = torch.device("cuda")
 
-    cfg = Config.fromfile(str(ROOT / "configs" / "config_YCBV_bs32.yaml"))
+    cfg = Config.fromfile(args.config).apply_overrides(args.override)
     cfg = cfg.merge({"per_write": 1, "per_save": 0})
     mcfg = cfg.model
+    batch_size = int(cfg.hyper_dataloader_train.bs)
     n_steps = WARMUP + STAGE_STEPS + 2 + EPOCH_STEPS
     ds = SyntheticPoseDataset(n_objects=16, n_points=int(mcfg.n_inp),
                               unit_voxel_extent=tuple(mcfg.unit_voxel_extent),
                               voxel_num_limit=tuple(int(d) for d in mcfg.voxel_num_limit),
-                              length=BATCH * n_steps, seed=0)
-    loader = BatchLoader(ds, batch_size=BATCH, num_workers=8, seed=1)
+                              length=batch_size * n_steps, seed=0)
+    loader = BatchLoader(ds, batch_size=batch_size, num_workers=8, seed=1)
     host_batches = list(loader)
     batches = [batch_to_torch(b, dev) for b in host_batches[:WARMUP + STAGE_STEPS + 2]]
     model = DCLNet.from_config(mcfg, seed=0)
-    solver = Solver(model, dcl_losses, cfg, loader)
+    bank = ds.template_bank() if cfg.get("train_template_bank") else None
+    solver = Solver(model, dcl_losses, cfg, loader, template_bank=bank)
     solver.initialize()
+    print(f"{Path(args.config).name} {' '.join(args.override)}: batch {batch_size}, template bank "
+          f"{bank is not None}, remat {model.remat}, peak memory of the steps below printed "
+          "last", flush=True)
+    torch.cuda.reset_peak_memory_stats()
 
     # ---- 1. per-stage device time of one step, CUDA events --------------------
     marks = []
@@ -139,7 +156,9 @@ def main() -> int:
         event.record()
         marks.append((stage, event))
 
-    timed_step = make_train_step(model, solver.opt, dcl_losses, on_stage=mark)
+    timed_step = make_train_step(model, solver.opt, dcl_losses, on_stage=mark,
+                                 template_bank=None if bank is None else batch_to_torch(
+                                     dict(bank), dev))
     for b in batches[:WARMUP]:
         solver.train_step(solver.state, b)
     torch.cuda.synchronize()
@@ -153,7 +172,7 @@ def main() -> int:
         for (_, e0), (stage, e1) in zip(marks[:-1], marks[1:]):
             runs[stage].append(e0.elapsed_time(e1))
     total = sum(statistics.median(v) for v in runs.values())
-    print(f"per-stage device time of one train step of batch {BATCH} "
+    print(f"per-stage device time of one train step of batch {batch_size} "
           f"(median of {STAGE_STEPS}, CUDA events):")
     for s in stages:
         m = statistics.median(runs[s])
@@ -164,9 +183,11 @@ def main() -> int:
     params = [p for p in model.parameters() if p.requires_grad]
     b = batches[WARMUP + STAGE_STEPS]
     model.train()
+    bank_t = None if bank is None else batch_to_torch(dict(bank), dev)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof_f:
-        losses = dcl_losses(model(b), b)
+        pred = model(b) if bank_t is None else model.forward_with_template_bank(b, bank_t)
+        losses = dcl_losses(pred, b)
         torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof_b:
         torch.autograd.grad(losses["loss_all"], params)
@@ -198,6 +219,8 @@ def main() -> int:
     print("top kernels by device time:")
     for name, d in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
         print(f"  {d / 1e3:9.3f} ms  {name[:110]}")
+    print(f"peak device memory over the steps: {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} "
+          "GiB")
     return 0
 
 

@@ -6,7 +6,8 @@ LineMOD readers, the PNG decoder's wrapper, the reference .pth converter
 and the YCB-V, LineMOD and Occlusion-LineMOD eval CLIs among them; and of
 chip_smoke.py, the scripts/profile_torch_*.py, the tree writers
 scripts/ycbv_tree.py and scripts/lm_tree.py and the row counter
-scripts/lm_level_occupancy.py), then a fresh interpreter that imports them all with
+scripts/lm_level_occupancy.py and the pooling check
+scripts/window_sum_large_batch.py), then a fresh interpreter that imports them all with
 jax, flax and dcl_net_tpu blocked in sys.modules. Importing builds nothing:
 the kernels and the PNG host library are compiled at first use only, so
 the import runs with subprocess creation blocked.
@@ -27,7 +28,8 @@ FILES = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                          ROOT / "scripts" / "profile_torch_train.py",
                                          ROOT / "scripts" / "ycbv_tree.py",
                                          ROOT / "scripts" / "lm_tree.py",
-                                         ROOT / "scripts" / "lm_level_occupancy.py"]
+                                         ROOT / "scripts" / "lm_level_occupancy.py",
+                                         ROOT / "scripts" / "window_sum_large_batch.py"]
 
 
 def _imported_roots(path: Path):

@@ -177,13 +177,16 @@ def test_mask_to_bbox_and_snap_match_cv2():
         assert lm.lm_bbox_snap(box) == jlm.lm_bbox_snap(box)
 
 
-@pytest.mark.parametrize("extra", [{"device_preprocess": True}, {"samples_per_frame": 2}])
+@pytest.mark.parametrize("extra", [{"samples_per_frame": 2}])
 def test_raw_mode_is_refused(trees, extra):
-    with pytest.raises(NotImplementedError, match="A 6"):
+    """samples_per_frame > 1 without device_preprocess: the train reader
+    refuses it (the numpy path draws one instance a frame); an eval reader
+    draws one sample a row whatever the key says, as the JAX reader does."""
+    with pytest.raises(ValueError, match="needs device_preprocess"):
         lm.LineMODDataset("train", Config({**DS, **extra}), trees["lm"])
-    with pytest.raises(NotImplementedError, match="A 6"):
-        lm.OcclusionLineMODDataset("eval", Config({**DS, **extra}), trees["lmo"],
-                                   trees["models"], masks_dir=trees["masks"])
+    lmo = lm.OcclusionLineMODDataset("eval", Config({**DS, **extra}), trees["lmo"],
+                                     trees["models"], masks_dir=trees["masks"])
+    assert lmo.samples_per_frame == 1 and not lmo.raw_mode
 
 
 def test_lm_tree_writer_reads_alike_in_both_packages(tmp_path):

@@ -73,7 +73,7 @@ def test_train_stage2_writes_checkpoint_eval_and_resumes(tmp_path, stage1_checkp
 
 
 @pytest.mark.parametrize("ckpt, extra, match", [
-    ("reference.pth", ["--override", "model.remat=true"], "not ported"),
+    ("reference.pth", ["--override", "model.voxelization_mode=2"], "not ported"),
     (None, ["--n_devices", "2"], "data parallelism"),
     (None, ["--override", "model.interp_mode=local"], "not ported"),
 ])

@@ -1,6 +1,7 @@
 """The port's stage-1 training CLI on the CPU at tiny shapes: it writes its
 run directory and resumes from it, in f32 and in bf16 (whose checkpoint
-then evaluates in either type), and refuses what it does not run yet."""
+then evaluates in either type), and refuses what it does not run yet (a
+voxelization mode, interp_mode local, a worker type it lacks)."""
 
 import json
 import os
@@ -76,8 +77,9 @@ def test_train_stage1_template_bank_option(tmp_path):
 
 @pytest.mark.parametrize("extra, match", [
     (["--n_devices", "2"], "data parallelism"),
-    (["--override", "model.remat=true"], "not ported"),
+    (["--override", "model.voxelization_mode=2"], "not ported"),
     (["--override", "model.interp_mode=local"], "not ported"),
+    (["--override", "hyper_dataloader_train.worker_type=fiber"], "not ported"),
 ])
 def test_train_stage1_refuses_what_is_not_ported(tmp_path, extra, match):
     args = ["--config", CONFIG, "--log_root", str(tmp_path), "--device", "cpu"]

@@ -150,10 +150,10 @@ def test_stage1_cli_matches_jax(runs, monkeypatch):
 
 
 @pytest.mark.parametrize("extra, match", [
-    (["--override", *OVERRIDES, "model.remat=true"], "not ported"),
+    (["--override", *OVERRIDES, "model.voxelization_mode=2"], "not ported"),
     (["--n_devices", "2"], "data parallelism"),
-    (["--override", *OVERRIDES, "hyper_dataset_test.device_preprocess=true"], "not ported"),
-    (["--override", *OVERRIDES, "hyper_dataloader_test.worker_type=process"], "thread"),
+    (["--override", *OVERRIDES, "model.interp_mode=local"], "not ported"),
+    (["--override", *OVERRIDES, "hyper_dataloader_test.worker_type=fiber"], "thread"),
 ])
 def test_stage1_cli_refuses_what_is_not_ported(runs, extra, match):
     # a reference .pth is taken: test_stage1_cli_reads_a_reference_pth

@@ -290,14 +290,24 @@ def test_tree_writer_tree_reads_like_the_fixture(tmp_path):
 
 @pytest.mark.parametrize("extra", [{"device_preprocess": True}, {"samples_per_frame": 2}])
 def test_raw_mode_is_refused(tree, extra):
+    """What raw-candidate mode refuses, as the JAX reader does or more
+    strictly: the per-frame protocol iteration (frames() needs the numpy
+    path), and samples_per_frame > 1 in a train reader without
+    device_preprocess (the numpy path draws one instance a frame)."""
     root, assets = tree
-    for cls in (ycbv.YCBVTestDataset, ycbv.YCBVTrainDataset):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            cls(Config({**DS, **extra}), root, assets_dir=assets)
+    cfg = Config({**DS, **extra})
+    if "device_preprocess" in extra:
+        with pytest.raises(ValueError, match="numpy path"):
+            next(ycbv.YCBVTestDataset(cfg, root, assets_dir=assets).frames())
+        with pytest.raises(ValueError, match="numpy pipeline"):
+            next(jycbv.YCBVTestDataset(JaxConfig({**DS, **extra}), root,
+                                       assets_dir=assets).frames())
+    else:
+        with pytest.raises(ValueError, match="needs device_preprocess"):
+            ycbv.YCBVTrainDataset(cfg, root, assets_dir=assets)
 
 
-@pytest.mark.parametrize("kw", [{"worker_type": "process"}, {"collate": lambda s, pad_to: s},
-                                {"batch_transform": lambda b: b}])
+@pytest.mark.parametrize("kw", [{"worker_type": "fiber"}])
 def test_eval_frame_loader_refuses_what_is_not_ported(kw):
     with pytest.raises(NotImplementedError):
         EvalFrameLoader([], batch_size=4, **kw)
