@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Run the PyTorch/CUDA port's stage-1 and stage-2 inference and training on
+"""Run the PyTorch/CUDA port's stage-1 and stage-2 inference, training and serving on
 one NVIDIA GPU, on the two-stage and the fused point-feature paths.
 
 Usage, from the root of the repository:  python3 chip_smoke.py
@@ -150,7 +150,23 @@ Phases, any failure exits non-zero:
     (torch.profiler, kernels only) and peak memory; then no process this
     script started may still run (the process workers' forkserver and
     multiprocessing's resource tracker are stopped and waited for);
-14. prints the per-kernel JSON line (the f32 kernels and the bf16
+14. serving (dcl_net_tpu_torch/serving.py, the kernels reached through the
+    dclx custom ops of ops/library.py): torch.library.opcheck of each op on
+    the card in f32 and bf16, and the host time of a call through each op
+    against its launch function; a two-stage f32 bundle of the phase-4 model
+    (fixed batches 1, 16, 64, 512 and the batch-polymorphic artifact, one
+    template encode) exported, saved and loaded in a fresh BundleServer,
+    requests of 1, 5, 32, 100, 512 and 700 rows (700: two chunks) served,
+    each row's pose within POSE_ATOL of Evaluator's and its overflow equal,
+    each chunk launching K1 1, K2 4, K3 4 (no template encode); the poly
+    artifact at 3 and 40 rows; a child process that imports only
+    dcl_net_tpu_torch.serving, loads the bundle from disk and serves 5
+    rows torch.equal to this process's; a fused stage-2 artifact (K1, K2,
+    K6) against Stage2Evaluator and a bf16 artifact at batch 32 (bf16
+    kernels only) against the bf16 Evaluator (BF16_POSE_DEG, BF16_POSE_MM);
+    each artifact's export seconds and bytes, and served instances/s at 32
+    and 512 beside the eager serving module's and phase 4's Evaluator's;
+15. prints the per-kernel JSON line (the f32 kernels and the bf16
     variants), then the result line {"ok": true, "device": {...}} last.
 """
 
@@ -2470,6 +2486,348 @@ def throughput_phase(card: str, entries: dict, mcfg, train_batch) -> None:
     print(f"throughput training phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+# ---- phase 14: serving --------------------------------------------------------
+SERVE_BATCHES = (1, 16, 64, 512)  # the fixed-batch artifacts of the bundle (the CLI's default)
+SERVE_REQUESTS = (1, 5, 32, 100, 512, 700)  # 700: a chunk of 512, then one of 188 padded
+POLY_REQUESTS = (3, 40)
+SERVE_RATE_CALLS = {BATCH: 20, 512: 4}  # timed requests at each size, after a warm-up
+TWO_STAGE_ENCODE = {"voxelize": 1, "compact": 4, "interp": 4}
+FUSED_ENCODE = {"voxelize": 1, "compact": 4, "fused": 4}
+# the child process of the fresh-load check: it imports dcl_net_tpu_torch.serving and
+# nothing else of the repository, loads the bundle from disk and serves one request
+SERVE_CHILD = """
+import sys
+import torch
+from dcl_net_tpu_torch.serving import BundleServer
+bundle, request, out = sys.argv[1:]
+torch.save(BundleServer(bundle)(*torch.load(request)), out)
+"""
+
+
+def host_us(fn, calls: int = 200) -> float:
+    """Host microseconds a call of fn, over `calls` calls after a warm-up
+    (inputs small enough that the card keeps up)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def opcheck_on_card(batch, entries: dict) -> None:
+    """torch.library.opcheck of each dclx op on the card, f32 and bf16, on
+    the first 4 rows of a batch at a 16^3 grid: the fake implementations
+    give the shapes, types and strides the kernels write. Then the host
+    cost of a call through each f32 op against a direct call of its launch
+    (`*_kernel`), the op dispatch's share (entries: op_host_us,
+    launch_host_us)."""
+    import torch
+
+    from dcl_net_tpu_torch.data.schema import batch_to_torch
+    from dcl_net_tpu_torch.ops import (
+        cuda_compact, cuda_fused, cuda_interp, cuda_voxelize, library,
+    )
+
+    tb = batch_to_torch(batch, "cuda")
+    feats = tb["inp"]["feats"][:4].contiguous()
+    vidx = torch.clamp(tb["inp"]["voxel_idx"][:4] // 4, max=15).contiguous()
+    ops = torch.ops.dclx
+    for dtype in (torch.float32, torch.bfloat16):
+        grid, count = ops.voxelize(feats, vidx, [16, 16, 16], 4, None, dtype)
+        mask = (count > 0).to(torch.float32)
+        cases = {"voxelize": (feats, vidx, [16, 16, 16], 4, None, dtype),
+                 "dense_to_sparse": (grid, mask, 512)}
+        coords, rows, vmask, occ = cuda_compact.dense_to_sparse_cuda(grid, mask, 512)
+        points = feats[..., 4:7].contiguous()
+        centers = coords.to(torch.float32) * 0.024 - 0.18
+        cases["nn_interpolate"] = (points, centers, rows, vmask, occ)
+        cases["compact_interpolate"] = (points, coords, rows, vmask, occ, [0.024] * 3,
+                                        [-0.18] * 3)
+        for name in library.OPS:
+            torch.library.opcheck(getattr(ops, name).default, cases[name])
+    torch.cuda.synchronize()
+    print(f"opcheck of the dclx ops {library.OPS} on the card, f32 and bf16: passed",
+          flush=True)
+    launch = {"voxelize": cuda_voxelize.voxelize_kernel,
+              "dense_to_sparse": cuda_compact.dense_to_sparse_kernel,
+              "nn_interpolate": cuda_interp.nn_interpolate_kernel,
+              "compact_interpolate": cuda_fused.compact_interpolate_kernel}
+    keys = {"voxelize": "voxelize", "dense_to_sparse": "compact", "nn_interpolate": "interp",
+            "compact_interpolate": "fused"}
+    for name, args in cases.items():  # the bf16 cases
+        args = tuple(a.float() if isinstance(a, torch.Tensor) and a.dtype == torch.bfloat16
+                     else a for a in args)
+        if name == "voxelize":
+            args = args[:-1] + (None,)
+        op = getattr(ops, name)
+        e = entries[keys[name]]
+        e["op_host_us"] = host_us(lambda: op(*args))
+        e["launch_host_us"] = host_us(lambda: launch[name](*args))
+        print(f"dclx::{name} on {tuple(args[0].shape)}: {e['op_host_us']:.1f} us a call "
+              f"through the op, {e['launch_host_us']:.1f} us through its launch function "
+              f"(host clock, 200 calls)", flush=True)
+
+
+def serve_request(server, pool: dict, n: int):
+    """Rows np.resize(arange(rows), n) of pool (feats, voxel_idx, obj_idx on
+    the card, and the Evaluator's rot_pred, trans_pred, overflow of each
+    row), served by `server`: (the served outputs, the Evaluator's rows,
+    the chunks' launch counts)."""
+    import numpy as np
+    import torch
+
+    idx = torch.as_tensor(np.resize(np.arange(pool["feats"].shape[0]), n), device="cuda")
+    reset_counts()
+    out = server(pool["feats"][idx], pool["voxel_idx"][idx], pool["obj_idx"][idx])
+    torch.cuda.synchronize()
+    return out, {k: pool[k][idx] for k in ("rot_pred", "trans_pred", "overflow")}, read_counts()
+
+
+def check_served(what: str, out, ref, rows: int, deg: float = None, mm: float = None):
+    """Served poses against the Evaluator's rows: within POSE_ATOL (or within
+    deg and mm, bf16), overflow equal; returns the largest differences."""
+    import torch
+
+    check(tuple(out["rot_pred"].shape) == (rows, 3, 3) and tuple(out["trans_pred"].shape)
+          == (rows, 3), f"{what}: output shapes")
+    check(bool(torch.isfinite(out["rot_pred"]).all() and torch.isfinite(out["trans_pred"]).all()),
+          f"{what}: non-finite poses")
+    check(torch.equal(out["overflow"], ref["overflow"]), f"{what}: overflow differs")
+    if deg is not None:
+        keep = torch.ones(rows, dtype=torch.bool, device=out["rot_pred"].device)
+        d_rot, d_trans = pose_drift(out, ref, keep)
+        check(d_rot.max() < deg and d_trans.max() < mm,
+              f"{what}: rot {d_rot.max():.4g} deg trans {d_trans.max():.4g} mm")
+        return float(d_rot.max()), float(d_trans.max())
+    e_rot = max_err(out["rot_pred"], ref["rot_pred"])
+    e_trans = max_err(out["trans_pred"].float(), ref["trans_pred"])
+    check(e_rot <= POSE_ATOL and e_trans <= POSE_ATOL,
+          f"{what}: rot_pred {e_rot:.3g} trans_pred {e_trans:.3g} above {POSE_ATOL}")
+    return e_rot, e_trans
+
+
+def evaluator_rows(ev, batches) -> dict:
+    """Each row of the batches on the card with the Evaluator's pose and
+    overflow flag for it."""
+    import torch
+
+    from dcl_net_tpu_torch.data.schema import batch_to_torch
+
+    dev = torch.device("cuda")
+    tbs = [batch_to_torch(b, dev) for b in batches]
+    outs = [ev._run(tb) for tb in tbs]
+    pool = {"feats": torch.cat([tb["inp"]["feats"] for tb in tbs]),
+            "voxel_idx": torch.cat([tb["inp"]["voxel_idx"] for tb in tbs]),
+            "obj_idx": torch.cat([tb["labels"]["obj_idx"] for tb in tbs])}
+    for k in ("rot_pred", "trans_pred", "overflow"):
+        pool[k] = torch.cat([o[k] for o in outs])
+    return pool
+
+
+def served_rate(fn, pool: dict, n: int) -> float:
+    """Instances/s of `fn` on requests of n rows of pool, over
+    SERVE_RATE_CALLS[n] calls after one warm-up call (host clock, card
+    synchronised)."""
+    import numpy as np
+    import torch
+
+    idx = torch.as_tensor(np.resize(np.arange(pool["feats"].shape[0]), n), device="cuda")
+    args = (pool["feats"][idx], pool["voxel_idx"][idx], pool["obj_idx"][idx])
+    calls = SERVE_RATE_CALLS[n]
+    with torch.inference_mode():
+        fn(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn(*args)
+        torch.cuda.synchronize()
+    return n * calls / (time.perf_counter() - t0)
+
+
+def serving_phase(card: str, mcfg, model, model_f, batches, bank, model_points,
+                  eval_rate: float, entries: dict) -> None:
+    """Phase 14, serving (dcl_net_tpu_torch/serving.py): a two-stage f32
+    bundle (SERVE_BATCHES + the poly artifact) exported and served through
+    a fresh BundleServer at SERVE_REQUESTS, each row against Evaluator's
+    (POSE_ATOL, overflow equal) and each chunk's launches K1 1, K2 4, K3 4
+    (no template encode); the poly artifact at POLY_REQUESTS; a fused
+    stage-2 artifact against Stage2Evaluator; a bf16 artifact at BATCH
+    against the bf16 Evaluator (bf16 kernels only, BF16_POSE_DEG,
+    BF16_POSE_MM); a child process that imports only serving.py, loads the
+    bundle from disk and serves one request torch.equal to this process;
+    each artifact's export seconds and bytes, and served instances/s at 32
+    and 512 beside the Evaluator's (phase 4) and the eager serving
+    module's. cuDNN's autotuning is off, as in phase 4."""
+    import tempfile
+
+    import torch
+
+    from dcl_net_tpu_torch import serving
+    from dcl_net_tpu_torch.eval.evaluator import Evaluator, Stage2Evaluator
+    from dcl_net_tpu_torch.models.dcl_net import DCLNet
+    from dcl_net_tpu_torch.models.refiner import Refiner
+
+    t_phase = time.perf_counter()
+    saved_benchmark = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False
+    opcheck_on_card(batches[0], entries)
+    n_points = int(mcfg.n_inp)
+    pool = evaluator_rows(Evaluator(model, model_points, template_bank=bank), batches)
+    serve_counts = {k: 0 for k in KERNEL_ORDER}
+    with tempfile.TemporaryDirectory(prefix="dclx_serve_") as tmp:
+        tmp = Path(tmp)
+        # ---- the two-stage f32 bundle, each artifact's export timed
+        export_s = {}
+        export = serving._export
+
+        def timed_export(serve, batch_size, n):
+            t0 = time.perf_counter()
+            data = export(serve, batch_size, n)
+            export_s["poly" if batch_size is None else f"b{batch_size:05d}"] = (
+                time.perf_counter() - t0)
+            return data
+
+        serving._export = timed_export
+        t0 = time.perf_counter()
+        try:
+            arts = serving.export_bundle(model, bank, n_points, batch_sizes=SERVE_BATCHES)
+        finally:
+            serving._export = export
+        t_export = time.perf_counter() - t0
+        serving.save_bundle(str(tmp / "bundle"), arts, model)
+        print(f"serving bundle exported on {card} in {t_export:.1f} s (one template encode, "
+              f"{len(arts)} artifacts): " + ", ".join(
+                  f"{name} {export_s[name]:.1f} s {len(data)} bytes"
+                  for name, data in arts.items()), flush=True)
+        server = serving.BundleServer(str(tmp / "bundle"))
+        check(server.fixed_sizes == list(SERVE_BATCHES) and server.has_poly
+              and server.device.type == "cuda",
+              f"bundle manifest: {server.fixed_sizes} {server.has_poly} {server.device}")
+        t0 = time.perf_counter()
+        for name in arts:
+            server._fn(name)
+        print(f"bundle loaded in {time.perf_counter() - t0:.1f} s ({len(arts)} artifacts)",
+              flush=True)
+        for n in SERVE_REQUESTS:
+            out, ref, counts = serve_request(server, pool, n)
+            chunks = -(-n // SERVE_BATCHES[-1])
+            expect_counts(counts, TWO_STAGE_ENCODE, chunks, f"served request of {n}")
+            for k, c in counts.items():
+                serve_counts[k] += c
+            e_rot, e_trans = check_served(f"served request of {n}", out, ref, n)
+            print(f"served {n} rows in {chunks} chunk(s): rot_pred {e_rot:.3g} trans_pred "
+                  f"{e_trans:.3g} from Evaluator's; launches {counts}", flush=True)
+        poly = serving.load_serve(str(tmp / "bundle" / "poly.pt2"))
+        for n in POLY_REQUESTS:
+            out, ref, counts = serve_request(poly, pool, n)
+            expect_counts(counts, TWO_STAGE_ENCODE, 1, f"poly request of {n}")
+            e_rot, e_trans = check_served(f"poly request of {n}", out, ref, n)
+            for k, c in counts.items():
+                serve_counts[k] += c
+            print(f"poly artifact (batch in [1, {server.poly_max}]) served {n} rows: rot_pred "
+                  f"{e_rot:.3g} trans_pred {e_trans:.3g} from Evaluator's", flush=True)
+
+        # ---- a fresh process: serving.py alone, the bundle from disk
+        request = tuple(pool[k][:5].cpu() for k in ("feats", "voxel_idx", "obj_idx"))
+        torch.save(request, tmp / "request.pt")
+        here = server(*request)
+        t0 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, "-c", SERVE_CHILD, str(tmp / "bundle"), str(tmp / "request.pt"),
+             str(tmp / "served.pt")], cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, timeout=600)
+        check(child.returncode == 0, f"serving child process failed:\n{child.stdout[-4000:]}")
+        there = torch.load(tmp / "served.pt")
+        check(set(there) == set(here) and all(torch.equal(there[k].cuda(), here[k])
+                                              for k in here),
+              "the fresh process's outputs differ from this process's")
+        print(f"fresh process (imports dcl_net_tpu_torch.serving only) loaded the bundle and "
+              f"served 5 rows torch.equal to this process in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+
+        # ---- rates: the bundle (which pads 32 into its artifact of 64), the
+        # poly artifact at 32, the eager serving module, the Evaluator
+        eager = serving.make_serve_fn(model, serving.encode_template_cache(model, bank))
+        rates = {n: (served_rate(server, pool, n), served_rate(eager, pool, n))
+                 for n in SERVE_RATE_CALLS}
+        print(f"served instances/s on {card}: " + "; ".join(
+            f"batch {n}: bundle {r[0]:.1f}, eager serving module {r[1]:.1f}"
+            for n, r in rates.items()) + f"; poly artifact at {BATCH} "
+            f"{served_rate(poly, pool, BATCH):.1f}; Evaluator at batch {BATCH} in phase 4 "
+            f"{eval_rate:.1f} (ADD-S and host copies included)", flush=True)
+        del server, poly, eager, arts
+        torch.cuda.empty_cache()
+
+        # ---- a fused stage-2 artifact against Stage2Evaluator
+        refiner = Refiner(n_inp=n_points, seed=0)
+        t0 = time.perf_counter()
+        data = serving.export_serve_stage2(model_f, refiner, bank, BATCH, iterations=ITERATIONS)
+        t_export = time.perf_counter() - t0
+        serve2 = serving.load_serve(data)
+        ev2 = Stage2Evaluator(model_f, refiner, model_points, iterations=ITERATIONS,
+                              template_bank=bank)
+        pool2 = evaluator_rows(ev2, batches[:2])
+        for i in range(2):
+            sl = slice(i * BATCH, (i + 1) * BATCH)
+            reset_counts()
+            with torch.inference_mode():
+                out = serve2(pool2["feats"][sl], pool2["voxel_idx"][sl], pool2["obj_idx"][sl])
+            torch.cuda.synchronize()
+            counts = read_counts()
+            expect_counts(counts, FUSED_ENCODE, 1, "served stage-2 batch")
+            for k, c in counts.items():
+                serve_counts[k] += c
+            check(set(out) == {"rot_pred", "trans_pred", "conf", "overflow", "rot_stage1",
+                               "trans_stage1"}, f"stage-2 artifact outputs {sorted(out)}")
+            e_rot, e_trans = check_served("served stage-2 batch", out,
+                                          {k: v[sl] for k, v in pool2.items()}, BATCH)
+        print(f"fused stage-2 artifact ({ITERATIONS} refinement steps, batch {BATCH}): exported "
+              f"in {t_export:.1f} s, {len(data)} bytes; rot {e_rot:.3g} trans {e_trans:.3g} "
+              f"from Stage2Evaluator's", flush=True)
+        del serve2, ev2, data
+
+        # ---- a bf16 artifact against the bf16 Evaluator
+        model_b = DCLNet.from_config(mcfg, seed=0, dtype=torch.bfloat16)
+        t0 = time.perf_counter()
+        data = serving.export_serve(model_b, bank, BATCH, n_points)
+        t_export = time.perf_counter() - t0
+        serve_b = serving.load_serve(data)
+        pool_b = evaluator_rows(Evaluator(model_b, model_points, template_bank=bank),
+                                batches[:2])
+        worst = (0.0, 0.0)
+        for i in range(2):
+            sl = slice(i * BATCH, (i + 1) * BATCH)
+            reset_counts()
+            with torch.inference_mode():
+                out = serve_b(pool_b["feats"][sl], pool_b["voxel_idx"][sl],
+                              pool_b["obj_idx"][sl])
+            torch.cuda.synchronize()
+            counts = read_counts()
+            expect_counts(counts, {f"{k}_bf16": c for k, c in TWO_STAGE_ENCODE.items()}, 1,
+                          "served bf16 batch")
+            for k, c in counts.items():
+                serve_counts[k] += c
+            check(out["trans_pred"].dtype == torch.bfloat16, "bf16 artifact: trans_pred "
+                  f"{out['trans_pred'].dtype}")
+            d = check_served("served bf16 batch", out, {k: v[sl] for k, v in pool_b.items()},
+                             BATCH, BF16_POSE_DEG, BF16_POSE_MM)
+            worst = tuple(max(a, b) for a, b in zip(worst, d))
+        print(f"bf16 artifact (batch {BATCH}): exported in {t_export:.1f} s, {len(data)} bytes; "
+              f"rot {worst[0]:.4g} deg, trans {worst[1]:.4g} mm from the bf16 Evaluator's "
+              f"(bound {BF16_POSE_DEG} deg, {BF16_POSE_MM} mm)", flush=True)
+        del serve_b, model_b, data
+    for key, n in serve_counts.items():
+        if n:
+            entries[key]["serve_launches"] = n  # every served request of the phase
+    torch.backends.cudnn.benchmark = saved_benchmark
+    torch.cuda.empty_cache()
+    print(f"serving phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3145,7 +3503,11 @@ def main() -> int:
     throughput_phase(card, entries, mcfg, batch_to_torch(batches[0], dev))
     stop_child_processes()
 
-    # ---- 14. result lines -----------------------------------------------------
+    # ---- 14. serving: the bundle, the poly, stage-2 and bf16 artifacts ---------
+    torch.cuda.empty_cache()
+    serving_phase(card, mcfg, model, model_f, batches, bank, model_points, inst_s, entries)
+
+    # ---- 15. result lines -----------------------------------------------------
     print(json.dumps({"kernels": [entries[k] for k in KERNEL_ORDER]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

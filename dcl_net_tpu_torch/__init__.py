@@ -9,7 +9,9 @@ interpolation's and the compaction's backwards) live in ``csrc/`` and are
 built with nvcc at first use; a CPU tensor takes each kernel's plain version.
 Stage 2 (the refiner) is plain PyTorch on top of a stage-1 model. Inference
 and training also run in bf16 (model.compute_dtype: bfloat16) through bf16
-variants of the kernels.
+variants of the kernels. The forward kernels are torch.library custom ops
+(ops/library.py), so that serving.py can export the eval forward, with its
+weights and template cache, as torch.export artifacts.
 """
 
 import torch

@@ -33,7 +33,9 @@ from torch import nn
 
 from dcl_net_tpu_torch.models.blocks import SparseConvBlock
 from dcl_net_tpu_torch.ops import cuda_compact, cuda_fused, cuda_interp
-from dcl_net_tpu_torch.ops.sparse_conv import sparse_avg_pool, voxel_center_affine
+from dcl_net_tpu_torch.ops.sparse_conv import (
+    sparse_avg_pool, voxel_center_affine, window_sum_rows,
+)
 
 
 class SparseBackbone(nn.Module):
@@ -43,6 +45,7 @@ class SparseBackbone(nn.Module):
                  stride_layers: Sequence[int] = (1, 3, 5), kernel_size: int = 3,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dims = tuple(dims)
         self.kernel_size = kernel_size
         self.module_end = set(stride_layers) | {len(dims) - 2}
         for i in range(len(dims) - 1):
@@ -50,6 +53,18 @@ class SparseBackbone(nn.Module):
             self.add_module(f"conv{i}", SparseConvBlock(
                 dims[i], dims[i + 1], kernel_size, subm=subm, dtype=dtype))
         self.n_layers = len(dims) - 1
+
+    def unchunked_batch(self, grid_shape: Sequence[int]) -> int:
+        """The largest batch whose pools all run unchunked on a grid_shape
+        input (ops/sparse_conv.py::window_sum_rows): past it a pool's
+        window sums branch on the batch size."""
+        k, pad = self.kernel_size, self.kernel_size // 2
+        spatial, rows = tuple(int(d) for d in grid_shape), []
+        for i in sorted(self.module_end):
+            # the features' window sum (the counts' has one channel: more rows)
+            rows.append(window_sum_rows(self.dims[i + 1], spatial, pad))
+            spatial = tuple((d + 2 * pad - k) // 2 + 1 for d in spatial)
+        return min(rows)
 
     def forward(self, grid: torch.Tensor, mask: torch.Tensor
                 ) -> List[Tuple[torch.Tensor, torch.Tensor]]:

@@ -164,3 +164,12 @@ def require(cond: bool, kernel: str, what) -> None:
     returning one: a wrapper checks its inputs on every call."""
     if not cond:
         raise ValueError(f"{kernel}: {what() if callable(what) else what}")
+
+
+def require_device(t, kernel: str) -> None:
+    """Raise ValueError("<kernel>: unsupported device ...") unless `t` lies on
+    the CPU (the plain version) or on CUDA (the kernel): a wrapper checks this
+    before its op, which would answer a meta tensor from its fake
+    implementation."""
+    require(t.device.type in ("cpu", "cuda"), kernel,
+            lambda: f"unsupported device {t.device}")

@@ -66,6 +66,16 @@ def dense_to_sparse_reference(
 def dense_to_sparse_cuda(
     feats: torch.Tensor, mask: torch.Tensor, capacity: int
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2 through the op dclx::dense_to_sparse (ops/library.py):
+    `dense_to_sparse_kernel` on a CUDA tensor, the plain version on a CPU
+    one."""
+    cuda_build.require_device(feats, "dense_to_sparse_cuda")
+    return torch.ops.dclx.dense_to_sparse(feats, mask, int(capacity))
+
+
+def dense_to_sparse_kernel(
+    feats: torch.Tensor, mask: torch.Tensor, capacity: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """The first `capacity` occupied voxels of [B, D0, D1, D2, C] feats, f32
     or bf16 (the bf16 variant), (occupied = mask > 0, mask f32 [B, D0, D1,
     D2]) in linear-index order.
@@ -80,8 +90,6 @@ def dense_to_sparse_cuda(
     tail included, so all four are allocated empty (the occupancy shares
     its buffer with the per-tile counts)."""
     global launches, launches_bf16
-    if feats.device.type == "cpu":
-        return dense_to_sparse_reference(feats, mask, capacity)
     name = "dense_to_sparse_cuda"
     req = cuda_build.require
     req(feats.is_cuda, name, lambda: f"unsupported device {feats.device}")

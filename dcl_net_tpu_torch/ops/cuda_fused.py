@@ -77,6 +77,20 @@ def compact_interpolate_cuda(
     vmask: torch.Tensor, occupancy: torch.Tensor, unit_s: Sequence[float],
     off_c: Sequence[float],
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K6 through the op dclx::compact_interpolate (ops/library.py):
+    `compact_interpolate_kernel` on a CUDA tensor, the plain version on a
+    CPU one."""
+    cuda_build.require_device(points, "compact_interpolate_cuda")
+    return torch.ops.dclx.compact_interpolate(
+        points, coords, vfeats, vmask, occupancy, [float(u) for u in unit_s],
+        [float(o) for o in off_c])
+
+
+def compact_interpolate_kernel(
+    points: torch.Tensor, coords: torch.Tensor, vfeats: torch.Tensor,
+    vmask: torch.Tensor, occupancy: torch.Tensor, unit_s: Sequence[float],
+    off_c: Sequence[float],
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """3-NN inverse-squared-distance interpolation onto [B, N, 3] points of
     the compaction's output: coords [B, cap, 3] int32, vfeats [B, cap, C]
     f32 or bf16 (the bf16 variant: out bf16), vmask [B, cap] f32 and
@@ -88,9 +102,6 @@ def compact_interpolate_cuda(
     Returns out [B, N, C] and, for the backward, w [B, 3, N] and idx
     [B, 3, N] int32."""
     global launches, launches_bf16
-    if points.device.type == "cpu":
-        return compact_interpolate_reference(points, coords, vfeats, vmask,
-                                             occupancy, unit_s, off_c)
     name = "compact_interpolate_cuda"
     req = cuda_build.require
     req(points.is_cuda, name, lambda: f"unsupported device {points.device}")

@@ -120,6 +120,18 @@ def nn_interpolate_cuda(
     points: torch.Tensor, centers: torch.Tensor, feats: torch.Tensor,
     mask: torch.Tensor, n_valid: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K3 through the op dclx::nn_interpolate (ops/library.py):
+    `nn_interpolate_kernel` on a CUDA tensor, the plain version on a CPU
+    one. n_valid is checked on every device."""
+    cuda_build.require_device(points, "nn_interpolate_cuda")
+    check_n_valid("nn_interpolate_cuda", n_valid, points.shape[0], points.device)
+    return torch.ops.dclx.nn_interpolate(points, centers, feats, mask, n_valid)
+
+
+def nn_interpolate_kernel(
+    points: torch.Tensor, centers: torch.Tensor, feats: torch.Tensor,
+    mask: torch.Tensor, n_valid: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """3-NN inverse-squared-distance interpolation of [B, V, C] features at
     [B, V, 3] centers (valid where mask [B, V] > 0) onto [B, N, 3] points.
 
@@ -135,8 +147,6 @@ def nn_interpolate_cuda(
     global launches, launches_bf16
     name = "nn_interpolate_cuda"
     check_n_valid(name, n_valid, points.shape[0], points.device)
-    if points.device.type == "cpu":
-        return nn_interpolate_reference(points, centers, feats, mask)
     req = cuda_build.require
     req(points.is_cuda, name, lambda: f"unsupported device {points.device}")
     req(points.dim() == 3 and points.shape[-1] == 3, name,

@@ -64,7 +64,23 @@ def voxelize_cuda(
     out_dtype: Optional[torch.dtype] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sum (mode 3) or mean (mode 4) scatter of [B, N, C] point features into
-    a [B, D0, D1, D2, C] grid, with exact f32 counts [B, D0, D1, D2].
+    a [B, D0, D1, D2, C] grid, with exact f32 counts [B, D0, D1, D2], through
+    the op dclx::voxelize (ops/library.py): `voxelize_kernel` on a CUDA
+    tensor, the plain version on a CPU one."""
+    cuda_build.require_device(feats, "voxelize_cuda")
+    return torch.ops.dclx.voxelize(feats, voxel_idx, [int(d) for d in grid_size],
+                                   int(mode), point_mask, out_dtype)
+
+
+def voxelize_kernel(
+    feats: torch.Tensor,
+    voxel_idx: torch.Tensor,
+    grid_size: Tuple[int, int, int],
+    mode: int = MODE_MEAN,
+    point_mask: Optional[torch.Tensor] = None,
+    out_dtype: Optional[torch.dtype] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's launch, dclx::voxelize on CUDA (see voxelize_cuda).
 
     feats f32 and voxel_idx int32 [B, N, 3], both contiguous; point_mask
     optional f32 [B, N]; out_dtype the grid's type, f32 (None) or bfloat16
@@ -73,9 +89,6 @@ def voxelize_cuda(
     the plain version. One kernel launch writes both outputs whole (they
     are allocated empty); N is bounded by `list_smem_bytes`."""
     global launches, launches_bf16
-    if feats.device.type == "cpu":
-        return voxelize_reference(feats, voxel_idx, grid_size, mode, point_mask,
-                                  out_dtype)
     name = "voxelize_cuda"
     req = cuda_build.require
     req(feats.is_cuda, name, lambda: f"unsupported device {feats.device}")

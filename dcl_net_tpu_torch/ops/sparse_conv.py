@@ -29,6 +29,14 @@ def _ndhwc(x: torch.Tensor) -> torch.Tensor:
 WINDOW_SUM_CHUNK = 1 << 30  # elements of one padded buffer of window_sum
 
 
+def window_sum_rows(c: int, spatial, padding: int) -> int:
+    """The samples of a [B, D0, D1, D2, c] grid whose zero-padded buffer holds
+    at most WINDOW_SUM_CHUNK elements: window_sum sums a larger batch in
+    chunks of that many."""
+    d0, d1, d2 = (int(d) + 2 * padding for d in spatial)
+    return max(1, WINDOW_SUM_CHUNK // (c * d0 * d1 * d2))
+
+
 def window_sum(x: torch.Tensor, kernel: int, stride: int, padding: int,
                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """k^3 box sum with zero padding of a channel-last grid [B, D0, D1, D2, C],
@@ -60,7 +68,7 @@ def window_sum(x: torch.Tensor, kernel: int, stride: int, padding: int,
     chunks change no value."""
     b, d0, d1, d2, c = x.shape
     p = padding
-    rows = max(1, WINDOW_SUM_CHUNK // (c * (d0 + 2 * p) * (d1 + 2 * p) * (d2 + 2 * p)))
+    rows = window_sum_rows(c, (d0, d1, d2), p)
     if b > rows:
         return torch.cat([window_sum(x[i:i + rows], kernel, stride, padding,
                                      None if mask is None else mask[i:i + rows])
