@@ -166,7 +166,28 @@ Phases, any failure exits non-zero:
     kernels only) against the bf16 Evaluator (BF16_POSE_DEG, BF16_POSE_MM);
     each artifact's export seconds and bytes, and served instances/s at 32
     and 512 beside the eager serving module's and phase 4's Evaluator's;
-15. prints the per-kernel JSON line (the f32 kernels and the bf16
+15. data parallelism (dcl_net_tpu_torch/parallel/mesh.py) at full width,
+    global batch 8, cuDNN autotuning off: (a) the port's init_distributed
+    with NCCL at world 1 on a file:// store, 3 stage-1 steps in lockstep
+    with the same steps without a group, each from the same state: losses
+    and BN statistics torch.equal, no collective issued, the gradient
+    within TRAIN_GRAD_REL_L2 (the backward is not bit-reproducible on the
+    card: avg_pool3d's CUDA backward adds with atomics; deterministic
+    cuDNN); (b) two spawned ranks on the one card
+    with backend gloo (a test arrangement: NCCL refuses two ranks on one
+    GPU; the CLIs run one rank a GPU), 3 steps on the two-stage and on the
+    fused path against one process on the same 8 rows: step-1 losses within
+    TRAIN_LOSS_RTOL, the flat gradient within TRAIN_GRAD_REL_L2, later
+    losses within PARALLEL_LATER_RTOL, the ranks' parameters equal after
+    every step, and a stage-2 refiner step's losses within TRAIN_LOSS_RTOL;
+    (c) Evaluator over the two ranks on two global batches of 32, its
+    summary equal to one process's; (d) the seconds of each, the 2-rank and
+    1-rank step times, one all-reduce of the 33.6 MB flat gradient under
+    NCCL (world 1) and gloo (world 2, CUDA tensors); the launches of the
+    phase's data-parallel runs go into the kernel line (parallel_launches).
+    A rank that raises ends the other and fails the phase.
+    `python3 chip_smoke.py --phase 15` runs phases 1, 2 and 15 alone;
+16. prints the per-kernel JSON line (the f32 kernels and the bf16
     variants), then the result line {"ok": true, "device": {...}} last.
 """
 
@@ -2828,6 +2849,407 @@ def serving_phase(card: str, mcfg, model, model_f, batches, bank, model_points,
     print(f"serving phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+# ---- phase 15: data parallelism ------------------------------------------------
+PARALLEL_BATCH = 8  # the global batch of the phase's training runs: 4 rows a rank
+PARALLEL_STEPS = 3  # train steps a path, each on its own global batch
+PARALLEL_EVAL_BATCHES = 2  # global eval batches of BATCH rows
+PARALLEL_WORLD = 2
+PARALLEL_TIMEOUT = 420.0  # seconds the ranks may take, start-up included
+# later steps of a data-parallel run against one process: Adam (eps 1e-6)
+# turns last-bit differences of small gradient entries into steps of either
+# sign, as the JAX package's multi-host dryrun bounds them
+# (tests/test_multihost.py:85-86)
+PARALLEL_LATER_RTOL = 5e-2
+# one all-reduce of the flat gradient: every parameter of the stage-1 model
+FLAT_GRAD_NUMEL = 8_393_972
+
+
+def same_on_every_rank(tensors, group) -> bool:
+    """Whether every rank holds rank 0's values of `tensors` (one broadcast
+    and one all-reduce)."""
+    import torch
+    import torch.distributed as dist
+
+    flat = torch.cat([t.detach().reshape(-1) for t in tensors])
+    ref = flat.clone()
+    dist.broadcast(ref, src=0)
+    differ = torch.tensor([0.0 if torch.equal(ref, flat) else 1.0], device=flat.device)
+    dist.all_reduce(differ)
+    return float(differ) == 0.0
+
+
+def parallel_train(cfg, interp_mode: str, global_batches, group=None):
+    """PARALLEL_STEPS stage-1 train steps at full width through
+    make_parallel_train_step (seeded weights, cfg's optimizer), each on
+    this rank's block of a global batch (the whole batch without a group).
+    Returns the steps' metrics and seconds, the first step's flat gradient
+    (after the all-reduce), the launch counts of the steps and whether
+    every rank held the same parameters after every step."""
+    import torch
+
+    from dcl_net_tpu_torch.data.schema import batch_to_torch
+    from dcl_net_tpu_torch.models.dcl_net import DCLNet, dcl_losses
+    from dcl_net_tpu_torch.parallel.mesh import make_parallel_train_step, shard_batch
+    from dcl_net_tpu_torch.train.solver import TrainState, build_optimizer
+
+    dev = torch.device("cuda")
+    model = DCLNet.from_config(cfg.model, seed=0, device=dev, interp_mode=interp_mode)
+    opt, _ = build_optimizer(cfg, 1)
+    grads = []
+    update = opt.update
+
+    def record(grad, norm, state):
+        if not grads:
+            grads.append(grad.detach().clone())
+        return update(grad, norm, state)
+
+    opt.update = record
+    step = make_parallel_train_step(model, opt, dcl_losses, group)
+    params = [p for p in model.parameters() if p.requires_grad]
+    state = TrainState(opt.init(sum(p.numel() for p in params), dev))
+    blocks = [batch_to_torch(shard_batch(b, group), dev) for b in global_batches]
+    torch.cuda.synchronize()
+    reset_counts()
+    steps, same = [], True
+    for b in blocks:
+        t0 = time.perf_counter()
+        metrics = step(state, b)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        steps.append({"metrics": {k: float(v) for k, v in metrics.items()},
+                      "seconds": seconds})
+        if group is not None:
+            same = same and same_on_every_rank(params, group)
+    return {"steps": steps, "grad": grads[0], "counts": read_counts(), "same_params": same}
+
+
+def world1_lockstep(cfg, global_batches, group):
+    """Phase 15(a): a two-stage model stepping under the world-1 `group` and
+    one without a group, in lockstep: at every step both start from the
+    state of the one without (the other's parameters, BN statistics and
+    optimizer state are copied over after each step). The forward is
+    deterministic, so the losses and BN statistics must be torch.equal and
+    no collective may be issued; the gradients are held within
+    TRAIN_GRAD_REL_L2, because the backward is not bit-reproducible on the
+    card (avg_pool3d's CUDA backward adds with atomics, which PyTorch lists
+    as nondeterministic): two runs without a group differ as much. Returns
+    (the launch counts of the group's steps, each step's gradient rel L2)."""
+    import torch
+    import torch.distributed as dist
+
+    from dcl_net_tpu_torch.data.schema import batch_to_torch
+    from dcl_net_tpu_torch.models.dcl_net import DCLNet, dcl_losses
+    from dcl_net_tpu_torch.parallel.mesh import make_parallel_train_step
+    from dcl_net_tpu_torch.train.solver import TrainState, bn_statistics, build_optimizer
+
+    dev = torch.device("cuda")
+    runs = []
+    for g in (None, group):
+        model = DCLNet.from_config(cfg.model, seed=0, device=dev)
+        opt, _ = build_optimizer(cfg, 1)
+        grads = []
+        update = opt.update
+
+        def record(grad, norm, state, grads=grads, update=update):
+            grads.append(grad.detach().clone())
+            return update(grad, norm, state)
+
+        opt.update = record
+        step = make_parallel_train_step(model, opt, dcl_losses, g)
+        params = [p for p in model.parameters() if p.requires_grad]
+        runs.append({"model": model, "step": step, "grads": grads, "params": params,
+                     "stats": bn_statistics(model),
+                     "state": TrainState(opt.init(sum(p.numel() for p in params), dev))})
+    ref, grp = runs
+    calls = []
+    names = ("all_reduce", "broadcast", "all_gather", "barrier", "reduce_scatter_tensor",
+             "all_gather_into_tensor")
+    originals = {n: getattr(dist, n) for n in names}
+
+    def counting(name):
+        def call(*a, **k):
+            calls.append(name)
+            return originals[name](*a, **k)
+        return call
+
+    rel, counts = [], {k: 0 for k in KERNEL_ORDER}
+    for k, b in enumerate(global_batches):
+        tb = batch_to_torch(b, dev)
+        m_ref = ref["step"](ref["state"], tb)
+        torch.cuda.synchronize()
+        reset_counts()
+        for n in names:
+            setattr(dist, n, counting(n))
+        try:
+            m_grp = grp["step"](grp["state"], tb)
+            torch.cuda.synchronize()
+        finally:
+            for n, f in originals.items():
+                setattr(dist, n, f)
+        for key, n in read_counts().items():
+            counts[key] += n
+        for key in ("loss_pose", "loss_Xo", "loss_Yc", "loss_conf", "loss_all",
+                    "overflow_frac", "skipped_nonfinite"):
+            check(torch.equal(m_ref[key], m_grp[key]),
+                  f"world-1 NCCL step {k + 1}: {key} {float(m_grp[key])} != "
+                  f"{float(m_ref[key])}")
+        check(all(torch.equal(a, c) for a, c in zip(ref["stats"], grp["stats"])),
+              f"world-1 NCCL step {k + 1}: BN statistics differ")
+        g_ref, g_grp = ref["grads"][-1], grp["grads"][-1]
+        rel.append(float((g_grp - g_ref).norm() / g_ref.norm()))
+        check(rel[-1] <= TRAIN_GRAD_REL_L2,
+              f"world-1 NCCL step {k + 1}: gradient rel L2 {rel[-1]}")
+        with torch.no_grad():  # the next step starts from the same state
+            for a, c in zip(grp["params"] + grp["stats"], ref["params"] + ref["stats"]):
+                a.copy_(c)
+        grp["state"].opt_state = {n: v.clone() for n, v in ref["state"].opt_state.items()}
+    check(not calls, f"the world-1 group issued collectives: {sorted(set(calls))}")
+    expect_counts(counts, TWO_STAGE_TRAIN, PARALLEL_STEPS, "world-1 NCCL train")
+    return counts, rel
+
+
+def parallel_stage2(cfg, n_points: int, model_points, global_batch, group=None) -> dict:
+    """One refiner train step on a frozen fused stage 1 (seeded weights)
+    on this rank's block of global_batch: its losses and launch counts."""
+    import numpy as np
+    import torch
+
+    from dcl_net_tpu_torch.data.schema import batch_to_torch
+    from dcl_net_tpu_torch.models.dcl_net import DCLNet
+    from dcl_net_tpu_torch.models.refiner import Refiner
+    from dcl_net_tpu_torch.parallel.mesh import replicate, shard_batch
+    from dcl_net_tpu_torch.train.solver import TrainState, build_optimizer
+    from dcl_net_tpu_torch.train.stage2 import make_stage2_train_step
+
+    dev = torch.device("cuda")
+    stage1 = DCLNet.from_config(cfg.model, seed=0, device=dev, interp_mode="pallas_fused")
+    refiner = replicate(Refiner(n_inp=n_points, seed=1, device=dev), group)
+    opt, _ = build_optimizer(cfg, 1)
+    cld = torch.as_tensor(np.asarray(model_points, np.float32), device=dev)
+    step = make_stage2_train_step(stage1, refiner, opt, ITERATIONS, cld, group=group)
+    state = TrainState(opt.init(sum(p.numel() for p in refiner.parameters()), dev))
+    batch = batch_to_torch(shard_batch(global_batch, group), dev)
+    reset_counts()
+    metrics = step(state, batch)
+    torch.cuda.synchronize()
+    return {"metrics": {k: float(v) for k, v in metrics.items()}, "counts": read_counts()}
+
+
+def parallel_eval(cfg, model_points, bank, global_batches, group=None) -> dict:
+    """Evaluator (two-stage, seeded weights, template bank) over this rank's
+    blocks of the global batches: its summary, seconds and launch counts."""
+    import torch
+
+    from dcl_net_tpu_torch.eval.evaluator import Evaluator
+    from dcl_net_tpu_torch.models.dcl_net import DCLNet
+    from dcl_net_tpu_torch.parallel.mesh import shard_batch
+
+    model = DCLNet.from_config(cfg.model, seed=0, device=torch.device("cuda"))
+    blocks = [shard_batch(b, group) for b in global_batches]
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = Evaluator(model, model_points, template_bank=bank, group=group).evaluate(blocks)
+    torch.cuda.synchronize()
+    return {"summary": {k: res[k] for k in ("auc_mean", "acc_mean", "n_scored", "n_overflow")},
+            "seconds": time.perf_counter() - t0, "counts": read_counts()}
+
+
+def _parallel_rank(rank: int, world: int, init: str, tmp: str) -> None:
+    """One rank of phase 15(b, c): gloo on cuda:0 (a test arrangement of one
+    card; the CLIs run NCCL, one rank a GPU). Leaves its results in
+    <tmp>/rank<r>.pt."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from dcl_net_tpu_torch import strict_f32
+    from dcl_net_tpu_torch.config import Config
+    from dcl_net_tpu_torch.parallel.mesh import destroy, init_distributed
+
+    strict_f32()
+    torch.backends.cudnn.benchmark = False  # no autotuning of the ranks' shapes
+    group = init_distributed(init, world, rank, device="cuda:0", backend="gloo")
+    try:
+        with open(Path(tmp) / "inputs.pkl", "rb") as f:
+            inp = pickle.load(f)
+        cfg = Config.fromfile(str(ROOT / "configs" / "config_YCBV_bs32.yaml"))
+        out = {}
+        t0 = time.perf_counter()
+        for mode in ("pallas", "pallas_fused"):
+            out[mode] = parallel_train(cfg, mode, inp["train"], group)
+            if rank:
+                out[mode]["grad"] = None  # rank 0's is the ranks' gradient
+            else:
+                out[mode]["grad"] = out[mode]["grad"].cpu()
+        out["stage2"] = parallel_stage2(cfg, int(cfg.model.n_inp), inp["model_points"],
+                                        inp["train"][0], group)
+        out["train_seconds"] = time.perf_counter() - t0
+        out["eval"] = parallel_eval(cfg, inp["model_points"], inp["bank"], inp["eval"],
+                                    group)
+        x = torch.ones(FLAT_GRAD_NUMEL, device=group.device)
+        out["allreduce_ms"] = cuda_ms(lambda: dist.all_reduce(x), reps=10, warmup=2)
+        torch.save(out, Path(tmp) / f"rank{rank}.pt")
+    finally:
+        destroy(group)
+
+
+def run_parallel_ranks(tmp: str, world: int = PARALLEL_WORLD) -> list:
+    """Start the ranks of phase 15 and wait for them: a rank that raises
+    ends the others and fails the phase, as does PARALLEL_TIMEOUT (the
+    ranks are then killed). Returns each rank's results."""
+    import torch
+
+    init = "file://" + str(Path(tmp) / "rendezvous")
+    ctx = torch.multiprocessing.start_processes(
+        _parallel_rank, args=(world, init, tmp), nprocs=world, join=False,
+        start_method="spawn")
+    deadline = time.perf_counter() + PARALLEL_TIMEOUT
+    try:
+        while not ctx.join(timeout=1.0):
+            check(time.perf_counter() < deadline,
+                  f"the ranks did not end within {PARALLEL_TIMEOUT:.0f} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False) for r in range(world)]
+
+
+def parallel_phase(card: str, cfg, samples, batches, bank, model_points,
+                   entries: dict) -> None:
+    """Phase 15 (the module docstring): (a) NCCL at world 1 through the
+    port's init_distributed (world1_lockstep), (b) two gloo ranks on the
+    one card against one process at the same global batch, (c) the Evaluator over the two ranks,
+    (d) the times."""
+    import pickle
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from dcl_net_tpu_torch.data.schema import make_batch
+    from dcl_net_tpu_torch.parallel.mesh import destroy, init_distributed
+
+    t_phase = time.perf_counter()
+    benchmark = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    print("parallel phase: cuDNN autotuning off (the ranks and this process), deterministic "
+          "cuDNN for (a)", flush=True)
+    train = [make_batch(samples[i * PARALLEL_BATCH:(i + 1) * PARALLEL_BATCH]).to_dict()
+             for i in range(PARALLEL_STEPS)]
+    evals = batches[:PARALLEL_EVAL_BATCHES]
+    n_points = int(cfg.model.n_inp)
+    totals = {k: 0 for k in KERNEL_ORDER}
+
+    def add(counts):
+        for k, n in counts.items():
+            totals[k] += n
+
+    with tempfile.TemporaryDirectory(prefix="dclx_parallel_") as tmp:
+        # ---- (a) NCCL at world 1: the group's steps equal the steps without one
+        t0 = time.perf_counter()
+        group = init_distributed("file://" + str(Path(tmp) / "nccl"), 1, 0,
+                                 device=torch.device("cuda", 0))
+        try:
+            check(group.backend == "nccl" and group.world == 1, f"group {group}")
+            counts, grad_rel = world1_lockstep(cfg, train, group)
+            add(counts)
+            x = torch.ones(FLAT_GRAD_NUMEL, device="cuda")
+            nccl_ms = cuda_ms(lambda: dist.all_reduce(x), reps=20, warmup=3)
+        finally:
+            destroy(group)
+        t_a = time.perf_counter() - t0
+        torch.backends.cudnn.deterministic = False
+        print(f"parallel (a) NCCL at world 1 on {card}: {PARALLEL_STEPS} steps at batch "
+              f"{PARALLEL_BATCH}, each from the state of the run without a group: losses and "
+              f"BN statistics torch.equal, no collective issued, flat gradient rel L2 "
+              f"{['%.3g' % r for r in grad_rel]} (the backward's run-to-run spread); "
+              f"{t_a:.1f} s", flush=True)
+
+        # ---- the single process's references of (b) and (c)
+        t0 = time.perf_counter()
+        ref = {mode: parallel_train(cfg, mode, train) for mode in ("pallas", "pallas_fused")}
+        ref_s2 = parallel_stage2(cfg, n_points, model_points, train[0])
+        ref_eval = parallel_eval(cfg, model_points, bank, evals)
+        t_ref = time.perf_counter() - t0
+        ref_seconds = {m: [s["seconds"] for s in ref[m]["steps"]] for m in ref}
+        torch.cuda.empty_cache()
+
+        # ---- (b), (c): two gloo ranks on the one card
+        with open(Path(tmp) / "inputs.pkl", "wb") as f:
+            pickle.dump({"train": train, "eval": evals, "bank": bank,
+                         "model_points": model_points}, f)
+        t0 = time.perf_counter()
+        ranks = run_parallel_ranks(tmp)
+        t_ranks = time.perf_counter() - t0
+    torch.backends.cudnn.benchmark = benchmark
+
+    per_rank = {"pallas": TWO_STAGE_TRAIN, "pallas_fused": FUSED_TRAIN}
+    for r, res in enumerate(ranks):
+        for mode, per_step in per_rank.items():
+            expect_counts(res[mode]["counts"], per_step, PARALLEL_STEPS,
+                          f"rank {r} train ({mode})")
+            check(res[mode]["same_params"], f"rank {r} ({mode}): the ranks' parameters "
+                  "differ after a step")
+            add(res[mode]["counts"])
+        expect_counts(res["stage2"]["counts"], {"voxelize": 2, "compact": 8, "fused": 8}, 1,
+                      f"rank {r} stage-2 step")
+        add(res["stage2"]["counts"])
+        expect_counts(res["eval"]["counts"], {"voxelize": 1, "compact": 4, "interp": 4},
+                      1 + PARALLEL_EVAL_BATCHES, f"rank {r} eval")
+        add(res["eval"]["counts"])
+    for mode in per_rank:
+        got, want = ranks[0][mode], ref[mode]
+        loss_rel = max(abs(got["steps"][0]["metrics"][k] - want["steps"][0]["metrics"][k])
+                       / abs(want["steps"][0]["metrics"][k])
+                       for k in ("loss_pose", "loss_Xo", "loss_Yc", "loss_conf", "loss_all"))
+        grad_rel = float((got["grad"].to(want["grad"].device) - want["grad"]).norm()
+                         / want["grad"].norm())
+        later = max(abs(g["metrics"]["loss_all"] - w["metrics"]["loss_all"])
+                    / abs(w["metrics"]["loss_all"])
+                    for g, w in zip(got["steps"][1:], want["steps"][1:]))
+        check(all(ranks[1][mode]["steps"][k]["metrics"] == got["steps"][k]["metrics"]
+                  for k in range(PARALLEL_STEPS)), f"{mode}: the ranks' metrics differ")
+        rank_s = [max(r[mode]["steps"][k]["seconds"] for r in ranks)
+                  for k in range(PARALLEL_STEPS)]
+        print(f"parallel (b) {mode}, 2 gloo ranks on {card} vs one process at global batch "
+              f"{PARALLEL_BATCH}: step 1 losses rel {loss_rel:.3g}, flat gradient rel L2 "
+              f"{grad_rel:.3g}; steps 2-{PARALLEL_STEPS} loss_all rel {later:.3g}; step "
+              f"seconds 2 ranks {['%.4f' % t for t in rank_s]}, one process "
+              f"{['%.4f' % t for t in ref_seconds[mode]]}", flush=True)
+        check(loss_rel <= TRAIN_LOSS_RTOL, f"{mode}: step-1 losses differ by {loss_rel}")
+        check(grad_rel <= TRAIN_GRAD_REL_L2, f"{mode}: step-1 gradient differs by {grad_rel}")
+        check(later <= PARALLEL_LATER_RTOL, f"{mode}: later losses differ by {later}")
+    s2_rel = max(abs(ranks[0]["stage2"]["metrics"][k] - ref_s2["metrics"][k])
+                 / abs(ref_s2["metrics"][k]) for k in ("loss_all", "loss_last_iter"))
+    print(f"parallel (b) stage-2 refiner step: losses rel {s2_rel:.3g}", flush=True)
+    check(s2_rel <= TRAIN_LOSS_RTOL, f"stage-2 losses differ by {s2_rel}")
+    for r, res in enumerate(ranks):
+        check(res["eval"]["summary"] == ref_eval["summary"],
+              f"rank {r} eval summary {res['eval']['summary']} != one process's "
+              f"{ref_eval['summary']}")
+    print(f"parallel (c) Evaluator over 2 ranks, {PARALLEL_EVAL_BATCHES} global batches of "
+          f"{BATCH}: {ranks[0]['eval']['summary']} equal to one process's; "
+          f"{max(r['eval']['seconds'] for r in ranks):.3f} s (one process "
+          f"{ref_eval['seconds']:.3f} s)", flush=True)
+    for key, n in totals.items():
+        if n:
+            entries[key]["parallel_launches"] = n
+    gloo_ms = max(r["allreduce_ms"] for r in ranks)
+    print(f"parallel (d) on {card}: one all-reduce of the flat gradient "
+          f"({FLAT_GRAD_NUMEL} f32, {FLAT_GRAD_NUMEL * 4 / 1e6:.1f} MB): NCCL world 1 "
+          f"{nccl_ms:.4f} ms, gloo world 2 (CUDA tensors) {gloo_ms:.4f} ms; seconds: (a) "
+          f"{t_a:.1f}, one-process references {t_ref:.1f}, ranks (b, c, start-up included) "
+          f"{t_ranks:.1f} (their training {max(r['train_seconds'] for r in ranks):.1f}); "
+          f"launches {dict((k, n) for k, n in totals.items() if n)}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2896,6 +3318,14 @@ def main() -> int:
     model_b = DCLNet.from_config(mcfg, seed=0, dtype=torch.bfloat16)
     # the same weights on the fused point-feature path
     model_f = DCLNet.from_config(mcfg, seed=0, interp_mode="pallas_fused")
+
+    if sys.argv[1:] == ["--phase", "15"]:
+        # a development run of phase 15 alone: no kernel line, no result line
+        parallel_phase(card, cfg, samples, batches, bank, model_points,
+                       {k: {} for k in KERNEL_ORDER})
+        stop_child_processes()
+        print("phase 15 alone: passed", flush=True)
+        return 0
 
     # ---- 3. kernels vs plain versions at main-path shapes -------------------
     tb = batch_to_torch(batches[0], dev)
@@ -3507,7 +3937,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     serving_phase(card, mcfg, model, model_f, batches, bank, model_points, inst_s, entries)
 
-    # ---- 15. result lines -----------------------------------------------------
+    # ---- 15. data parallelism: NCCL at world 1, two gloo ranks on the card -----
+    torch.cuda.empty_cache()
+    parallel_phase(card, cfg, samples, batches, bank, model_points, entries)
+    stop_child_processes()
+
+    # ---- 16. result lines -----------------------------------------------------
     print(json.dumps({"kernels": [entries[k] for k in KERNEL_ORDER]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -213,14 +213,22 @@ class DevicePreprocessor:
     and the batch carries an event recorded after it; batch_to_torch makes
     the consumer's stream wait for that event and records the batch's
     tensors on that stream, so the caching allocator keeps their memory
-    until the consumer's work is done."""
+    until the consumer's work is done.
+
+    process_id, process_count: data parallelism. Each process preprocesses
+    its own block of the global batch, so over several processes the
+    generator's seed is derived from (seed, process_id) and every process
+    draws its own stream (JAX folds the process index into its key,
+    dcl_net_tpu/data/device_preprocess.py:246-255); one process keeps
+    `seed`, so seeded records still reproduce."""
 
     def __init__(self, n_points: int, unit_voxel_extent: Sequence[float],
                  voxel_num_limit: Sequence[int], augment: bool = True,
                  min_points: int = 50, eval_keep_clamp: bool = False,
                  keep_clamp_threshold: int = 32,
                  angle_range: float = float(np.pi / 36.0), trans_range: float = 0.03,
-                 seed: int = 0, device=None):
+                 seed: int = 0, device=None, process_id: int = 0,
+                 process_count: int = 1):
         self.device = resolve_device(device)
         self.unit = tuple(float(u) for u in unit_voxel_extent)
         self.limit = tuple(int(v) for v in voxel_num_limit)
@@ -231,6 +239,8 @@ class DevicePreprocessor:
         self.eval_keep_clamp = bool(eval_keep_clamp)
         self.keep_clamp_threshold = int(keep_clamp_threshold)
         self.angle_range, self.trans_range = float(angle_range), float(trans_range)
+        if process_count > 1:
+            seed = int(np.random.SeedSequence((int(seed), int(process_id))).generate_state(1)[0])
         self.generator = torch.Generator(device=self.device).manual_seed(int(seed))
         self.stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
         strict_f32()

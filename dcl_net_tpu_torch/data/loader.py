@@ -1,12 +1,19 @@
 """Host-side batch loaders with background prefetch.
 
 Counterparts of dcl_net_tpu/data/loader.py's BatchLoader and
-EvalFrameLoader (single host). BatchLoader: a worker pool maps
+EvalFrameLoader. BatchLoader: a worker pool maps
 dataset.__getitem__, the samples are collated into fixed-shape batches
 (schema.make_batch by default, padded to the batch size), an optional
 batch_transform runs on each, and a producer thread keeps up to PREFETCH
 batches ready in a bounded queue. EvalFrameLoader flattens a frame-style
 eval dataset (YCB-V test) into padded instance batches.
+
+Data parallelism (parallel/mesh.py): with process_count W > 1 the batch
+size is the global batch B, every process builds the same global batches,
+and process r yields only its contiguous block of rows [r*B/W, (r+1)*B/W)
+of each, padded to B/W, so the ranks' blocks together are the single
+process's batch. BatchLoader reads only its block's items; EvalFrameLoader
+reads every frame (a frame's rows fall into any block).
 
 Workers are threads (worker_type "thread", the default: enough for
 in-memory datasets and for I/O that releases the GIL) or processes
@@ -165,12 +172,33 @@ class _LoaderBase:
     the loader goes) and the collate and batch_transform hooks."""
 
     _proc_pool = None
+    process_id = 0
+    process_count = 1
 
-    def _collate(self, samples: List[dict]) -> dict:
+    @property
+    def local_batch_size(self) -> int:
+        """The rows of this process's block of a global batch."""
+        return self.batch_size // self.process_count
+
+    def _stride(self, process_id: int, process_count: int) -> None:
+        self.process_id = int(process_id)
+        self.process_count = max(int(process_count), 1)
+        if self.batch_size % self.process_count:
+            raise ValueError(f"global batch size {self.batch_size} is not divisible by "
+                             f"process_count {self.process_count}")
+
+    def _collate(self, samples: List[dict], fill: bool = False) -> dict:
+        """A batch of this process's block, padded to the local batch size.
+        fill: the block of a short last global batch is empty, and
+        `samples` holds one row of that batch only to give the block its
+        shapes: every row is then a pad row (pad 1, valid 0)."""
         if self.collate is not None:
-            d = self.collate(samples, pad_to=self.batch_size)
+            d = self.collate(samples, pad_to=self.local_batch_size)
         else:
-            d = make_batch(samples, pad_to=self.batch_size).to_dict()
+            d = make_batch(samples, pad_to=self.local_batch_size).to_dict()
+        if fill:
+            d["pad"][:] = 1.0
+            d["valid"][:] = 0.0
         return d if self.batch_transform is None else self.batch_transform(d)
 
     def _check_worker_type(self, worker_type: str) -> str:
@@ -210,6 +238,17 @@ class BatchLoader(_LoaderBase):
     samples_per_item: how many samples each __getitem__ returns (as a
     list; a raw-mode reader's samples_per_frame): a batch then reads
     batch_size / samples_per_item items and flattens them.
+
+    process_id, process_count: data parallelism (dcl_net_tpu/data/loader.py
+    :181-233, 270-284). batch_size is the global batch; every process
+    draws the same seeded shuffle and reads only the items of its block
+    (items are the unit with samples_per_item > 1), so lengths, epochs and
+    mid-epoch resumes agree on every process. The global batch must divide
+    by process_count and the block by samples_per_item. drop_last=False
+    with a dataset that does not fill the last global batch is refused over
+    several processes (a rank would get an empty block) unless fill_tail:
+    then such a rank's block is one of the batch's items as pad rows (the
+    eval loaders).
     collate(samples, pad_to) -> batch: schema.make_batch's dict by default
     (device preprocessing passes device_preprocess.make_raw_batch).
     batch_transform(batch) -> batch runs after it in the producer thread
@@ -219,13 +258,23 @@ class BatchLoader(_LoaderBase):
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  drop_last: bool = True, num_workers: int = 8, seed: int = 0,
                  worker_type: str = "thread", collate=None, batch_transform=None,
-                 samples_per_item: int = 1):
+                 samples_per_item: int = 1, process_id: int = 0,
+                 process_count: int = 1, fill_tail: bool = False):
         self.samples_per_item = max(int(samples_per_item), 1)
-        if int(batch_size) % self.samples_per_item:
-            raise ValueError(f"batch size {batch_size} is not divisible by "
-                             f"samples_per_item {samples_per_item}")
         self.dataset = dataset
         self.batch_size = int(batch_size)
+        self._stride(process_id, process_count)
+        if self.local_batch_size % self.samples_per_item:
+            raise ValueError(f"per-process batch size {self.local_batch_size} is not "
+                             f"divisible by samples_per_item {samples_per_item}")
+        items = self.batch_size // self.samples_per_item
+        if self.process_count > 1 and not drop_last and not fill_tail \
+                and len(dataset) % items:
+            raise ValueError(
+                f"loading over {self.process_count} processes needs drop_last=True when "
+                f"the dataset length ({len(dataset)}) is not a multiple of the global "
+                f"batch ({items} items): the last batch would leave a process an empty "
+                "block")
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.num_workers = max(int(num_workers), 1)
@@ -252,7 +301,12 @@ class BatchLoader(_LoaderBase):
     def __iter__(self) -> Iterator:
         idx = self._indices()
         items = self.batch_size // self.samples_per_item
-        batches = [idx[i * items:(i + 1) * items] for i in range(len(self))]
+        local = self.local_batch_size // self.samples_per_item
+        lo = self.process_id * local
+        # this process's items of each global batch, and a first item of
+        # the batch for a block the short last batch leaves empty
+        batches = [(idx[i * items + lo:i * items + lo + local], idx[i * items])
+                   for i in range(len(self))]
         if self.skip_next:
             batches = batches[self.skip_next:]
             self.skip_next = 0
@@ -275,16 +329,18 @@ class BatchLoader(_LoaderBase):
         def produce():
             try:
                 with self._make_pool() as pool:
-                    for b in batches:
+                    for b, first in batches:
                         if stop.is_set():
                             return
-                        samples = list(pool.map(self.dataset.__getitem__, b))
+                        fill = len(b) == 0
+                        samples = list(pool.map(self.dataset.__getitem__,
+                                                [first] if fill else b))
                         if self.samples_per_item > 1:
                             samples = [s for item in samples for s in item]
                         # an all-invalid batch is yielded too (a zero-weight
                         # step): dropping it would desynchronise the batch
                         # count that a mid-epoch resume replays
-                        if not put(self._collate(samples)):
+                        if not put(self._collate(samples, fill)):
                             return
                 put(None)
             except BaseException as exc:  # re-raised in the consumer
@@ -316,12 +372,19 @@ class EvalFrameLoader(_LoaderBase):
     never holds more than that many decoded frames ahead of the consumer.
     collate and batch_transform as in BatchLoader; both run in the
     iterating thread (the device-preprocessing eval path passes
-    make_raw_batch and DevicePreprocessor(augment=False, ...))."""
+    make_raw_batch and DevicePreprocessor(augment=False, ...)).
+
+    process_id, process_count: data parallelism. batch_size is the global
+    batch; every process reads every frame and yields its block of each
+    global batch's rows. The last global batch is filled with pad rows, so
+    that no process gets an empty block."""
 
     def __init__(self, dataset, batch_size: int = 16, num_workers: int = 8,
-                 worker_type: str = "thread", collate=None, batch_transform=None):
+                 worker_type: str = "thread", collate=None, batch_transform=None,
+                 process_id: int = 0, process_count: int = 1):
         self.dataset = dataset
         self.batch_size = int(batch_size)
+        self._stride(process_id, process_count)
         self.num_workers = max(int(num_workers), 1)
         self.worker_type = self._check_worker_type(worker_type)
         self.collate = collate
@@ -344,6 +407,12 @@ class EvalFrameLoader(_LoaderBase):
                    obj_idx=np.int32(lost["obj_idx"]), valid=0.0)
         return row
 
+    def _block(self, rows: List[dict]) -> dict:
+        """This process's block of the global batch `rows`."""
+        lo = self.process_id * self.local_batch_size
+        block = rows[lo:lo + self.local_batch_size]
+        return self._collate(block or rows[:1], fill=not block)
+
     def __iter__(self):
         pending: List[dict] = []
         bs = self.batch_size
@@ -351,7 +420,7 @@ class EvalFrameLoader(_LoaderBase):
             pending.extend(frame["samples"])
             pending.extend(self._lost_row(lost) for lost in frame["lost"])
             while len(pending) >= bs:
-                yield self._collate(pending[:bs])
+                yield self._block(pending[:bs])
                 del pending[:bs]
         if pending:
-            yield self._collate(pending)
+            yield self._block(pending)

@@ -2,13 +2,18 @@
 LineMOD's ADD(-S) < 0.1 d.
 
 Counterpart of dcl_net_tpu/eval/evaluator.py::Evaluator and
-Stage2Evaluator without the mesh:
-batches arrive padded, with `valid` (0 = lost detection) and `pad` (1 =
+Stage2Evaluator: batches arrive padded, with `valid` (0 = lost detection) and `pad` (1 =
 fill row, never scored) flags; the model and the distances run on the
 device, only [B]-sized results come back to the host, and the aggregation
 is numpy. A lost detection scores an infinite distance under adds_auc
 (YCB-V); under add_0.1d it is skipped (LineMOD) or, with count_lost,
 counted in its class's denominator (Occlusion-LineMOD).
+
+Data parallelism (group, parallel/mesh.py): each rank scores its block of
+every global batch (the loaders' process striding), then the ranks gather
+the ragged distances and class ids and sum the per-class lost counts,
+n_overflow and n_lost (dcl_net_tpu/eval/evaluator.py:286-316), so every
+rank returns the summary of the whole set.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from dcl_net_tpu_torch.eval.metrics import (
     add_batch, add_s_batch, per_class_auc_acc, success_at_diameter,
 )
 from dcl_net_tpu_torch.models.refiner import refine_pose
+from dcl_net_tpu_torch.parallel.mesh import active, all_reduce_sum, allgather_host
 
 PROTOCOLS = ("adds_auc", "add_0.1d")
 
@@ -53,6 +59,9 @@ class Evaluator:
         weights: after the model's weights change (load_state_dict, a train
         step between evaluations), update_variables re-encodes it.
       device: CUDA unless the caller names another.
+      group: the data-parallel group (parallel/mesh.py), or None: the
+        loader yields this rank's blocks and evaluate returns the summary
+        of every rank's rows, on every rank.
     """
 
     def __init__(self, model, model_points: np.ndarray,
@@ -60,7 +69,7 @@ class Evaluator:
                  template_bank: Optional[Dict[str, np.ndarray]] = None,
                  device=None, logger=None, sym_class_ids: Sequence[int] = (),
                  diameters: Optional[Sequence[float]] = None,
-                 count_lost: bool = False):
+                 count_lost: bool = False, group=None):
         if protocol not in PROTOCOLS:
             raise ValueError(f"protocol {protocol!r}: one of {PROTOCOLS}")
         if protocol == "add_0.1d" and diameters is None:
@@ -74,6 +83,7 @@ class Evaluator:
         self.sym_class_ids = sorted({int(i) for i in sym_class_ids})
         self.diameters = None if diameters is None else list(diameters)
         self.count_lost = bool(count_lost)
+        self.group = group if active(group) else None
         self.logger = logger
         self._bank_inputs = None
         self._tmp_cache = None
@@ -149,6 +159,9 @@ class Evaluator:
             n_lost += int(((valid <= 0) & ~(pad > 0)).sum())
             self._score_batch(adds, add, valid, cls, sym, pad,
                               distances, class_ids, lost_per_class)
+        if self.group is not None:
+            distances, class_ids, lost_per_class, n_overflow, n_lost = self._gather(
+                distances, class_ids, lost_per_class, n_overflow, n_lost)
         result = self.summarize(distances, class_ids, lost_per_class)
         result["n_overflow"] = n_overflow
         result["n_scored"] = len(distances)
@@ -159,6 +172,23 @@ class Evaluator:
                 "budget (model.capacities); their highest-index voxels were dropped "
                 "and the reported metrics may understate the model" % n_overflow)
         return result
+
+    def _gather(self, distances, class_ids, lost_per_class, n_overflow, n_lost):
+        """Every rank's scores, in rank order, and the summed counts."""
+        g = self.group
+        distances = [float(v) for part in allgather_host(
+            np.asarray(distances, np.float64), g) for v in part]
+        class_ids = [int(v) for part in allgather_host(
+            np.asarray(class_ids, np.int64), g) for v in part]
+        n_cls = int(self.model_points.shape[0])
+        counts = np.zeros(n_cls + 2, np.int64)
+        for c, n in lost_per_class.items():
+            counts[c] = n
+        counts[n_cls:] = (n_overflow, n_lost)
+        dev = self.device if g.backend == "nccl" else torch.device("cpu")
+        counts = all_reduce_sum(torch.as_tensor(counts, device=dev), g).cpu().numpy()
+        lost_per_class = {i: int(counts[i]) for i in range(n_cls) if counts[i]}
+        return distances, class_ids, lost_per_class, int(counts[n_cls]), int(counts[n_cls + 1])
 
     def _score_batch(self, adds, add, valid, cls, sym, pad,
                      distances, class_ids, lost_per_class) -> None:

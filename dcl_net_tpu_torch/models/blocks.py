@@ -28,9 +28,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from dcl_net_tpu_torch.ops.sparse_conv import (
-    dilate_mask,
-    masked_batch_norm_stats,
+from dcl_net_tpu_torch.ops.sparse_conv import dilate_mask, masked_moments
+from dcl_net_tpu_torch.parallel.mesh import (
+    active, all_reduce_sum, all_reduce_sum_grad, batch_group,
 )
 
 
@@ -90,36 +90,44 @@ _CHUNK_ELEMENTS = 1 << 27
 
 class _MaskedBatchNormTrain(torch.autograd.Function):
     """Train-mode MaskedBatchNorm: y = (x - mean) / sqrt(var + eps) * weight
-    + bias with the masked batch statistics of x (masked_batch_norm_stats)
-    in x's statistics type, the values of that expression as autograd would
-    run it. Returns (y, mean, var); mean and var carry no gradient.
+    + bias with the masked batch statistics of x (masked_moments) in x's
+    statistics type, the values of that expression as autograd would run
+    it. Returns (y, mean, var, count); mean, var and the count of occupied
+    voxels carry no gradient.
 
     Autograd of the expression keeps four full-size copies of x in the
     statistics type (f32 under bf16), the most memory of a training step on
     the dense 64^3 grids. This saves x, the mask and the statistics only,
     and the backward recomputes x - mean in chunks of the leading dim. It
     returns x's gradient as autograd does: the normalisation's term and the
-    statistics' term each in x's type, then their sum."""
+    statistics' term each in x's type, then their sum.
+
+    group: the data-parallel group x's batch is sharded over, or None. The
+    statistics are then the global batch's (masked_moments), and the
+    backward all-reduces its three sums (one collective), so x's gradient
+    is the global expression's; the weight's and bias's gradients stay
+    this rank's share, which the train step's gradient all-reduce sums."""
 
     @staticmethod
-    def forward(ctx, x, mask, weight, bias, eps: float):
+    def forward(ctx, x, mask, weight, bias, eps: float, group=None):
         xs = x.to(_stat_dtype(x))
-        mean, var = masked_batch_norm_stats(xs, mask)
+        mean, var, count = masked_moments(xs, mask, group)
         y = xs - mean
         del xs
         y.div_(torch.sqrt(var + eps)).mul_(weight).add_(bias)
-        ctx.save_for_backward(x, mask, mean, var, weight)
+        ctx.save_for_backward(x, mask, mean, var, weight, count)
         ctx.eps = eps
-        ctx.mark_non_differentiable(mean, var)
-        return y, mean, var
+        ctx.group = group
+        ctx.mark_non_differentiable(mean, var, count)
+        return y, mean, var, count
 
     @staticmethod
-    def backward(ctx, gy, _gmean, _gvar):
-        x, mask, mean, var, weight = ctx.saved_tensors
+    def backward(ctx, gy, _gmean, _gvar, _gcount):
+        x, mask, mean, var, weight, count = ctx.saved_tensors
         sdt = mean.dtype
         r = 1.0 / torch.sqrt(var + ctx.eps)
         w = weight.to(sdt)
-        n = torch.clamp(mask.to(sdt).sum(), min=1.0)
+        n = torch.clamp(count, min=1.0)
         axes = tuple(range(x.dim() - 1))
         rows = max(1, _CHUNK_ELEMENTS // max(x[0].numel(), 1))
         chunks = list(zip(x.split(rows), mask.split(rows), gy.split(rows)))
@@ -131,6 +139,10 @@ class _MaskedBatchNormTrain(torch.autograd.Function):
             s_g += gc.sum(dim=axes)
             s_gd += (gc * d).sum(dim=axes)
             s_md += (d * mc.to(sdt)[..., None]).sum(dim=axes)
+        local_g, local_gd = s_g, s_gd  # this rank's shares: the weight's gradients
+        if active(ctx.group):
+            s_g, s_gd, s_md = all_reduce_sum(torch.cat([s_g, s_gd, s_md]),
+                                             ctx.group).chunk(3)
         d_var = -0.5 * w * s_gd * r ** 3
         d_mean = -w * r * s_g + d_var * (-2.0 * s_md / n)
         dx = torch.empty_like(x)
@@ -139,7 +151,8 @@ class _MaskedBatchNormTrain(torch.autograd.Function):
             norm = (gc * (w * r)).to(x.dtype)
             stats = (m * (d_mean / n + d_var * 2.0 / n * (xc.to(sdt) - mean))).to(x.dtype)
             torch.add(norm, stats, out=out)
-        return dx, None, (s_gd * r).to(weight.dtype), s_g.to(weight.dtype), None
+        return (dx, None, (local_gd * r).to(weight.dtype), local_g.to(weight.dtype),
+                None, None)
 
 
 class MaskedBatchNorm(nn.Module):
@@ -151,7 +164,9 @@ class MaskedBatchNorm(nn.Module):
     normalisation runs as _MaskedBatchNormTrain, which keeps only its input
     and the statistics for the backward. update_running = False leaves the
     running statistics alone in train mode (a checkpointed recomputation,
-    models/dcl_net.py)."""
+    models/dcl_net.py). Over a batch sharded across ranks
+    (parallel/mesh.py::batch_group) the statistics, the count of the
+    unbiased variance and so the running update are the global batch's."""
 
     update_running = True
 
@@ -176,10 +191,11 @@ class MaskedBatchNorm(nn.Module):
         if not self.training:
             return ((x - self.running_mean) / torch.sqrt(self.running_var + self.eps)
                     * self.weight + self.bias)
-        y, mean, var = _MaskedBatchNormTrain.apply(x, mask, self.weight, self.bias, self.eps)
+        y, mean, var, count = _MaskedBatchNormTrain.apply(
+            x, mask, self.weight, self.bias, self.eps, batch_group())
         if self.update_running:
             with torch.no_grad():
-                m = torch.clamp(mask.to(torch.float32).sum(), min=2.0)
+                m = torch.clamp(count, min=2.0)
                 unbiased = var * m / (m - 1.0)
                 self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean)
                 self.running_var.mul_(1 - self.momentum).add_(self.momentum * unbiased)
@@ -250,7 +266,10 @@ class PointMLP(nn.Module):
     statistics reduce over every axis but the last, the variance is
     E[x^2] - E[x]^2 clipped at 0 (flax's use_fast_variance), and the
     running variance is updated with that biased variance (momentum 0.1,
-    flax's 0.9); then (x - mean) * (rsqrt(var + eps) * scale) + bias.
+    flax's 0.9); then (x - mean) * (rsqrt(var + eps) * scale) + bias. Over
+    a batch sharded across ranks (parallel/mesh.py::batch_group) the means
+    of x and of x^2 are the global batch's: their sums pass one
+    differentiable all-reduce, whose backward all-reduces the cotangent.
 
     With dtype bfloat16, as flax's Dense and BatchNorm with dtype=bfloat16:
     each dense layer multiplies the bf16 input by the bf16 kernel
@@ -283,8 +302,15 @@ class PointMLP(nn.Module):
         if self.training:
             axes = tuple(range(x.dim() - 1))
             xf = x.to(_stat_dtype(x))
-            mean = xf.mean(dim=axes)
-            var = torch.clamp((xf * xf).mean(dim=axes) - mean * mean, min=0.0)
+            group = batch_group()
+            if group is None:
+                mean = xf.mean(dim=axes)
+                mean_sq = (xf * xf).mean(dim=axes)
+            else:
+                sums = all_reduce_sum_grad(
+                    torch.stack([xf.sum(dim=axes), (xf * xf).sum(dim=axes)]), group)
+                mean, mean_sq = sums / (xf[..., 0].numel() * group.world)
+            var = torch.clamp(mean_sq - mean * mean, min=0.0)
             with torch.no_grad():
                 bn.running_mean.mul_(1 - bn.momentum).add_(bn.momentum * mean)
                 bn.running_var.mul_(1 - bn.momentum).add_(bn.momentum * var)

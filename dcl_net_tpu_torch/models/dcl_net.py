@@ -36,7 +36,15 @@ remat (model.remat) recomputes each backbone's activations in the backward
 instead of keeping them (torch.utils.checkpoint around SparseBackbone, as
 the JAX model wraps it in nn.remat): the dense-grid conv activations are
 most of a training step's memory. The recomputation leaves the BN running
-statistics alone, so a step updates them once, as without remat.
+statistics alone, so a step updates them once, as without remat, and runs
+under the data-parallel context of its forward (parallel/mesh.py), so it
+reissues the same BN collectives on every rank in the same order.
+
+Data parallelism (parallel/mesh.py): under sharded(group) the batch is this
+rank's block of a global batch, the train-mode BatchNorms take the global
+batch's statistics and dcl_losses weighs each row by the global count of
+valid rows. The template bank of forward_with_template_bank is encoded
+whole on every rank and takes no collective.
 """
 
 from __future__ import annotations
@@ -63,6 +71,9 @@ from dcl_net_tpu_torch.models.blocks import (
 from dcl_net_tpu_torch.ops.knn import knn
 from dcl_net_tpu_torch.ops.cuda_voxelize import voxelize_cuda
 from dcl_net_tpu_torch.ops.voxelize import MODE_MEAN, MODE_SUM
+from dcl_net_tpu_torch.parallel.mesh import (
+    all_reduce_sum, batch_group, replicated, sharded,
+)
 
 _POINT_FEATS = 480  # 32 + 64 + 128 + 256
 
@@ -184,9 +195,11 @@ class DCLNet(nn.Module):
                                     mode=self.voxelization_mode, out_dtype=self.dtype)
         mask = (count > 0).to(feats.dtype)
         if self.remat and self.training and torch.is_grad_enabled():
+            group = batch_group()
             pyramid = checkpoint(
                 backbone, grid, mask, use_reentrant=False,
-                context_fn=lambda: (contextlib.nullcontext(), _frozen_statistics(backbone)))
+                context_fn=lambda: (contextlib.nullcontext(),
+                                    _recompute_context(backbone, group)))
         else:
             pyramid = backbone(grid, mask)
         points = feats[..., 4:7].contiguous()
@@ -263,11 +276,24 @@ class DCLNet(nn.Module):
         {"feats": [C, M, 7], "voxel_idx": [C, M, 3]} once and gathers it
         per instance by labels.obj_idx. Equal to forward when the batch's
         classes are distinct; with repeated classes the template branch's
-        BN statistics weight each class once instead of each instance."""
+        BN statistics weight each class once instead of each instance.
+        Under data parallelism every rank encodes the whole bank, as one
+        process does: replicated, without collectives."""
         obs = self.encode_observed(batch)
-        tmp_all = self.encode_template({"tmp": bank})
+        with replicated():
+            tmp_all = self.encode_template({"tmp": bank})
         cls = batch["labels"]["obj_idx"].long()
         return self.fuse(obs, {k: v[cls] for k, v in tmp_all.items()})
+
+
+@contextlib.contextmanager
+def _recompute_context(backbone: nn.Module, group):
+    """The context of a checkpointed backbone's recomputation in the
+    backward: its BN running statistics frozen (_frozen_statistics), and
+    the data-parallel group of its forward (parallel/mesh.py::sharded),
+    whose collectives the recomputation reissues."""
+    with sharded(group), _frozen_statistics(backbone):
+        yield
 
 
 @contextlib.contextmanager
@@ -304,6 +330,13 @@ def dcl_losses(pred: Dict[str, torch.Tensor], batch: Dict[str, Any]
     rows, so shapes stay fixed. Each jax.lax.stop_gradient of the JAX
     function is a .detach() here.
 
+    Under data parallelism (parallel/mesh.py::sharded) the batch is this
+    rank's block and the denominator counts the valid rows of the global
+    batch, as JAX's sum over the sharded batch does: each rank's losses are
+    its share of the global losses, the global loss is the all-reduced SUM
+    of the ranks' losses, and the global gradient the all-reduced SUM of
+    their gradients (train/solver.py::apply_gradients).
+
     A bf16 model's trans_pred, conf, Xo_pred and Yc_pred are bf16 (rot_pred
     and the points f32). Each term takes the type JAX's promotion gives it:
     a bf16 value meeting an f32 one is widened, so every per-point loss is
@@ -316,7 +349,7 @@ def dcl_losses(pred: Dict[str, torch.Tensor], batch: Dict[str, Any]
     if valid is None:
         valid = torch.ones(rot_pred.shape[0], dtype=rot_pred.dtype,
                            device=rot_pred.device)
-    w = valid / torch.clamp(valid.sum(), min=1.0)               # [B]
+    w = valid / torch.clamp(all_reduce_sum(valid.sum(), batch_group()), min=1.0)  # [B]
 
     rot_gt = batch["labels"]["rot_gt"]
     trans_gt = batch["labels"]["trans_gt"]

@@ -31,6 +31,7 @@ from dcl_net_tpu_torch.geometry.transform import (
     untransform_points,
 )
 from dcl_net_tpu_torch.models.blocks import PointMLP, init_weights, softmax
+from dcl_net_tpu_torch.parallel.mesh import all_reduce_sum, batch_group
 
 _IN_FEATS = 259  # 3 canonical coordinates + the 256 channels of F_Xo_p
 
@@ -78,11 +79,14 @@ def refiner_losses(pred: Dict[str, torch.Tensor], trans_cur: torch.Tensor,
     """Point-matching loss of one refinement step
     (dcl_net_tpu/models/refiner.py::refiner_losses): the CAD cloud posed by
     the delta, then by the current pose, against the gt-posed cloud, L2 or
-    chamfer by the symmetry flag. Rows with valid = 0 weigh nothing."""
+    chamfer by the symmetry flag. Rows with valid = 0 weigh nothing.
+    Under data parallelism (parallel/mesh.py::sharded) the weights divide
+    by the global batch's count of valid rows, so each rank's loss is its
+    share of the global loss (their SUM), as in dcl_losses."""
     sym = sym_flag[:, None]
     if valid is None:
         valid = torch.ones(rot_cur.shape[0], dtype=rot_cur.dtype, device=rot_cur.device)
-    w = valid / torch.clamp(valid.sum(), min=1.0)
+    w = valid / torch.clamp(all_reduce_sum(valid.sum(), batch_group()), min=1.0)
     posed_delta = transform_points(points_tmp, pred["rot_pred"], pred["trans_pred"])
     posed_gt = transform_points(points_tmp, rot_gt, trans_gt)
     posed_refined = transform_points(posed_delta, rot_cur, trans_cur)

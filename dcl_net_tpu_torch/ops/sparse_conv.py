@@ -16,6 +16,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from dcl_net_tpu_torch.parallel.mesh import active, all_reduce_sum
+
 
 def _ncdhw(x: torch.Tensor) -> torch.Tensor:
     """[B, D0, D1, D2, C] -> [B, C, D0, D1, D2] as a view (channels_last_3d)."""
@@ -112,15 +114,35 @@ def sparse_avg_pool(feats: torch.Tensor, mask: torch.Tensor, kernel: int = 3,
     return out * new_mask[..., None].to(feats.dtype), new_mask
 
 
-def masked_batch_norm_stats(feats: torch.Tensor, mask: torch.Tensor
-                            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-channel mean and biased variance over occupied voxels only.
-    feats [B, ..., C]; mask [B, ...]."""
+def masked_moments(feats: torch.Tensor, mask: torch.Tensor, group=None
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Per-channel mean and biased variance over occupied voxels only, and
+    the count of occupied voxels (a 0-d tensor in feats' type).
+    feats [B, ..., C]; mask [B, ...].
+
+    Over a batch sharded across `group` (parallel/mesh.py) the statistics
+    are the global batch's, in the same two-pass form: the masked sum and
+    the count are all-reduced and give the mean, then the masked sum of
+    squared deviations from that mean is all-reduced and gives the
+    variance. Without a group no collective is taken."""
     m = mask.to(feats.dtype)[..., None]
-    denom = torch.clamp(m.sum(), min=1.0)
     axes = tuple(range(feats.dim() - 1))
-    mean = (feats * m).sum(dim=axes) / denom
-    var = (m * (feats - mean) ** 2).sum(dim=axes) / denom
+    count = m.sum()
+    total = (feats * m).sum(dim=axes)
+    if active(group):
+        sums = all_reduce_sum(torch.cat([total, count[None]]), group)
+        total, count = sums[:-1], sums[-1]
+    denom = torch.clamp(count, min=1.0)
+    mean = total / denom
+    sq = all_reduce_sum((m * (feats - mean) ** 2).sum(dim=axes), group)
+    return mean, sq / denom, count
+
+
+def masked_batch_norm_stats(feats: torch.Tensor, mask: torch.Tensor, group=None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-channel mean and biased variance over occupied voxels only
+    (masked_moments without the count). feats [B, ..., C]; mask [B, ...]."""
+    mean, var, _ = masked_moments(feats, mask, group)
     return mean, var
 
 

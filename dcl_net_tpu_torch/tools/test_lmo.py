@@ -36,7 +36,7 @@ def main(argv=None):
     def diameters(cfg, dataset):
         return dataset.diameters(os.path.join(lm_root(cfg), "models", "models_info.yml"))
 
-    return run_add_eval(argv, "test_lmo", "DCL-Net Occlusion-LineMOD eval (PyTorch)",
+    return run_add_eval(argv, main, "test_lmo", "DCL-Net Occlusion-LineMOD eval (PyTorch)",
                         make_dataset, diameters, LMO_SYM_IDX, count_lost=True, keep_clamp={})
 
 

@@ -14,6 +14,11 @@ AUC and <2 cm accuracy, and writes <log_dir>/results_test_ycbv_stage1.json.
 model.interp_mode picks the point-feature path (default two-stage).
 hyper_dataset_test.device_preprocess runs the readers' numpy tail on the
 device (data/device_preprocess.py) with the test loader's keep-clamp at 32.
+
+Data parallelism (--n_devices, --coordinator, torchrun; tools/common.py):
+bs is the global batch, each rank scores its block of every batch (the
+last one filled with pad rows), the ranks gather their scores, and rank 0
+writes the results file, equal to one process's.
 """
 
 from __future__ import annotations
@@ -26,31 +31,34 @@ def checkpoint_path(args, cfg) -> str:
 
 
 def main(argv=None):
-    from dcl_net_tpu_torch import resolve_device, strict_f32
-    from dcl_net_tpu_torch.eval.evaluator import Evaluator
-    from dcl_net_tpu_torch.tools.common import (
-        base_parser, build_model, build_ycbv_eval, init, load_model_weights,
-        refuse_data_parallel, write_result_json,
-    )
+    from dcl_net_tpu_torch.tools.common import base_parser, run_tool
 
     args = base_parser("DCL-Net YCBV stage-1 eval (PyTorch)").parse_args(argv)
-    refuse_data_parallel(args)
-    logger, cfg = init(args, "test_ycbv_stage1")
+    return run_tool(args, argv, main, _evaluate)
+
+
+def _evaluate(args, group, device):
+    from dcl_net_tpu_torch import strict_f32
+    from dcl_net_tpu_torch.eval.evaluator import Evaluator
+    from dcl_net_tpu_torch.tools.common import (
+        build_model, build_ycbv_eval, init, load_model_weights, write_result_json,
+    )
+
+    logger, cfg = init(args, "test_ycbv_stage1", group)
     strict_f32()
-    device = resolve_device(args.device)
 
     model = build_model(cfg, device=device)
     load_model_weights(model, checkpoint_path(args, cfg))
-    dataset, loader = build_ycbv_eval(cfg, device=device, logger=logger)
+    dataset, loader = build_ycbv_eval(cfg, device=device, logger=logger, group=group)
     evaluator = Evaluator(model, dataset.model_points_array(),
                           template_bank=dataset.template_bank(), device=device,
-                          logger=logger)
+                          logger=logger, group=group)
     try:
         result = evaluator.evaluate(iter(loader))
     finally:
         loader.close()  # a process pool's workers
     logger.warning(f"ADD-S AUC mean: {result['auc_mean']}  <2cm: {result['acc_mean']}")
-    write_result_json(cfg, "test_ycbv_stage1", result)
+    write_result_json(cfg, "test_ycbv_stage1", result, group)
     return result
 
 

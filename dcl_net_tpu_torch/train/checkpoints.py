@@ -24,14 +24,21 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from dcl_net_tpu_torch.parallel.mesh import barrier
+
 STATE_FILE = "state.pt"
 
 
 def save_checkpoint(directory: str, model: torch.nn.Module, state, epoch: int,
-                    meta: Optional[Dict[str, Any]] = None) -> str:
+                    meta: Optional[Dict[str, Any]] = None, group=None) -> str:
     """Write <directory>/epoch_<epoch>/state.pt (replacing one that is
-    there) and return the checkpoint's directory."""
+    there) and return the checkpoint's directory. With a data-parallel
+    group (parallel/mesh.py), whose ranks hold the same state, rank 0
+    writes it and every rank returns once it is written (a barrier)."""
     path = os.path.abspath(os.path.join(directory, f"epoch_{epoch}"))
+    if group is not None and not group.is_main:
+        barrier(group)
+        return path
     os.makedirs(path, exist_ok=True)
     payload = {
         "model": {k: v.detach().cpu() for k, v in model.state_dict().items()},
@@ -43,6 +50,7 @@ def save_checkpoint(directory: str, model: torch.nn.Module, state, epoch: int,
     tmp = os.path.join(path, f".{STATE_FILE}.{os.getpid()}.tmp")
     torch.save(payload, tmp)
     os.replace(tmp, os.path.join(path, STATE_FILE))
+    barrier(group)
     return path
 
 

@@ -11,6 +11,14 @@ A step whose loss or gradient norm is not finite is skipped on the device
 (torch.where on an `ok` flag): parameters, Adam moments and count, the
 AutoClip ring and the BN running statistics (which the forward has already
 written, so they are snapshotted first) all keep their values.
+
+Data parallelism (parallel/mesh.py): with a group of W ranks, each rank
+runs its block of the global batch; its losses are its share of the global
+losses (models/dcl_net.py::dcl_losses), so the flat gradient is all-reduced
+as a SUM before the norm (one collective of every parameter), the logged
+losses and overflow_frac are the global ones, and the finiteness test
+reads the global loss and norm, so every rank skips a step together and
+the replicas stay equal.
 """
 
 from __future__ import annotations
@@ -25,6 +33,9 @@ import torch
 from dcl_net_tpu_torch import autotune_convs, resolve_device, strict_f32
 from dcl_net_tpu_torch.config import Config
 from dcl_net_tpu_torch.data.schema import batch_to_torch
+from dcl_net_tpu_torch.parallel.mesh import (
+    Group, active, all_reduce_sum, replicate, sharded,
+)
 
 
 # ---------------------------------------------------------------------------
@@ -210,7 +221,8 @@ def bn_statistics(model: torch.nn.Module) -> List[torch.Tensor]:
 def apply_gradients(params: List[torch.Tensor], grads, opt: Optimizer,
                     state: TrainState, loss: torch.Tensor,
                     stats: List[torch.Tensor] = (),
-                    stats_before: Optional[torch.Tensor] = None
+                    stats_before: Optional[torch.Tensor] = None,
+                    group: Optional[Group] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The optimizer half of a train step, on the device without a host
     sync: the flat gradient (None counts as zero), its global norm,
@@ -218,9 +230,13 @@ def apply_gradients(params: List[torch.Tensor], grads, opt: Optimizer,
     the norm is not finite. Then the parameters, state.opt_state and, when
     given, the BN statistics (put back to stats_before on a skip) hold
     their new values and state.step counts the step.
+    group: the ranks' gradients are this rank's shares, all-reduced here
+    as a SUM before the norm; `loss` must then be the global loss.
     Returns (grad_norm, skipped_nonfinite) as 0-d tensors."""
     grad = torch.cat([(g if g is not None else torch.zeros_like(p)).reshape(-1)
                       for g, p in zip(grads, params)])
+    if active(group):
+        torch.distributed.all_reduce(grad)
     grad_norm = torch.sqrt(torch.sum(grad * grad))
     update, new_opt = opt.update(grad, grad_norm, state.opt_state)
     old = _flat(params)
@@ -235,9 +251,30 @@ def apply_gradients(params: List[torch.Tensor], grads, opt: Optimizer,
     return grad_norm, 1.0 - ok.to(torch.float32)
 
 
+def global_metrics(losses: Mapping[str, torch.Tensor], group: Optional[Group],
+                   overflow: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+    """A step's metrics as 0-d tensors: the losses (over a group, the SUM
+    of the ranks' shares: the global losses) and, given the per-row
+    overflow flags, overflow_frac (the global share of rows over a
+    capacity; every rank's block has the same size). One all-reduce."""
+    metrics = {k: v.detach() for k, v in losses.items()}
+    if overflow is not None:
+        metrics["overflow_frac"] = overflow.to(torch.float32).mean()
+    if not active(group):
+        return metrics
+    keys = list(metrics)
+    sums = all_reduce_sum(torch.stack([metrics[k].reshape(()).to(torch.float64)
+                                       for k in keys]), group)
+    out = {k: v.to(metrics[k].dtype) for k, v in zip(keys, sums)}
+    if overflow is not None:
+        out["overflow_frac"] = out["overflow_frac"] / group.world
+    return out
+
+
 def make_train_step(model: torch.nn.Module, opt: Optimizer, loss_fn: Callable,
                     template_bank: Optional[Mapping[str, torch.Tensor]] = None,
-                    on_stage: Optional[Callable[[str], None]] = None) -> Callable:
+                    on_stage: Optional[Callable[[str], None]] = None,
+                    group: Optional[Group] = None) -> Callable:
     """The train step: train-mode forward, loss, gradient, AutoClip, Adam,
     parameter update, all on the model's device without a host sync.
 
@@ -255,6 +292,12 @@ def make_train_step(model: torch.nn.Module, opt: Optimizer, loss_fn: Callable,
     each stage has been queued (scripts/profile_torch_train.py records a
     CUDA event there); None costs nothing.
 
+    group: data parallelism (parallel/mesh.py): the batch is this rank's
+    block of the global batch; the forward and backward run under
+    sharded(group), the gradient is all-reduced (apply_gradients) and the
+    metrics are the global ones. The model's state must be the same on
+    every rank (parallel/mesh.py::replicate).
+
     Turns TF32 off (strict_f32). A bf16 model (model.compute_dtype:
     bfloat16) computes its forward and backward in bf16 as the JAX package
     does; its parameters, their gradients, the optimizer state and the BN
@@ -269,20 +312,19 @@ def make_train_step(model: torch.nn.Module, opt: Optimizer, loss_fn: Callable,
                    ) -> Dict[str, torch.Tensor]:
         model.train()
         stats_before = _flat(stats)
-        if template_bank is not None:
-            pred = model.forward_with_template_bank(batch, template_bank)
-        else:
-            pred = model(batch)
-        mark("forward")
-        losses = dict(loss_fn(pred, batch))
-        mark("loss")
-        grads = torch.autograd.grad(losses["loss_all"], params, allow_unused=True)
+        with sharded(group):
+            if template_bank is not None:
+                pred = model.forward_with_template_bank(batch, template_bank)
+            else:
+                pred = model(batch)
+            mark("forward")
+            losses = dict(loss_fn(pred, batch))
+            mark("loss")
+            grads = torch.autograd.grad(losses["loss_all"], params, allow_unused=True)
         mark("backward")
-        metrics = {k: v.detach() for k, v in losses.items()}
-        if "overflow" in pred:
-            metrics["overflow_frac"] = pred["overflow"].to(torch.float32).mean()
+        metrics = global_metrics(losses, group, pred.get("overflow"))
         metrics["grad_norm"], metrics["skipped_nonfinite"] = apply_gradients(
-            params, grads, opt, state, losses["loss_all"], stats, stats_before)
+            params, grads, opt, state, metrics["loss_all"], stats, stats_before, group)
         mark("optimizer")
         return metrics
 
@@ -297,8 +339,13 @@ class Solver:
     (waiting for the loader) and T_step (the sustained wall time of a step)
     per step, averages every cfg.per_write steps, a checkpoint every
     cfg.per_save epochs and every cfg.per_save_steps steps, and the eval
-    hook every cfg.per_val epochs. (The JAX Solver's mesh is not ported
-    yet.)
+    hook every cfg.per_val epochs.
+
+    With a data-parallel group (parallel/mesh.py) every rank runs this loop
+    over its block of each global batch (the loader's process striding):
+    the model is replicated from rank 0 at initialize() and restore(), the
+    step all-reduces the gradient, the metrics are global, and rank 0 alone
+    logs and writes scalars and checkpoints.
 
     Metrics are fetched one step late: step k+1 is queued on the device
     before step k's scalars are read, so the read does not leave the card
@@ -308,7 +355,8 @@ class Solver:
                  checkpoint_dir: Optional[str] = None, writer=None,
                  template_bank=None, device=None,
                  eval_fn: Optional[Callable] = None,
-                 step_builder: Optional[Callable] = None):
+                 step_builder: Optional[Callable] = None,
+                 group: Optional[Group] = None):
         """template_bank: numpy {"feats", "voxel_idx"} per class.
 
         eval_fn(state, epoch) -> dict of scalars, called every cfg.per_val
@@ -318,7 +366,12 @@ class Solver:
         that replaces the stage-1 step (make_train_step); it is given the
         Solver's optimizer, so the state it updates is the Solver's. The
         stage-2 trainer passes train/stage2.py's step, with the refiner as
-        `model` and loss_fn None.
+        `model` and loss_fn None; over a group it builds its step with
+        that group.
+
+        group: the data-parallel group, or None. The loader's batch_size is
+        the global batch and must divide by the world (as the JAX Solver's
+        mesh requires); the loader yields this rank's block.
 
         Turns TF32 off (strict_f32) and cuDNN's algorithm autotuning on
         (autotune_convs)."""
@@ -328,8 +381,16 @@ class Solver:
         self.model = model.to(self.device)
         self.cfg = cfg
         self.loader = loader
-        self.logger = logger
-        self.writer = writer
+        self.group = group if active(group) else None
+        if self.group is not None:
+            bs = getattr(loader, "batch_size", None)
+            if bs is not None and bs % self.group.world:
+                raise ValueError(f"batch size {bs} not divisible by the world of "
+                                 f"{self.group.world} ranks")
+        self.main = self.group is None or self.group.is_main
+        # rank 0 alone logs and writes
+        self.logger = logger if self.main else None
+        self.writer = writer if self.main else None
         self.checkpoint_dir = checkpoint_dir
         self.eval_fn = eval_fn
         self.opt, self.schedule = build_optimizer(cfg, len(loader))
@@ -339,7 +400,7 @@ class Solver:
             bank = None if template_bank is None else batch_to_torch(
                 dict(template_bank), self.device)
             self.train_step = make_train_step(model, self.opt, loss_fn,
-                                              template_bank=bank)
+                                              template_bank=bank, group=self.group)
         self.state: Optional[TrainState] = None
         self.epoch = 0
 
@@ -348,6 +409,7 @@ class Solver:
         from it first (None keeps the model's weights)."""
         if seed is not None:
             self.model.reset_parameters(seed)
+        replicate(self.model, self.group)
         numel = sum(p.numel() for p in self.model.parameters() if p.requires_grad)
         self.state = TrainState(self.opt.init(numel, self.device))
         return self.state
@@ -361,9 +423,7 @@ class Solver:
             self.epoch += 1
             # per_save / per_val <= 0 disables the checkpoints / the eval hook
             if self.checkpoint_dir and per_save > 0 and self.epoch % per_save == 0:
-                from dcl_net_tpu_torch.train.checkpoints import save_checkpoint
-
-                save_checkpoint(self.checkpoint_dir, self.model, self.state, self.epoch)
+                self._save()
             if self.eval_fn and per_val > 0 and self.epoch % per_val == 0:
                 scalars = self.eval_fn(self.state, self.epoch)
                 if scalars:
@@ -372,6 +432,13 @@ class Solver:
                             f"{k}: {v:.5f}" for k, v in scalars.items()))
                     if self.writer:
                         self.writer.add_scalars("eval", scalars, self.epoch)
+
+    def _save(self, meta: Optional[Dict[str, Any]] = None) -> None:
+        """A checkpoint of the model and state (rank 0 writes it)."""
+        from dcl_net_tpu_torch.train.checkpoints import save_checkpoint
+
+        save_checkpoint(self.checkpoint_dir, self.model, self.state, self.epoch,
+                        meta=meta, group=self.group)
 
     def save_due(self, i: int) -> bool:
         """Whether step i of the epoch ends with a mid-epoch checkpoint."""
@@ -384,20 +451,20 @@ class Solver:
         records the batches of this epoch consumed, so a resumed run replays
         exactly the rest (the shuffle is seeded by seed + epoch)."""
         if self.save_due(i):
-            from dcl_net_tpu_torch.train.checkpoints import save_checkpoint
-
-            save_checkpoint(self.checkpoint_dir, self.model, self.state,
-                            self.epoch, meta={"consumed_batches": i + 1})
+            self._save(meta={"consumed_batches": i + 1})
 
     def restore(self, path: str) -> None:
         """Resume from a checkpoint directory: weights, BN statistics,
-        optimizer state, step, epoch and the position inside the epoch."""
+        optimizer state, step, epoch and the position inside the epoch.
+        Every rank of a group reads the same payload, and the model is
+        checked to be the same on every rank."""
         if self.state is None:
             raise RuntimeError("call initialize() before restore()")
         from dcl_net_tpu_torch.train.checkpoints import load_checkpoint
 
         payload = load_checkpoint(path, map_location=self.device)
         self.model.load_state_dict(payload["model"])
+        replicate(self.model, self.group)
         if set(payload["opt_state"]) != set(self.state.opt_state):
             raise KeyError(f"{path}: optimizer state keys "
                            f"{sorted(payload['opt_state'])}")

@@ -10,6 +10,12 @@ accumulated gradient. The optimizer is the Solver's (AutoClip, Adam, the
 schedule) over the refiner's parameters, with the non-finite skip on the
 device (solver.apply_gradients).
 
+Under data parallelism (group, parallel/mesh.py) the frozen stage 1 is
+replicated on every rank and runs its block of the global batch in eval
+mode (no collective: folded BN); the refiner's losses are the rank's share
+of the global loss (models/refiner.py::refiner_losses under sharded(group)),
+the gradient is all-reduced in apply_gradients and the metrics are global.
+
 The stage-1 model may run in bf16 (model.compute_dtype: bfloat16), the JAX
 package's production setting: its pose is taken to f32 before the first
 composition, and every composition runs in f32. The refiner trains in f32,
@@ -24,7 +30,10 @@ import torch
 
 from dcl_net_tpu_torch import strict_f32
 from dcl_net_tpu_torch.models.refiner import compose_pose, refiner_inputs, refiner_losses
-from dcl_net_tpu_torch.train.solver import Optimizer, TrainState, apply_gradients
+from dcl_net_tpu_torch.parallel.mesh import sharded
+from dcl_net_tpu_torch.train.solver import (
+    Optimizer, TrainState, apply_gradients, global_metrics,
+)
 
 
 def refuse_bf16_refiner(refiner: torch.nn.Module) -> None:
@@ -41,7 +50,7 @@ def refuse_bf16_refiner(refiner: torch.nn.Module) -> None:
 
 def make_stage2_train_step(main_model: torch.nn.Module, refiner: torch.nn.Module,
                            opt: Optimizer, iterations: int,
-                           model_points: torch.Tensor) -> Callable:
+                           model_points: torch.Tensor, group=None) -> Callable:
     """The refiner's train step. model_points: [num_classes, P, 3] CAD clouds
     on the device, picked per instance by labels.obj_idx.
 
@@ -50,7 +59,8 @@ def make_stage2_train_step(main_model: torch.nn.Module, refiner: torch.nn.Module
     sum over iterations), loss_last_iter, grad_norm, overflow_frac (of the
     stage-1 forward) and skipped_nonfinite. Turns TF32 off (strict_f32).
     main_model may be bf16; a refiner in another type than f32 raises
-    (refuse_bf16_refiner)."""
+    (refuse_bf16_refiner). group: the data-parallel group (the batch is
+    this rank's block), as make_train_step's."""
     refuse_bf16_refiner(refiner)
     strict_f32()
     params = [p for p in refiner.parameters() if p.requires_grad]
@@ -65,20 +75,21 @@ def make_stage2_train_step(main_model: torch.nn.Module, refiner: torch.nn.Module
         rot, trans = out["rot_pred"].float(), out["trans_pred"].float()
         refiner.train()
         per_iter = []
-        for _ in range(int(iterations)):
-            pred = refiner(refiner_inputs(out["points_inp"], out["F_Xo_p"], out["conf"],
-                                          rot, trans))
-            per_iter.append(refiner_losses(
-                pred, trans, rot, cld, batch["sym_flag"], labels["rot_gt"],
-                labels["trans_gt"], batch.get("valid"))["loss_all"])
-            with torch.no_grad():  # compose, detached for the next iteration
-                rot, trans = compose_pose(rot, trans, pred)
-        loss = torch.stack(per_iter).sum()
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
-        metrics = {"loss_all": loss.detach(), "loss_last_iter": per_iter[-1].detach(),
-                   "overflow_frac": out["overflow"].to(torch.float32).mean()}
+        with sharded(group):
+            for _ in range(int(iterations)):
+                pred = refiner(refiner_inputs(out["points_inp"], out["F_Xo_p"],
+                                              out["conf"], rot, trans))
+                per_iter.append(refiner_losses(
+                    pred, trans, rot, cld, batch["sym_flag"], labels["rot_gt"],
+                    labels["trans_gt"], batch.get("valid"))["loss_all"])
+                with torch.no_grad():  # compose, detached for the next iteration
+                    rot, trans = compose_pose(rot, trans, pred)
+            loss = torch.stack(per_iter).sum()
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+        metrics = global_metrics({"loss_all": loss, "loss_last_iter": per_iter[-1]},
+                                 group, out["overflow"])
         metrics["grad_norm"], metrics["skipped_nonfinite"] = apply_gradients(
-            params, grads, opt, state, loss)
+            params, grads, opt, state, metrics["loss_all"], group=group)
         return metrics
 
     return train_step

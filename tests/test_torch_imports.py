@@ -3,7 +3,8 @@
 An AST scan of every module of dcl_net_tpu_torch (the stage-2 refiner,
 evaluator, train step and CLI, the fused kernel's wrapper, the YCB-V and
 LineMOD readers, the PNG decoder's wrapper, the reference .pth converter
-and the YCB-V, LineMOD and Occlusion-LineMOD eval CLIs among them; and of
+and the YCB-V, LineMOD and Occlusion-LineMOD eval CLIs and the data-parallel package parallel/ and the
+multi-process dryrun among them; and of
 chip_smoke.py, the scripts/profile_torch_*.py, the tree writers
 scripts/ycbv_tree.py and scripts/lm_tree.py and the row counter
 scripts/lm_level_occupancy.py and the pooling check
@@ -73,7 +74,9 @@ def test_package_imports_with_jax_blocked():
     assert out.returncode == 0, out.stderr
     assert len(modules) >= 30
     for name in ("dcl_net_tpu_torch.data.linemod", "dcl_net_tpu_torch.tools.test_lm",
-                 "dcl_net_tpu_torch.tools.test_lmo"):
+                 "dcl_net_tpu_torch.tools.test_lmo", "dcl_net_tpu_torch.parallel",
+                 "dcl_net_tpu_torch.parallel.mesh",
+                 "dcl_net_tpu_torch.tools.dryrun_multihost"):
         assert name in modules
 
 

@@ -74,7 +74,6 @@ def test_train_stage2_writes_checkpoint_eval_and_resumes(tmp_path, stage1_checkp
 
 @pytest.mark.parametrize("ckpt, extra, match", [
     ("reference.pth", ["--override", "model.voxelization_mode=2"], "not ported"),
-    (None, ["--n_devices", "2"], "data parallelism"),
     (None, ["--override", "model.interp_mode=local"], "not ported"),
 ])
 def test_train_stage2_refuses_what_is_not_ported(tmp_path, stage1_checkpoint, ckpt,

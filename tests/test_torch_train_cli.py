@@ -76,7 +76,6 @@ def test_train_stage1_template_bank_option(tmp_path):
 
 
 @pytest.mark.parametrize("extra, match", [
-    (["--n_devices", "2"], "data parallelism"),
     (["--override", "model.voxelization_mode=2"], "not ported"),
     (["--override", "model.interp_mode=local"], "not ported"),
     (["--override", "hyper_dataloader_train.worker_type=fiber"], "not ported"),

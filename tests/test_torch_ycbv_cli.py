@@ -151,7 +151,6 @@ def test_stage1_cli_matches_jax(runs, monkeypatch):
 
 @pytest.mark.parametrize("extra, match", [
     (["--override", *OVERRIDES, "model.voxelization_mode=2"], "not ported"),
-    (["--n_devices", "2"], "data parallelism"),
     (["--override", *OVERRIDES, "model.interp_mode=local"], "not ported"),
     (["--override", *OVERRIDES, "hyper_dataloader_test.worker_type=fiber"], "thread"),
 ])
