@@ -187,7 +187,33 @@ Phases, any failure exits non-zero:
     phase's data-parallel runs go into the kernel line (parallel_launches).
     A rank that raises ends the other and fails the phase.
     `python3 chip_smoke.py --phase 15` runs phases 1, 2 and 15 alone;
-16. prints the per-kernel JSON line (the f32 kernels and the bf16
+16. the rest of the JAX package, at full width (config_YCBV_bs32.yaml's
+    model, seed 0, phase 4's batches and bank), cuDNN autotuning off:
+    (a) Evaluator on interp_mode "local" in f32 and bf16 (one K1 an encode,
+    no K2, K3 or K6; finite poses; instances/s and peak memory beside the
+    exact path's in the same run), each level's local features against the
+    exact path's (K2 + K3) within LOCAL_ATOL on the points whose exact 3
+    neighbours lie in the window (their share printed), 2 rows against the
+    same model on the CPU within POSE_ATOL, then 2 train steps of a local
+    Solver (finite, parameters and BN statistics changed); (b)
+    voxelization modes 0-2 at the main batch: K1's sum torch.equal to the
+    CPU's mode 0, modes 1-2 (ops/voxelize.py::voxelize_dense, no kernel)
+    torch.equal to their CPU runs, one forward of a model of each mode
+    (mode 0 runs K1 at mode 3: its poses torch.equal to mode 3's); (c) the
+    data-parallel serving artifact at batch 32: one exported on the CPU and
+    served on the card through ShardedServe by an NCCL group of one rank
+    (its weights on the card, K1 1, K2 4, K3 4), and one served by two
+    spawned gloo ranks sharing the card, each serving the global batch,
+    all within SHARDED_ATOL of the single artifact (NCCL across GPUs:
+    scripts/serve_sharded_multi_gpu.py); (d) the
+    library surface against CPU copies: FPS of 16384 -> 1024 points, ball
+    query, grouping, an SA-MSG and an FP module, the sparse max pool forward
+    and gradient on a 64^3 grid at batch 2, the transposed and inverse
+    convs, the field max pool. K1's launches of (a) and (b) go into its
+    entries (local_eval_launches, local_train_launches, mode0_launches,
+    and launches). `python3 chip_smoke.py --phase 16` runs phases 1, 2 and
+    16 alone;
+17. prints the per-kernel JSON line (the f32 kernels and the bf16
     variants), then the result line {"ok": true, "device": {...}} last.
 """
 
@@ -3250,6 +3276,443 @@ def parallel_phase(card: str, cfg, samples, batches, bank, model_points,
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+# ---- phase 16: the rest of the JAX package ---------------------------------------
+LOCAL_EVAL = {"voxelize": 1}  # one K1 an encode on interp_mode "local": no K2, K3, K6
+LOCAL_TRAIN = {"voxelize": 2}  # a train step encodes both branches
+LOCAL_ATOL = 1e-5  # local vs exact where the exact 3 neighbours lie in the window
+SHARDED_ATOL = 1e-5  # a sharded artifact against the single one (test_serving.py:171)
+SURFACE_ATOL = 1e-4  # a module's card run against its CPU copy: matmuls in other orders
+FPS_POINTS, FPS_SAMPLES = 16384, 1024
+
+
+def local_levels_check(model, tb) -> None:
+    """Each level's local features against the exact path's, on the card, at
+    the points whose exact 3 nearest occupied voxels all lie in the point's
+    window (the samples that overflow a compaction capacity left out)."""
+    import torch
+
+    from dcl_net_tpu_torch.ops import cuda_compact, cuda_interp
+    from dcl_net_tpu_torch.ops.cuda_voxelize import voxelize_cuda
+    from dcl_net_tpu_torch.ops.grid_interp import local_grid_interpolate
+    from dcl_net_tpu_torch.ops.sparse_conv import voxel_centers
+
+    pf = model.point_feats_inp
+    feats, vidx = tb["inp"]["feats"], tb["inp"]["voxel_idx"]
+    points = feats[..., 4:7].contiguous()
+    half = pf.window // 2
+    with torch.no_grad():
+        grid, count = voxelize_cuda(feats, vidx, model.grid_shape, mode=model.voxelization_mode)
+        pyramid = model.backbone_inp(grid, (count > 0).to(feats.dtype))
+        for level, (f, m) in enumerate(pyramid):
+            scale = pf.scale_list[level]
+            local = local_grid_interpolate(points, f, m, pf.unit, scale, pf.offset, pf.window)
+            dims = f.shape[1:4]
+            cap = min(pf.capacities[level], int(dims[0] * dims[1] * dims[2]))
+            coords, vfeats, vmask, occ = cuda_compact.dense_to_sparse_cuda(
+                f.contiguous(), m.contiguous(), cap)
+            centers = voxel_centers(coords, pf.unit, scale, pf.offset)
+            exact, _, idx = cuda_interp.nn_interpolate_cuda(points, centers, vfeats, vmask, occ)
+            # each point's quirk cell, clipped, as local_grid_interpolate takes it
+            su = torch.as_tensor(pf.unit * float(scale), device=points.device)
+            off = torch.as_tensor(pf.offset, device=points.device)
+            hi = torch.tensor([d - 1 for d in dims], device=points.device)
+            base = torch.minimum(torch.clamp(torch.floor((points - off) / su).long(), min=0), hi)
+            nb = torch.gather(coords.long(), 1, idx.long().transpose(1, 2).reshape(
+                idx.shape[0], -1, 1).expand(-1, -1, 3)).reshape(idx.shape[0], -1, 3, 3)
+            inside = ((nb - base[:, :, None]).abs() <= half).all(-1).all(-1)   # [B, N]
+            inside &= (occ <= cap)[:, None]
+            share = float(inside.float().mean())
+            err = float((local - exact).abs()[inside].max()) if inside.any() else 0.0
+            print(f"local level {level} ({tuple(dims)}, scale {scale}): {share:.4%} of the "
+                  f"points have their exact 3 neighbours in the window; local vs exact "
+                  f"there: max abs {err:.3g}", flush=True)
+            check(share > 0.5, f"level {level}: only {share:.2%} of the points comparable")
+            check(err <= LOCAL_ATOL, f"level {level}: local differs from exact by {err}")
+
+
+def timed_evaluate(model, model_points, bank, batches):
+    """(summary, launch counts, seconds, peak GiB) of one counted Evaluator
+    run after an uncounted warm-up batch."""
+    import torch
+
+    from dcl_net_tpu_torch.eval.evaluator import Evaluator
+
+    Evaluator(model, model_points, template_bank=bank).evaluate(batches[:1])  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = Evaluator(model, model_points, template_bank=bank).evaluate(batches)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return res, read_counts(), seconds, torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def local_phase(card, cfg, batches, bank, model_points, entries) -> None:
+    """Phase 16(a): interp_mode "local" in f32 and bf16 through Evaluator,
+    its levels against the exact path, 2 rows against the CPU, 2 train
+    steps through Solver."""
+    import numpy as np
+    import torch
+
+    from dcl_net_tpu_torch.data.schema import batch_to_torch
+    from dcl_net_tpu_torch.models.dcl_net import DCLNet
+
+    mcfg = cfg.model
+    rows = BATCH * len(batches)
+    encodes = 1 + len(batches)
+    _, _, t_exact, peak_exact = timed_evaluate(DCLNet.from_config(mcfg, seed=0), model_points,
+                                               bank, batches)
+    for dtype, key in ((None, "voxelize"), (torch.bfloat16, "voxelize_bf16")):
+        name = "f32" if dtype is None else "bf16"
+        model = DCLNet.from_config(mcfg, seed=0, interp_mode="local", dtype=dtype)
+        res, launches, seconds, peak = timed_evaluate(model, model_points, bank, batches)
+        print(f"local eval ({name}) launches {launches} over {encodes} encodes", flush=True)
+        expect_counts(launches, {key: 1}, encodes, f"local eval ({name})")
+        entries[key]["local_eval_launches"] = launches[key]
+        entries[key]["launches"] = entries[key].get("launches", 0) + launches[key]
+        check(res["n_scored"] == rows - 1, f"local n_scored {res['n_scored']}")
+        check(res["n_overflow"] == 0, "the local path flagged an overflow")
+        check(bool(np.isfinite(res["auc_mean"])), "local auc_mean is not finite")
+        print(f"local eval ({name}) on {card}: evaluate {seconds:.3f} s for {rows} rows = "
+              f"{rows / seconds:.1f} instances/s, peak memory {peak:.2f} GiB (exact f32 path "
+              f"in this run: {rows / t_exact:.1f} instances/s, peak {peak_exact:.2f} GiB); "
+              f"auc_mean {res['auc_mean']}", flush=True)
+        tb = batch_to_torch(batches[1], torch.device("cuda"))
+        with torch.no_grad():
+            out = model(tb)
+        check(bool(torch.isfinite(out["rot_pred"]).all()
+                   and torch.isfinite(out["trans_pred"].float()).all()), "local: non-finite")
+        if dtype is None:
+            local_levels_check(model, tb)
+            cpu = DCLNet.from_config(mcfg, seed=0, interp_mode="local", device="cpu")
+            two = batch_to_torch(batches[1], torch.device("cpu"))
+            two = {k: ({kk: vv[:2] for kk, vv in v.items()} if isinstance(v, dict) else v[:2])
+                   for k, v in two.items()}
+            with torch.no_grad():
+                ref = cpu(two)
+            e_rot = max_err(out["rot_pred"][:2].cpu(), ref["rot_pred"])
+            e_trans = max_err(out["trans_pred"][:2].cpu(), ref["trans_pred"])
+            print(f"local eval, 2 rows on the card vs the CPU: rot_pred {e_rot:.3g} "
+                  f"trans_pred {e_trans:.3g}", flush=True)
+            check(e_rot <= POSE_ATOL and e_trans <= POSE_ATOL, "local: card differs from CPU")
+        del model
+        torch.cuda.empty_cache()
+    launches, solver, _, perf = train_phase(cfg, card, "local", steps=2, per_step=LOCAL_TRAIN)
+    entries["voxelize"]["local_train_launches"] = launches["voxelize"]
+    entries["voxelize"]["launches"] += launches["voxelize"]
+    del solver
+    torch.cuda.empty_cache()
+
+
+def modes_phase(card, cfg, batches, entries) -> None:
+    """Phase 16(b): voxelization modes 0-2 at the main batch."""
+    import torch
+
+    from dcl_net_tpu_torch.data.schema import batch_to_torch
+    from dcl_net_tpu_torch.models.dcl_net import DCLNet
+    from dcl_net_tpu_torch.ops.cuda_voxelize import voxelize_cuda
+    from dcl_net_tpu_torch.ops.voxelize import voxelize_dense
+
+    mcfg = cfg.model
+    tb = batch_to_torch(batches[0], torch.device("cuda"))
+    feats, vidx = tb["inp"]["feats"], tb["inp"]["voxel_idx"]
+    grid_shape = tuple(int(d) for d in mcfg.voxel_num_limit)
+    # mode 0 is K1's sum (the model launches it at mode 3): bit-equal to the
+    # plain mode-0 sum on the CPU
+    g3, c3 = voxelize_cuda(feats, vidx, grid_shape, mode=3)
+    g0, c0 = voxelize_dense(feats.cpu(), vidx.cpu(), grid_shape, mode=0)
+    check(torch.equal(g3.cpu(), g0) and torch.equal(c3.cpu(), c0),
+          "K1's sum differs from the CPU's mode 0")
+    for mode in (1, 2):
+        t0 = time.perf_counter()
+        g, c = voxelize_dense(feats, vidx, grid_shape, mode=mode)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        gc, cc = voxelize_dense(feats.cpu(), vidx.cpu(), grid_shape, mode=mode)
+        check(torch.equal(g.cpu(), gc) and torch.equal(c.cpu(), cc),
+              f"mode {mode}: the card differs from the CPU")
+        print(f"voxelization mode {mode} at batch {BATCH}: equal to the CPU run "
+              f"({ms:.2f} ms on the card, first call)", flush=True)
+    with torch.no_grad():
+        ref = DCLNet.from_config(mcfg, seed=0, voxelization_mode=3)(tb)
+        for mode, per_run in ((0, {"voxelize": 2}), (1, {}), (2, {})):
+            model = DCLNet.from_config(mcfg, seed=0, voxelization_mode=mode)
+            reset_counts()
+            out = model(tb)
+            torch.cuda.synchronize()
+            launches = read_counts()
+            # both branches, each compacted (K2) and interpolated (K3) at 4 levels
+            expect_counts(launches, {**per_run, "compact": 8, "interp": 8},
+                          1, f"mode {mode} forward")
+            check(bool(torch.isfinite(out["rot_pred"]).all()
+                       and torch.isfinite(out["trans_pred"]).all()), f"mode {mode}: non-finite")
+            if mode == 0:
+                entries["voxelize"]["mode0_launches"] = launches["voxelize"]
+                entries["voxelize"]["launches"] = (entries["voxelize"].get("launches", 0)
+                                                   + launches["voxelize"])
+            same = mode == 0 and all(torch.equal(out[k], ref[k]) for k in ("rot_pred",
+                                                                           "trans_pred"))
+            print(f"voxelization mode {mode}: one forward of batch {BATCH}, launches "
+                  f"{dict((k, n) for k, n in launches.items() if n)}"
+                  + (f", poses torch.equal to mode 3: {same}" if mode == 0 else ""), flush=True)
+            check(mode != 0 or same, "a mode-0 model differs from the mode-3 model")
+
+
+def _sharded_rank(rank: int, world: int, init: str, tmp: str) -> None:
+    """One rank of phase 16(c): gloo on cuda:0 serves the global batch through
+    the data-parallel artifact; leaves its outputs and launches in tmp."""
+    import pickle
+
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from dcl_net_tpu_torch import serving, strict_f32
+    from dcl_net_tpu_torch.parallel.mesh import destroy, init_distributed
+
+    strict_f32()
+    torch.backends.cudnn.benchmark = False
+    group = init_distributed(init, world, rank, device="cuda:0", backend="gloo")
+    try:
+        with open(Path(tmp) / "inputs.pkl", "rb") as f:
+            inp = pickle.load(f)
+        module = serving.load_serve(Path(tmp) / "sharded.pt2", group=group)
+        req = [x.to("cuda:0") for x in inp["request"]]
+        with torch.inference_mode():
+            module(*req)  # warm-up
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            out = module(*req)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        torch.save({"out": {k: v.cpu() for k, v in out.items()}, "launches": read_counts(),
+                    "seconds": seconds}, Path(tmp) / f"rank{rank}.pt")
+    finally:
+        destroy(group)
+
+
+def sharded_phase(card, model, bank, batches, entries) -> None:
+    """Phase 16(c): the data-parallel serving artifact against the single
+    artifact: one exported on the CPU and served on the card by an NCCL
+    group of one rank, and one served by two gloo ranks sharing the card.
+    (NCCL takes one rank a GPU: scripts/serve_sharded_multi_gpu.py serves
+    over NCCL across GPUs.)"""
+    import copy
+    import pickle
+    import tempfile
+
+    import torch
+
+    from dcl_net_tpu_torch import serving
+    from dcl_net_tpu_torch.data.schema import batch_to_torch
+    from dcl_net_tpu_torch.parallel.mesh import destroy, init_distributed
+
+    n_points = int(batches[0]["inp"]["feats"].shape[1])
+    tb = batch_to_torch(batches[0], torch.device("cuda"))
+    req = (tb["inp"]["feats"], tb["inp"]["voxel_idx"], tb["labels"]["obj_idx"].to(torch.int32))
+    single = serving.export_serve(model, bank, BATCH, n_points)
+    with torch.inference_mode():
+        want = serving.load_serve(single)(*req)
+
+    def compare(what, got):
+        errs = {k: max_err(got[k].float().cpu(), want[k].float().cpu()) for k in want}
+        same = all(torch.equal(got[k].cpu(), want[k].cpu()) for k in want)
+        print(f"sharded artifact ({what}) vs the single artifact at batch {BATCH} on {card}: "
+              f"max abs {max(errs.values()):.3g} (torch.equal {same})", flush=True)
+        check(max(errs.values()) <= SHARDED_ATOL, f"sharded artifact ({what}) differs: {errs}")
+
+    with tempfile.TemporaryDirectory(prefix="dclx_sharded_") as tmp:
+        group = init_distributed("file://" + str(Path(tmp) / "nccl"), 1, 0,
+                                 device=torch.device("cuda", 0))
+        try:
+            check(group.backend == "nccl", f"group {group}")
+            # exported on the CPU (CPU copies of the model and of the card's
+            # template cache), served on the card through ShardedServe:
+            # load_serve moves the program to the group's device
+            cache = serving.encode_template_cache(model, bank)
+            on_cpu = serving._export(serving.make_serve_fn(
+                copy.deepcopy(model).cpu(), {k: v.cpu() for k, v in cache.items()}),
+                BATCH, n_points)
+            served = serving.load_serve(on_cpu, group=group)
+            check(isinstance(served, serving.ShardedServe), "no ShardedServe for a group")
+            state = list(served.module.parameters()) + list(served.module.buffers())
+            check(all(t.device == group.device for t in state),
+                  "the CPU-exported artifact kept weights off the group's device")
+            with torch.inference_mode():
+                reset_counts()
+                got = served(*req)
+                expect_counts(read_counts(), {"voxelize": 1, "compact": 4, "interp": 4}, 1,
+                              "the CPU-exported artifact on the card")
+            compare("exported on the CPU, served on the card, NCCL world 1", got)
+        finally:
+            destroy(group)
+        with open(Path(tmp) / "sharded.pt2", "wb") as f:
+            f.write(serving.export_serve(model, bank, BATCH, n_points, world=PARALLEL_WORLD))
+        with open(Path(tmp) / "inputs.pkl", "wb") as f:
+            pickle.dump({"request": [x.cpu() for x in req]}, f)
+        init = "file://" + str(Path(tmp) / "rendezvous")
+        ctx = torch.multiprocessing.start_processes(
+            _sharded_rank, args=(PARALLEL_WORLD, init, tmp), nprocs=PARALLEL_WORLD,
+            join=False, start_method="spawn")
+        deadline = time.perf_counter() + PARALLEL_TIMEOUT
+        try:
+            while not ctx.join(timeout=1.0):
+                check(time.perf_counter() < deadline, "the serving ranks did not end")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+        for r in range(PARALLEL_WORLD):
+            res = torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False)
+            compare(f"gloo rank {r} of {PARALLEL_WORLD}", res["out"])
+            # each rank encodes its half: one K1, 4 K2 and 4 K3
+            expect_counts(res["launches"], {"voxelize": 1, "compact": 4, "interp": 4}, 1,
+                          f"sharded rank {r}")
+            print(f"sharded rank {r}: {res['seconds'] * 1e3:.1f} ms for the global batch "
+                  f"(its {BATCH // PARALLEL_WORLD} rows and the gather)", flush=True)
+
+
+def surface_phase(card) -> None:
+    """Phase 16(d): the library surface on the card against CPU copies."""
+    import importlib
+
+    import torch
+
+    from dcl_net_tpu_torch.ops import extras, pointnet_modules as pm, sparse_conv as sc
+
+    knn = importlib.import_module("dcl_net_tpu_torch.ops.knn")  # ops.knn is the function
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(16)
+    xyz = torch.rand((2, FPS_POINTS, 3), generator=gen) * 0.3
+    pf = torch.randn((2, FPS_POINTS, 3), generator=gen)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    idx, ms = timed(lambda: knn.furthest_point_sample(xyz.to(dev), FPS_SAMPLES))
+    ref = knn.furthest_point_sample(xyz, FPS_SAMPLES)
+    check(torch.equal(idx.cpu(), ref), "FPS differs from its CPU run")
+    print(f"FPS {FPS_POINTS} -> {FPS_SAMPLES} at batch 2 on {card}: {ms:.1f} ms, equal to "
+          f"the CPU run", flush=True)
+    centers = knn.gather_operation(xyz, ref.long())
+    radius, nsample = 0.02, 32
+    ball, ms = timed(lambda: knn.ball_query(radius, nsample, xyz.to(dev), centers.to(dev)))
+    ball_ref = knn.ball_query(radius, nsample, xyz, centers)
+    # the expansion form |a|^2 - 2ab + |b|^2 rounds its cancellation other
+    # ways on the card (about 1e-8 here): rows with a point within 1e-3 r^2
+    # of the radius may differ, no other
+    d2 = ((centers[:, :, None] - xyz[:, None]) ** 2).sum(-1)
+    near = ((d2 - radius ** 2).abs() < 1e-3 * radius ** 2).any(-1)
+    del d2
+    same = (ball.cpu() == ball_ref).all(-1)
+    check(bool((same | near).all()), "ball query differs away from the radius")
+    print(f"ball query r {radius} k {nsample} of {FPS_SAMPLES} centers: {ms:.1f} ms, "
+          f"{int(same.sum())} of {same.numel()} rows equal to the CPU run ({int(near.sum())} "
+          f"near the radius)", flush=True)
+    grouped = knn.grouping_operation(pf.to(dev), ball_ref.to(dev))
+    check(torch.equal(grouped.cpu(), knn.grouping_operation(pf, ball_ref)), "grouping differs")
+
+    def module_pair(make):
+        torch.manual_seed(0)
+        return make("cuda"), make("cpu")
+
+    radii, nsamples = [0.02, 0.04], [16, 32]
+    sa, sa_cpu = module_pair(lambda d: pm.PointnetSAModuleMSG(
+        FPS_SAMPLES, radii, nsamples, [[32, 64], [64, 128]], in_channels=3, device=d))
+    with torch.no_grad():
+        (new_xyz, new_f), ms = timed(lambda: sa(xyz.to(dev), pf.to(dev)))
+        new_xyz_c, new_f_c = sa_cpu(xyz, pf)
+    check(torch.equal(new_xyz.cpu(), new_xyz_c), "SA-MSG centers differ")
+    # compared on the centers whose balls are the same on both (see above)
+    rows = torch.ones(new_f_c.shape[:2], dtype=torch.bool)
+    for r, k in zip(radii, nsamples):
+        rows &= (knn.ball_query(r, k, xyz.to(dev), new_xyz).cpu()
+                 == knn.ball_query(r, k, xyz, new_xyz_c)).all(-1)
+    e_sa = max_err(new_f.cpu()[rows], new_f_c[rows])
+    fp, fp_cpu = module_pair(lambda d: pm.PointnetFPModule([128, 64], in_channels=192 + 3,
+                                                           device=d))
+    with torch.no_grad():  # the same known features on both
+        out, ms_fp = timed(lambda: fp(xyz.to(dev), new_xyz, pf.to(dev), new_f_c.to(dev)))
+        out_c = fp_cpu(xyz, new_xyz_c, pf, new_f_c)
+    same_nn = (knn.three_nn(xyz.to(dev), new_xyz)[1].cpu()
+               == knn.three_nn(xyz, new_xyz_c)[1]).all(-1)
+    e_fp = max_err(out.cpu()[same_nn], out_c[same_nn])
+    print(f"SA-MSG ({FPS_POINTS} -> {FPS_SAMPLES}, 2 scales) {ms:.1f} ms, max abs vs CPU "
+          f"{e_sa:.3g} on the {float(rows.float().mean()):.4%} of centers with equal balls; "
+          f"FP ({FPS_SAMPLES} -> {FPS_POINTS}) {ms_fp:.1f} ms, max abs vs CPU {e_fp:.3g} on "
+          f"the {float(same_nn.float().mean()):.4%} of points with equal 3-NN", flush=True)
+    check(float(rows.float().mean()) > 0.99 and float(same_nn.float().mean()) > 0.99,
+          "the card's neighbourhoods differ from the CPU's beyond rounding")
+    check(e_sa <= SURFACE_ATOL and e_fp <= SURFACE_ATOL, "a PointNet++ module differs")
+
+    d = 64
+    mask = (torch.rand((2, d, d, d), generator=gen) < 0.05).float()
+    grid = torch.randint(-3, 4, (2, d, d, d, 16), generator=gen).float() * mask[..., None]
+    dout = torch.randn((2, d // 2, d // 2, d // 2, 16), generator=gen)
+    outs = []
+    for g in (grid.to(dev).requires_grad_(True), grid.detach().clone().requires_grad_(True)):
+        pooled, pmask = sc.sparse_max_pool(g, mask.to(g.device))
+        (pooled * dout.to(g.device)).sum().backward()
+        outs.append((pooled.detach().cpu(), pmask.cpu(), g.grad.cpu()))
+    check(all(torch.equal(a, b) for a, b in zip(*outs)), "sparse max pool differs")
+    print(f"sparse max pool on {d}^3 x 16 at batch 2 (ties everywhere): forward and "
+          f"gradient equal to the CPU run", flush=True)
+    small = grid[:, ::2, ::2, ::2].contiguous()
+    smask = mask[:, ::2, ::2, ::2].contiguous()
+    w = torch.randn((3, 3, 3, 16, 16), generator=gen) * 0.1
+    t, tm = sc.sparse_conv_transpose(small.to(dev), smask.to(dev), w.to(dev))
+    t_c, tm_c = sc.sparse_conv_transpose(small, smask, w)
+    inv, _ = sc.sparse_inverse_conv(small.to(dev), smask.to(dev), w.to(dev), mask.to(dev))
+    inv_c, _ = sc.sparse_inverse_conv(small, smask, w, mask)
+    e_t, e_i = max_err(t.cpu(), t_c), max_err(inv.cpu(), inv_c)
+    check(torch.equal(tm.cpu(), tm_c), "transposed conv mask differs")
+    check(e_t <= SURFACE_ATOL and e_i <= SURFACE_ATOL, f"transposed convs differ {e_t} {e_i}")
+    fields = torch.randn((2, 32, 32, 32, 4, 3), generator=gen)
+    fmask = (torch.rand((2, 32, 32, 32), generator=gen) < 0.2).float()
+    fo = extras.sparse_field_max_pool(fields.to(dev), fmask.to(dev))
+    fo_c = extras.sparse_field_max_pool(fields, fmask)
+    check(all(torch.equal(a.cpu(), b) for a, b in zip(fo, fo_c)), "field max pool differs")
+    print(f"transposed conv {tuple(small.shape[1:4])} -> {tuple(t.shape[1:4])} max abs vs "
+          f"CPU {e_t:.3g}, inverse conv onto {d}^3 {e_i:.3g}; field max pool equal to the "
+          f"CPU run", flush=True)
+
+
+def rest_phase(card, cfg, batches, bank, model_points, entries) -> None:
+    """Phase 16 (the module docstring): (a) local, (b) modes, (c) the sharded
+    artifact, (d) the library surface."""
+    import torch
+
+    from dcl_net_tpu_torch.models.dcl_net import DCLNet
+
+    t_phase = time.perf_counter()
+    benchmark = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False
+    try:
+        t0 = time.perf_counter()
+        local_phase(card, cfg, batches, bank, model_points, entries)
+        torch.backends.cudnn.benchmark = False  # Solver turned it on
+        t_a = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        modes_phase(card, cfg, batches, entries)
+        t_b = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sharded_phase(card, DCLNet.from_config(cfg.model, seed=0), bank, batches, entries)
+        t_c = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        surface_phase(card)
+        t_d = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.benchmark = benchmark
+    print(f"rest-of-package phase: (a) {t_a:.1f} s (b) {t_b:.1f} s (c) {t_c:.1f} s "
+          f"(d) {t_d:.1f} s; phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3325,6 +3788,12 @@ def main() -> int:
                        {k: {} for k in KERNEL_ORDER})
         stop_child_processes()
         print("phase 15 alone: passed", flush=True)
+        return 0
+    if sys.argv[1:] == ["--phase", "16"]:
+        # a development run of phase 16 alone: no kernel line, no result line
+        rest_phase(card, cfg, batches, bank, model_points, {k: {} for k in KERNEL_ORDER})
+        stop_child_processes()
+        print("phase 16 alone: passed", flush=True)
         return 0
 
     # ---- 3. kernels vs plain versions at main-path shapes -------------------
@@ -3940,9 +4409,13 @@ def main() -> int:
     # ---- 15. data parallelism: NCCL at world 1, two gloo ranks on the card -----
     torch.cuda.empty_cache()
     parallel_phase(card, cfg, samples, batches, bank, model_points, entries)
+
+    # ---- 16. the rest of the JAX package: local, modes 0-2, sharded serving, ops --
+    torch.cuda.empty_cache()
+    rest_phase(card, cfg, batches, bank, model_points, entries)
     stop_child_processes()
 
-    # ---- 16. result lines -----------------------------------------------------
+    # ---- 17. result lines -----------------------------------------------------
     print(json.dumps({"kernels": [entries[k] for k in KERNEL_ORDER]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

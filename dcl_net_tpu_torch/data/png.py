@@ -21,65 +21,29 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import subprocess
-import threading
 from pathlib import Path
 
 import numpy as np
 
-PACKAGE_DIR = Path(__file__).resolve().parent.parent
-SOURCE_DIR = PACKAGE_DIR / "csrc" / "host"
-BUILD_DIR = PACKAGE_DIR / "build"
+from dcl_net_tpu_torch import host_build
+
+BUILD_DIR = host_build.BUILD_DIR
 SOURCES = ("png_decoder.cpp", "inflate.cpp")
-# no -march=native: a library built on one host must load on another
-CXX_FLAGS = ["-O3", "-fPIC", "-std=c++17", "-Wall", "-shared"]
+STEM = "libdclx_host"
 UNSUPPORTED = -2  # the decoder's code for a PNG variant it does not handle
-
-_BUILD_LOCK = threading.Lock()
-
-
-def compiler() -> str:
-    return os.environ.get("CXX") or "g++"
 
 
 def library_path(build_dir: Path = BUILD_DIR) -> Path:
-    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
-    for name in SOURCES:
-        h.update(name.encode())
-        h.update((SOURCE_DIR / name).read_bytes())
-    return Path(build_dir) / f"libdclx_host_{h.hexdigest()[:16]}.so"
+    return host_build.library_path(SOURCES, STEM, build_dir)
 
 
 def build(cxx: str = None, build_dir: Path = BUILD_DIR) -> Path:
     """Compile the host library if the one for these sources is missing and
-    return its path. Raises RuntimeError with the compiler's output when the
-    compiler is missing or fails (zlib's headers or library absent, say)."""
-    so = library_path(build_dir)
-    if so.exists():
-        return so
-    cxx = cxx or compiler()
-    with _BUILD_LOCK:
-        if so.exists():
-            return so
-        so.parent.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [cxx, *CXX_FLAGS, "-o", str(tmp),
-               *(str(SOURCE_DIR / s) for s in SOURCES), "-lz"]
-        try:
-            out = subprocess.run(cmd, stdout=subprocess.PIPE,
-                                 stderr=subprocess.STDOUT, text=True)
-        except OSError as exc:
-            raise RuntimeError(
-                f"the PNG host library needs a C++ compiler: {' '.join(cmd)}: {exc}"
-            ) from exc
-        if out.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(
-                f"building the PNG host library failed: {' '.join(cmd)}\n{out.stdout}")
-        os.replace(tmp, so)
-    return so
+    return its path (host_build.build). Raises RuntimeError with the
+    compiler's output when the compiler is missing or fails (zlib's headers
+    or library absent, say)."""
+    return host_build.build(SOURCES, STEM, "the PNG host library", libs=("-lz",),
+                            cxx=cxx, build_dir=build_dir)
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,8 +1,10 @@
-"""Rotation utilities that stage-1 inference needs (plain PyTorch).
+"""Rotation representations and conversions (plain PyTorch).
 
-Counterpart of dcl_net_tpu/geometry/rotation.py: vector normalisation and
-the ortho-9D -> SO(3) projection by SVD with the determinant fix, polished
-by two Newton-Schulz steps. Run in f32 with TF32 off (see
+Counterpart of dcl_net_tpu/geometry/rotation.py: vector normalisation, the
+ortho-6D (Gram-Schmidt) and ortho-9D (SVD with the determinant fix,
+polished by two Newton-Schulz steps) maps to SO(3), quaternion, axis-angle
+and Euler conversions, random rotations and quaternion algebra. All are
+batched over leading axes and differentiable. Run in f32 with TF32 off (see
 dcl_net_tpu_torch.strict_f32); a bf16 model's 9D output is normalised in
 bf16 and projected in f32, as the JAX function does (torch has no BFloat16
 linalg.svd on the CPU, so nothing there could run it in bf16).
@@ -43,3 +45,112 @@ def ortho9d_to_matrix(x_raw: torch.Tensor, y_raw: torch.Tensor,
     for _ in range(2):
         r = 0.5 * (r @ (3.0 * eye - r.transpose(-1, -2) @ r))
     return r
+
+
+def cross_product(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Batched 3D cross product over the last axis."""
+    return torch.linalg.cross(u, v, dim=-1)
+
+
+def ortho6d_to_matrix(x_raw: torch.Tensor, y_raw: torch.Tensor) -> torch.Tensor:
+    """Gram-Schmidt 6D representation, y first: y = norm(y_raw),
+    z = norm(x_raw x y), x = y x z. [..., 3] -> [..., 3, 3] whose columns
+    are (x, y, z)."""
+    y = normalize_vector(y_raw)
+    z = normalize_vector(cross_product(x_raw, y))
+    x = cross_product(y, z)
+    return torch.stack([x, y, z], dim=-1)
+
+
+def quaternion_to_matrix(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion (w, x, y, z), normalised first, -> rotation [..., 3, 3]."""
+    q = normalize_vector(q)
+    w, x, y, z = q.unbind(-1)
+    r = torch.stack([
+        1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y),
+        2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x),
+        2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y),
+    ], dim=-1)
+    return r.reshape(q.shape[:-1] + (3, 3))
+
+
+def _normalize_sign(q: torch.Tensor) -> torch.Tensor:
+    """q with w >= 0 (w == 0 keeps its sign)."""
+    w = q[..., :1]
+    return q * torch.sign(torch.where(w == 0, torch.ones_like(w), w))
+
+
+def matrix_to_quaternion(m: torch.Tensor) -> torch.Tensor:
+    """Rotation [..., 3, 3] -> unit quaternion (w, x, y, z) with w >= 0,
+    branch-free: of the four candidate constructions, the one whose trace
+    term is largest."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    qw = torch.stack([1 + m00 + m11 + m22, m21 - m12, m02 - m20, m10 - m01], -1)
+    qx = torch.stack([m21 - m12, 1 + m00 - m11 - m22, m01 + m10, m02 + m20], -1)
+    qy = torch.stack([m02 - m20, m01 + m10, 1 - m00 + m11 - m22, m12 + m21], -1)
+    qz = torch.stack([m10 - m01, m02 + m20, m12 + m21, 1 - m00 - m11 + m22], -1)
+    traces = torch.stack([1 + m00 + m11 + m22, 1 + m00 - m11 - m22,
+                          1 - m00 + m11 - m22, 1 - m00 - m11 + m22], -1)
+    best = torch.argmax(traces, dim=-1)
+    cands = torch.stack([qw, qx, qy, qz], dim=-2)  # [..., 4, 4]
+    q = torch.gather(cands, -2, best[..., None, None].expand(best.shape + (1, 4)))[..., 0, :]
+    return _normalize_sign(normalize_vector(q))
+
+
+def axis_angle_to_matrix(axis: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:
+    """Rodrigues' formula: axis [..., 3] (normalised first), angle [...]."""
+    axis = normalize_vector(axis)
+    s, c = torch.sin(angle)[..., None, None], torch.cos(angle)[..., None, None]
+    kx, ky, kz = axis.unbind(-1)
+    zeros = torch.zeros_like(kx)
+    k = torch.stack([zeros, -kz, ky, kz, zeros, -kx, -ky, kx, zeros],
+                    dim=-1).reshape(axis.shape[:-1] + (3, 3))
+    eye = torch.eye(3, dtype=axis.dtype, device=axis.device).expand(k.shape)
+    return eye + s * k + (1 - c) * (k @ k)
+
+
+def euler_to_matrix(ai: torch.Tensor, aj: torch.Tensor, ak: torch.Tensor) -> torch.Tensor:
+    """Static-frame x -> y -> z Euler angles ("sxyz", transforms3d's
+    euler2mat) to a rotation [..., 3, 3]."""
+    si, sj, sk = torch.sin(ai), torch.sin(aj), torch.sin(ak)
+    ci, cj, ck = torch.cos(ai), torch.cos(aj), torch.cos(ak)
+    cc, cs = ci * ck, ci * sk
+    sc, ss = si * ck, si * sk
+    row0 = torch.stack([cj * ck, sj * sc - cs, sj * cc + ss], dim=-1)
+    row1 = torch.stack([cj * sk, sj * ss + cc, sj * cs - sc], dim=-1)
+    row2 = torch.stack([-sj, cj * si, cj * ci], dim=-1)
+    return torch.stack([row0, row1, row2], dim=-2)
+
+
+def random_rotation(generator: torch.Generator, shape: tuple = (),
+                    device=None) -> torch.Tensor:
+    """Uniform random rotations [*shape, 3, 3] from normalised Gaussian
+    quaternions drawn from `generator` (on its device unless `device` is
+    given)."""
+    device = generator.device if device is None else device
+    q = torch.randn(tuple(shape) + (4,), generator=generator, device=device)
+    return quaternion_to_matrix(q)
+
+
+def quaternion_multiply(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
+    """Hamilton product of (w, x, y, z) quaternions: R(q1 q2) = R(q1) R(q2)."""
+    w1, x1, y1, z1 = q1.unbind(-1)
+    w2, x2, y2, z2 = q2.unbind(-1)
+    return torch.stack([
+        w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+        w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+        w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+        w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
+    ], dim=-1)
+
+
+def quaternion_conjugate(q: torch.Tensor) -> torch.Tensor:
+    return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype, device=q.device)
+
+
+def translate_rotate(points: torch.Tensor, trans: torch.Tensor,
+                     rot: torch.Tensor) -> torch.Tensor:
+    """Translate, then rotate: (p + t) @ R^T. points [..., N, 3]."""
+    return (points + trans[..., None, :]) @ rot.transpose(-1, -2)

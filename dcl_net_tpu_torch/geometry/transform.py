@@ -21,6 +21,20 @@ def untransform_points(points: torch.Tensor, rot: torch.Tensor,
     return (points - trans[..., None, :]) @ rot
 
 
+def compose_pose(rot_outer, trans_outer, rot_inner, trans_inner):
+    """The pose applying inner, then outer: R = R_o R_i, t = R_o t_i + t_o
+    (the refiner's update t <- R dt + t, R <- R dR)."""
+    rot = rot_outer @ rot_inner
+    trans = (rot_outer @ trans_inner[..., None])[..., 0] + trans_outer
+    return rot, trans
+
+
+def invert_pose(rot, trans):
+    """(R^T, -R^T t)."""
+    rot_inv = rot.transpose(-1, -2)
+    return rot_inv, -(rot_inv @ trans[..., None])[..., 0]
+
+
 def l2_distance(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     """Per-point L2 distance [..., N]."""
     return torch.linalg.norm(pred - target, dim=-1)
@@ -42,3 +56,15 @@ def chamfer_distance(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     0.5 * (min_m |p_n - t_m| + min_n |p_n - t_m|)."""
     d = torch.sqrt(pairwise_sq_dist(pred, target) + 1e-12)
     return 0.5 * (d.amin(dim=-1) + d.amin(dim=-2))
+
+
+def add_metric(pred_pts: torch.Tensor, gt_pts: torch.Tensor) -> torch.Tensor:
+    """ADD: mean L2 distance between identically indexed posed points."""
+    return l2_distance(pred_pts, gt_pts).mean(dim=-1)
+
+
+def adds_metric(pred_pts: torch.Tensor, gt_pts: torch.Tensor) -> torch.Tensor:
+    """ADD-S: mean distance of each predicted point to its nearest ground
+    truth point (the symmetric-object metric)."""
+    d = torch.sqrt(pairwise_sq_dist(pred_pts, gt_pts) + 1e-12)
+    return d.amin(dim=-1).mean(dim=-1)

@@ -13,9 +13,12 @@ interpolation: "exact" and "pallas" (the JAX package's names for its XLA
 and Pallas two-stage paths, one path here) build the voxel centers and run
 kernel K3 (ops/cuda_interp.py) over K2's valid prefix (its occupancy);
 "pallas_fused" runs kernel K6 (ops/cuda_fused.py), which decodes the
-centers inside the kernel. In training the gradient flows back through the
-interpolation (kernel K4) and the compaction (kernel K5) onto the pooled
-grids; on the fused path the two run as its backward, K7.
+centers inside the kernel; "local" searches a window of cells around each
+point straight on the dense pooled grid (ops/grid_interp.py, stock
+PyTorch, no compaction, so it never overflows). In training the gradient
+flows back through the interpolation (kernel K4) and the compaction
+(kernel K5) onto the pooled grids; on the fused path the two run as its
+backward, K7; on the local path autograd's scatter-add of the gathers.
 
 With dtype bfloat16 (model.compute_dtype) the grids, the pooled levels and
 the interpolated features are bf16 and K2, K3 and K6 run their bf16
@@ -33,6 +36,7 @@ from torch import nn
 
 from dcl_net_tpu_torch.models.blocks import SparseConvBlock
 from dcl_net_tpu_torch.ops import cuda_compact, cuda_fused, cuda_interp
+from dcl_net_tpu_torch.ops.grid_interp import local_grid_interpolate
 from dcl_net_tpu_torch.ops.sparse_conv import (
     sparse_avg_pool, voxel_center_affine, window_sum_rows,
 )
@@ -90,23 +94,22 @@ class MultiScalePointFeatures(nn.Module):
     nothing from the host; the fused kernel takes them as f32 scalars.
 
     interp_mode: "exact" or "pallas" (K2 + centers + K3), "pallas_fused"
-    (K2 + K6); "local" is not ported yet. Any N is taken: there is no
-    N % 128 gate."""
+    (K2 + K6), or "local" (ops/grid_interp.py over a window^3 of cells; the
+    overflow flag stays False, as in the JAX package, which sets it on the
+    compacting paths only). Any N is taken: there is no N % 128 gate."""
 
-    MODES = ("exact", "pallas", "pallas_fused")
+    MODES = ("exact", "pallas", "pallas_fused", "local")
 
     def __init__(self, unit_voxel_extent: Sequence[float] = (0.006,) * 3,
                  voxel_num_limit: Sequence[int] = (64, 64, 64),
                  scale_list: Sequence[int] = (2, 4, 6, 8),
                  capacities: Sequence[int] = (2048, 1024, 512, 64),
-                 interp_mode: str = "exact"):
+                 interp_mode: str = "exact", window: int = 5):
         super().__init__()
-        if interp_mode == "local":
-            raise NotImplementedError(
-                "interp_mode local: ops/grid_interp.py is not ported yet")
         if interp_mode not in self.MODES:
             raise ValueError(f"interp_mode {interp_mode!r}: one of {self.MODES}")
         self.interp_mode = interp_mode
+        self.window = int(window)
         self.unit = np.asarray(unit_voxel_extent, np.float32)
         limit = np.asarray(voxel_num_limit, np.float32)
         self.offset = -0.5 * self.unit * limit
@@ -129,6 +132,11 @@ class MultiScalePointFeatures(nn.Module):
         overflow = torch.zeros(points.shape[0], dtype=torch.bool,
                                device=points.device)
         for level, (feats, mask) in enumerate(pyramid):
+            if self.interp_mode == "local":
+                feats_all.append(local_grid_interpolate(
+                    points, feats, mask, self.unit, self.scale_list[level], self.offset,
+                    self.window))
+                continue
             grid_n = int(np.prod(feats.shape[1:4]))
             cap = min(self.capacities[level], grid_n)
             if self.interp_mode == "pallas_fused":

@@ -3,7 +3,8 @@
 Counterpart of dcl_net_tpu/models/dcl_net.py, split the same way:
   encode_observed / encode_template: voxelize (kernel K1) -> backbone ->
     multi-scale 3-NN interpolation (kernels K2 and K3, or K2 and the fused
-    K6 with interp_mode="pallas_fused") -> the four disengage heads of that
+    K6 with interp_mode="pallas_fused", or a window of cells on the dense
+    grids with interp_mode="local") -> the four disengage heads of that
     branch;
   fuse: bidirectional attention + confidence + pose heads + SVD pose.
 forward = fuse(encode_observed(batch), encode_template(batch)). The template
@@ -70,7 +71,9 @@ from dcl_net_tpu_torch.models.blocks import (
 )
 from dcl_net_tpu_torch.ops.knn import knn
 from dcl_net_tpu_torch.ops.cuda_voxelize import voxelize_cuda
-from dcl_net_tpu_torch.ops.voxelize import MODE_MEAN, MODE_SUM
+from dcl_net_tpu_torch.ops.voxelize import (
+    MODE_MEAN, MODE_SUM, MODE_UNIQUE, MODES, voxelize_dense,
+)
 from dcl_net_tpu_torch.parallel.mesh import (
     all_reduce_sum, batch_group, replicated, sharded,
 )
@@ -105,6 +108,11 @@ def aligner(ri_1: torch.Tensor, ri_2: torch.Tensor, re_2: torch.Tensor):
 class DCLNet(nn.Module):
     """The stage-1 DCL-Net.
 
+    voxelization_mode: 0 (unique), 1 (first), 2 (last), 3 (sum) or 4 (mean,
+    DCL-Net's), as the JAX model takes them (ops/voxelize.py). Modes 3 and
+    4 run K1, in the bf16 variant under a bf16 model; mode 0 runs K1's
+    sum and modes 1 and 2 stock PyTorch, each on f32 features, the grid
+    then cast to the compute type, as the JAX model voxelizes them.
     interp_mode: the point-feature path of both branches
     (models/backbone.py::MultiScalePointFeatures).
     device: where the module lives, CUDA unless the caller names another.
@@ -134,10 +142,8 @@ class DCLNet(nn.Module):
         if dtype not in COMPUTE_DTYPES.values():
             raise ValueError(f"dtype {dtype}: None (f32) or torch.bfloat16")
         self.dtype = dtype
-        if voxelization_mode not in (MODE_SUM, MODE_MEAN):
-            raise NotImplementedError(
-                f"voxelization mode {voxelization_mode}: not ported; the port runs "
-                "3 (sum) and 4 (mean)")
+        if voxelization_mode not in MODES:
+            raise ValueError(f"voxelization mode {voxelization_mode}: one of {MODES}")
         self.voxelization_mode = int(voxelization_mode)
         self.grid_shape = tuple(int(d) for d in voxel_num_limit)
         self.backbone_inp = SparseBackbone(kernel_size=kernel_size, dtype=dtype)
@@ -191,8 +197,19 @@ class DCLNet(nn.Module):
     # Branch encoders
     # ------------------------------------------------------------------
     def _encode(self, backbone, point_feats, feats, voxel_idx):
-        grid, count = voxelize_cuda(feats, voxel_idx, self.grid_shape,
-                                    mode=self.voxelization_mode, out_dtype=self.dtype)
+        mode = self.voxelization_mode
+        if mode in (MODE_SUM, MODE_MEAN):
+            grid, count = voxelize_cuda(feats, voxel_idx, self.grid_shape, mode=mode,
+                                        out_dtype=self.dtype)
+        else:
+            # modes 0-2: an f32 grid in the compute type, as the JAX model's
+            # voxelize_dense feeds its convolutions; mode 0 is K1's sum,
+            # modes 1 and 2 a selection no kernel computes
+            if mode == MODE_UNIQUE:
+                grid, count = voxelize_cuda(feats, voxel_idx, self.grid_shape, mode=MODE_SUM)
+            else:
+                grid, count = voxelize_dense(feats, voxel_idx, self.grid_shape, mode)
+            grid = grid.to(self.dtype or grid.dtype)
         mask = (count > 0).to(feats.dtype)
         if self.remat and self.training and torch.is_grad_enabled():
             group = batch_group()

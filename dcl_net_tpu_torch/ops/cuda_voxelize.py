@@ -66,8 +66,16 @@ def voxelize_cuda(
     """Sum (mode 3) or mean (mode 4) scatter of [B, N, C] point features into
     a [B, D0, D1, D2, C] grid, with exact f32 counts [B, D0, D1, D2], through
     the op dclx::voxelize (ops/library.py): `voxelize_kernel` on a CUDA
-    tensor, the plain version on a CPU one."""
+    tensor, the plain version on a CPU one.
+
+    K1 computes modes 3 and 4 only; any other mode raises ValueError on
+    every device. The model runs mode 0 (unique) as mode 3, the sum, as the
+    JAX package computes it, and modes 1 and 2 through
+    ops/voxelize.py::voxelize_dense, which no kernel computes in either
+    package."""
     cuda_build.require_device(feats, "voxelize_cuda")
+    cuda_build.require(mode in (MODE_SUM, MODE_MEAN), "voxelize_cuda",
+                       lambda: f"mode {mode} (3 or 4 only)")
     return torch.ops.dclx.voxelize(feats, voxel_idx, [int(d) for d in grid_size],
                                    int(mode), point_mask, out_dtype)
 

@@ -1,9 +1,12 @@
-"""KNN and 3-NN interpolation (plain PyTorch).
+"""Point-cloud neighbourhood ops: KNN, 3-NN interpolation, gathers and
+grouping, farthest point sampling and ball query (plain PyTorch).
 
-Counterpart of the parts of dcl_net_tpu/ops/knn.py that stage-1 inference
-reaches. Distances use the |a|^2 - 2ab + |b|^2 expansion of
-geometry/transform.pairwise_sq_dist, as the JAX package's XLA path does; the
-main path's kernel (ops/cuda_interp.py) uses direct differences instead.
+Counterpart of dcl_net_tpu/ops/knn.py. Distances use the
+|a|^2 - 2ab + |b|^2 expansion of geometry/transform.pairwise_sq_dist, as
+the JAX package's XLA path does; the main path's kernel
+(ops/cuda_interp.py) uses direct differences instead. The gathers'
+gradients are autograd's scatter-adds; farthest point sampling is a loop
+of npoint steps of tensor ops that never reads a value back to the host.
 """
 
 from __future__ import annotations
@@ -79,3 +82,59 @@ def nearest_neighbor_interpolate(query: torch.Tensor, ref: torch.Tensor,
         return three_interpolate(ref_feats.to(weight.dtype), idx,
                                  weight).to(torch.bfloat16)
     return three_interpolate(ref_feats, idx, weight.to(ref_feats.dtype))
+
+
+def gather_operation(feats: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Features at point indices: feats [B, N, C], idx [B, S] -> [B, S, C]."""
+    c = feats.shape[-1]
+    return torch.gather(feats, 1, idx.long()[..., None].expand(-1, -1, c))
+
+
+def grouping_operation(feats: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Features grouped by neighbourhood indices: feats [B, N, C],
+    idx [B, S, K] -> [B, S, K, C]."""
+    b, s, k = idx.shape
+    return gather_operation(feats, idx.reshape(b, s * k)).reshape(b, s, k, feats.shape[-1])
+
+
+def furthest_point_sample(xyz: torch.Tensor, npoint: int,
+                          mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Iterative farthest point sampling: [B, npoint] int32 indices into
+    xyz [B, N, 3]. Starts at index 0; each step takes the point farthest
+    from those taken (the first of equal ones); a masked point is never
+    taken (its distance is -BIG)."""
+    b, n, _ = xyz.shape
+    valid = (torch.ones((b, n), dtype=torch.bool, device=xyz.device) if mask is None
+             else mask > 0)
+    neg = torch.full((), -BIG, dtype=xyz.dtype, device=xyz.device)
+    min_dist = torch.where(valid, torch.full((), BIG, dtype=xyz.dtype, device=xyz.device),
+                           neg)
+    last = torch.zeros((b, 1), dtype=torch.int64, device=xyz.device)
+    out = []
+    for _ in range(int(npoint)):
+        out.append(last)
+        p = torch.gather(xyz, 1, last[..., None].expand(-1, -1, 3))   # [B, 1, 3]
+        diff = xyz - p
+        d2 = diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1] \
+            + diff[..., 2] * diff[..., 2]
+        min_dist = torch.minimum(min_dist, torch.where(valid, d2, neg))
+        last = torch.argmax(min_dist, dim=-1, keepdim=True)
+    return torch.cat(out, dim=1).to(torch.int32)
+
+
+def ball_query(radius: float, nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor,
+               mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The first nsample points (by index) within `radius` of each center:
+    xyz [B, N, 3], new_xyz [B, S, 3] -> [B, S, nsample] int32; the slots
+    past the points found repeat the first index found (the first taken
+    slot, index 0's rank, where none is)."""
+    n = xyz.shape[1]
+    d2 = pairwise_sq_dist(new_xyz, xyz)                                # [B, S, N]
+    inside = d2 < radius * radius
+    if mask is not None:
+        inside = inside & (mask[:, None, :] > 0)
+    arange = torch.arange(n, device=xyz.device)
+    key = torch.where(inside, arange, n + arange)
+    idx = torch.topk(key, nsample, dim=-1, largest=False, sorted=True).indices
+    found = torch.gather(inside, -1, idx)
+    return torch.where(found, idx, idx[..., :1]).to(torch.int32)

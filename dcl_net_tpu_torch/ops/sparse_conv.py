@@ -4,8 +4,10 @@ Counterpart of dcl_net_tpu/ops/sparse_conv.py: a submanifold conv is a dense
 conv over masked features re-masked by the input mask, a regular stride-1
 sparse conv dilates the mask by the kernel footprint, the sparse average
 pool divides a window sum by the window's occupied count, and batch-norm
-statistics run over occupied voxels only. Grids are channel-last
-[B, D0, D1, D2, C]; masks are [B, D0, D1, D2].
+statistics run over occupied voxels only. Besides DCL-Net's path: the
+sparse max pool (with the reference's tie-exact gradient), the sparse
+transposed conv and the sparse inverse conv, which DCL-Net never runs.
+Grids are channel-last [B, D0, D1, D2, C]; masks are [B, D0, D1, D2].
 """
 
 from __future__ import annotations
@@ -92,25 +94,33 @@ def window_sum(x: torch.Tensor, kernel: int, stride: int, padding: int,
     return _ndhwc(xp)
 
 
-def dilate_mask(mask: torch.Tensor, kernel: int = 3) -> torch.Tensor:
-    """Kernel-footprint dilation (stride 1, pad k//2) of an occupancy mask:
-    the active output set of a regular sparse conv."""
+def dilate_mask(mask: torch.Tensor, kernel: int = 3, stride: int = 1,
+                padding: Optional[int] = None) -> torch.Tensor:
+    """Kernel-footprint dilation of an occupancy mask (stride 1, pad k//2 by
+    default): the active output set of a regular sparse conv."""
+    if padding is None:
+        padding = kernel // 2
     m = (mask > 0).to(torch.float32)[:, None]
-    d = F.max_pool3d(m, kernel, 1, kernel // 2)[:, 0]
+    if padding > kernel // 2:  # past max_pool3d's padding limit: pad first
+        m = F.pad(m, (padding,) * 6)
+        padding = 0
+    d = F.max_pool3d(m, kernel, stride, padding)[:, 0]
     return d.to(mask.dtype)
 
 
 def sparse_avg_pool(feats: torch.Tensor, mask: torch.Tensor, kernel: int = 3,
-                    stride: int = 2) -> Tuple[torch.Tensor, torch.Tensor]:
-    """True-average sparse pooling (use_gs=False, padding k//2): the window
-    sum of occupied features over the window's occupied count. Returns the
-    pooled features [B, D', D', D', C] (zero where empty) and mask."""
-    pad = kernel // 2
+                    stride: int = 2, padding: Optional[int] = None, use_gs: bool = False
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """True-average sparse pooling (padding k//2 by default): the window
+    sum of occupied features over the window's occupied count (DCL-Net's),
+    or with use_gs over the whole window's volume k^3. Returns the pooled
+    features [B, D', D', D', C] (zero where empty) and mask."""
+    pad = kernel // 2 if padding is None else padding
     m = mask.to(feats.dtype)
     s = window_sum(feats, kernel, stride, pad, mask=m)
     cnt = window_sum(m[..., None], kernel, stride, pad)[..., 0]
     new_mask = (cnt > 0).to(mask.dtype)
-    out = s / torch.clamp(cnt, min=1.0)[..., None]
+    out = s / float(kernel ** 3) if use_gs else s / torch.clamp(cnt, min=1.0)[..., None]
     return out * new_mask[..., None].to(feats.dtype), new_mask
 
 
@@ -173,6 +183,152 @@ def dense_to_sparse(feats: torch.Tensor, mask: torch.Tensor, capacity: int
     coords = torch.stack([i0, rem // d2, rem % d2], dim=-1).to(torch.int32)
     coords = coords * vmask[..., None].to(torch.int32)
     return coords, vfeats, vmask
+
+
+def _max_pool_forward(feats, mask, kernel, stride, padding, zero_init):
+    m = mask > 0
+    neg = torch.full((), float("-inf"), dtype=feats.dtype, device=feats.device)
+    guarded = _ncdhw(torch.where(m[..., None], feats, neg))
+    guarded = F.pad(guarded, (padding,) * 6, value=float("-inf"))
+    pooled = _ndhwc(F.max_pool3d(guarded, kernel, stride))
+    if zero_init:
+        pooled = torch.clamp(pooled, min=0.0)
+    cnt = window_sum(m.to(feats.dtype)[..., None], kernel, stride, padding)[..., 0]
+    new_mask = (cnt > 0).to(mask.dtype)
+    out = torch.where(new_mask[..., None] > 0, pooled, torch.zeros((), dtype=feats.dtype,
+                                                                    device=feats.device))
+    return out, new_mask
+
+
+def _tap_views(x: torch.Tensor, kernel: int, stride: int, padding: int, d_out):
+    """For each tap (a, b, c) of a k^3 window, the view of x (padded by
+    `padding` low and enough high, with zeros) at the input positions
+    p = q * stride - padding + tap of the output positions q: a list of
+    ((a, b, c), view [B, *d_out, C]) over the padded buffer, which is
+    returned too, so that writes into the views land in it."""
+    b, *dims, c = x.shape
+    hi = [max(0, (o - 1) * stride + kernel - padding - d) for o, d in zip(d_out, dims)]
+    xp = x.new_zeros((b, *(d + padding + h for d, h in zip(dims, hi)), c))
+    xp[:, padding:padding + dims[0], padding:padding + dims[1],
+       padding:padding + dims[2]] = x
+    views = []
+    for a in range(kernel):
+        for bb in range(kernel):
+            for cc in range(kernel):
+                views.append(((a, bb, cc), xp[:, a:a + (d_out[0] - 1) * stride + 1:stride,
+                                              bb:bb + (d_out[1] - 1) * stride + 1:stride,
+                                              cc:cc + (d_out[2] - 1) * stride + 1:stride]))
+    return xp, views
+
+
+class _SparseMaxPool(torch.autograd.Function):
+    """The sparse max pool with the reference's gradient routing: dout
+    reaches EVERY occupied input equal to its output, ties included (each
+    of k tied inputs gets the whole dout, not 1/k of it, and not one of
+    them alone as max_pool3d's backward would), nothing flows through
+    outputs with an empty window, nor through the zero_init clamp (no
+    input equals the clamped 0 unless it is 0)."""
+
+    @staticmethod
+    def forward(ctx, feats, mask, kernel, stride, padding, zero_init):
+        out, new_mask = _max_pool_forward(feats, mask, kernel, stride, padding, zero_init)
+        ctx.save_for_backward(feats, mask, out, new_mask)
+        ctx.geometry = (kernel, stride, padding)
+        ctx.mark_non_differentiable(new_mask)
+        return out, new_mask
+
+    @staticmethod
+    def backward(ctx, dout, _dmask):
+        feats, mask, out, new_mask = ctx.saved_tensors
+        kernel, stride, padding = ctx.geometry
+        d_out = out.shape[1:4]
+        dims = feats.shape[1:4]
+        dout = dout * new_mask[..., None].to(dout.dtype)
+        _, fviews = _tap_views(feats, kernel, stride, padding, d_out)
+        dp, dviews = _tap_views(torch.zeros_like(feats), kernel, stride, padding, d_out)
+        for (_, fv), (_, dv) in zip(fviews, dviews):
+            dv += torch.where(fv == out, dout, torch.zeros((), dtype=dout.dtype,
+                                                          device=dout.device))
+        din = dp[:, padding:padding + dims[0], padding:padding + dims[1],
+                 padding:padding + dims[2]]
+        din = din * (mask > 0)[..., None].to(din.dtype)
+        return din, None, None, None, None, None
+
+
+def sparse_max_pool(feats: torch.Tensor, mask: torch.Tensor, kernel: int = 3,
+                    stride: int = 2, padding: Optional[int] = None, zero_init: bool = True
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sparse max pool over occupied voxels only: unoccupied inputs never
+    win, and an output whose window holds no occupied voxel is 0 and
+    unoccupied. zero_init=True (the default) is the reference's: its output
+    starts at 0, so a window of negative values only gives 0;
+    zero_init=False gives the true maximum. The gradient routes dout into
+    every input equal to the output, ties included (_SparseMaxPool).
+    Returns (pooled [B, D', D', D', C], new mask [B, D', D', D'])."""
+    if padding is None:
+        padding = kernel // 2
+    return _SparseMaxPool.apply(feats, mask, kernel, stride, padding, zero_init)
+
+
+def _transposed(x: torch.Tensor, weight: torch.Tensor, stride: int, extent, padding: int
+                ) -> torch.Tensor:
+    """Sum over active inputs p and taps t of x[p] @ weight[t] into the
+    outputs q = p * stride - padding + t, for q in [0, extent) per axis:
+    conv_transpose3d without padding (every q >= -padding), then the
+    window [padding, padding + extent) of it, zero-filled past its end.
+    weight [k, k, k, Cin, Cout]; x [B, D0, D1, D2, Cin]."""
+    full = _ndhwc(F.conv_transpose3d(_ncdhw(x), weight.permute(3, 4, 0, 1, 2),
+                                     stride=stride))
+    lengths = full.shape[1:4]
+    need = [max(0, padding + e - n) for e, n in zip(extent, lengths)]
+    if any(need):
+        full = F.pad(full, (0, 0, 0, need[2], 0, need[1], 0, need[0]))
+    return full[:, padding:padding + extent[0], padding:padding + extent[1],
+                padding:padding + extent[2]]
+
+
+def sparse_conv_transpose(feats: torch.Tensor, mask: torch.Tensor, weight: torch.Tensor,
+                          stride: int = 2, padding: int = 0
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sparse transposed conv (spconv's SparseConvTranspose3d) on a dense
+    masked grid: each active input p adds feats[p] @ weight[tap] at every
+    output q = p * stride - padding + tap; the active outputs are those any
+    active input reaches. weight [k, k, k, Cin, Cout] in the forward convs'
+    tap layout. Output extent (D - 1) * stride - 2 * padding + k.
+    Returns (out [B, D', D', D', Cout], new mask)."""
+    k = weight.shape[0]
+    if k - 1 - padding < 0:
+        raise NotImplementedError("padding > kernel-1 not supported")
+    m = mask.to(feats.dtype)
+    extent = [(d - 1) * stride - 2 * padding + k for d in feats.shape[1:4]]
+    out = _transposed(feats * m[..., None], weight, stride, extent, padding)
+    ones = torch.ones((k, k, k, 1, 1), dtype=feats.dtype, device=feats.device)
+    cnt = _transposed(m[..., None], ones, stride, extent, padding)[..., 0]
+    new_mask = (cnt > 0).to(mask.dtype)
+    return out * new_mask[..., None].to(out.dtype), new_mask
+
+
+def sparse_inverse_conv(feats: torch.Tensor, mask: torch.Tensor, weight: torch.Tensor,
+                        prev_mask: torch.Tensor, stride: int = 2, padding: int = 0
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sparse inverse conv (spconv's SparseInverseConv3d): a regular conv's
+    pairs replayed with their sides swapped, so the output lies on the
+    pre-conv grid of prev_mask [B, D0, D1, D2] (its extent and active set):
+    each active input q adds feats[q] @ weight[tap] at p = q * stride -
+    padding + tap. Unlike a crop of sparse_conv_transpose, pairs past the
+    transpose's own extent are kept where the forward conv's size formula
+    floored. Returns (out [B, D0, D1, D2, Cout], prev_mask)."""
+    k = weight.shape[0]
+    if k - 1 - padding < 0:
+        raise NotImplementedError("padding > kernel-1 not supported")
+    d_down, d_prev = feats.shape[1:4], prev_mask.shape[1:4]
+    for dd, dp in zip(d_down, d_prev):
+        if dp + padding - 1 - (dd - 1) * stride < 0:
+            raise ValueError(f"prev_mask dim {dp} shorter than the conv geometry "
+                             f"allows for input dim {dd}")
+    m = mask.to(feats.dtype)
+    out = _transposed(feats * m[..., None], weight, stride, list(d_prev), padding)
+    return out * prev_mask[..., None].to(out.dtype), prev_mask
 
 
 def voxel_center_affine(unit_voxel_extent, scale: float, offset

@@ -194,6 +194,25 @@ def allgather_host(x: np.ndarray, group: Optional[Group]) -> List[np.ndarray]:
     return [p.cpu().numpy()[:c] for p, c in zip(parts, counts)]
 
 
+def allgather_rows(x: torch.Tensor, group: Optional[Group]) -> torch.Tensor:
+    """Each rank's block of rows (x's shape on every rank), concatenated in
+    rank order, on x's device and in x's type, without a gradient; x
+    itself without a group. NCCL gathers the device tensors as they are;
+    gloo gathers host copies, bool as uint8 and bf16 as f32, which hold
+    them exactly."""
+    if not active(group):
+        return x
+    dev = _collective_device(group)
+    wire = x.detach()
+    if group.backend != "nccl":
+        wire = wire.to(dev, torch.uint8 if x.dtype == torch.bool else
+                       torch.float32 if x.dtype == torch.bfloat16 else x.dtype)
+    wire = wire.contiguous()
+    parts = [torch.empty_like(wire) for _ in range(group.world)]
+    dist.all_gather(parts, wire)
+    return torch.cat(parts).to(x.device, x.dtype)
+
+
 def barrier(group: Optional[Group]) -> None:
     if active(group):
         kw = {"device_ids": [group.device.index]} if group.backend == "nccl" else {}

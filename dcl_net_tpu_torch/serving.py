@@ -14,6 +14,17 @@ as one self-contained artifact:
   in a stage-2 artifact; a bf16 model's trans_pred and conf are bf16;
 - :func:`load_serve` loads one and returns a module to call.
 
+Data parallelism (the JAX package's mesh-sharded artifact, ``mesh=``): with
+``world=N`` the export functions write an artifact of the per-rank batch
+B / N that records N (weights and template cache replicated in it).
+``load_serve(path, group=...)`` over a torch.distributed group of N ranks
+(parallel/mesh.py) moves the program to the rank's device, wherever it
+was exported, and returns a module that takes the GLOBAL batch on every
+rank, runs this rank's contiguous block of it (mesh.shard_batch's split)
+and returns the whole batch's outputs, all-gathered over the group in
+rank order (mesh.allgather_rows), as the JAX artifact returns its global
+array. A group of another size, or none for N > 1, raises.
+
 Where it differs from the JAX artifacts:
 
 - the serving site needs torch and the port's op library: the kernels are
@@ -25,8 +36,8 @@ Where it differs from the JAX artifacts:
   SparseBackbone.unchunked_batch (116 at a 64^3 grid), past which the pools
   would branch on it; BundleServer chunks larger requests;
 - JAX's ``platforms`` is here the device the artifact was exported on, where
-  torch.export.load puts its weights back; export on the device that will
-  serve.
+  torch.export.load puts its weights back; load_serve without a group
+  serves there, with a group on the group's device.
 
 An exported graph does not carry torch's TF32 setting, so load_serve and
 BundleServer turn TF32 off themselves (dcl_net_tpu_torch.strict_f32): cuDNN
@@ -42,13 +53,17 @@ from typing import Dict, Optional, Sequence, Union
 
 import torch
 from torch import nn
+from torch.export.passes import move_to_device_pass
 
 from dcl_net_tpu_torch import strict_f32
 from dcl_net_tpu_torch.data.schema import batch_to_torch
 from dcl_net_tpu_torch.models.refiner import refine_pose
 from dcl_net_tpu_torch.ops import library  # noqa: F401  (registers the dclx ops)
+from dcl_net_tpu_torch.parallel.mesh import allgather_rows, shard_batch
 
 BUNDLE_MANIFEST = "manifest.json"
+# the record of an artifact's world size, stored beside its program
+ARTIFACT_META = "dclx_serving.json"
 
 
 def _device(model: nn.Module) -> torch.device:
@@ -143,16 +158,35 @@ def poly_max_batch(model) -> int:
     return model.backbone_inp.unchunked_batch(model.grid_shape)
 
 
-def _export(serve: ServeStage1, batch_size: Optional[int], n_points: int) -> bytes:
+def check_world(batch_size: Optional[int], world: int) -> int:
+    """world as an int, once it is a valid world for batch_size: at least 1,
+    dividing a fixed batch, and 1 for a polymorphic one (ValueError)."""
+    world = int(world)
+    if world < 1:
+        raise ValueError(f"world {world}: at least 1")
+    if world > 1 and batch_size is None:
+        raise ValueError("polymorphic batch cannot be combined with a sharded "
+                         f"artifact (world {world})")
+    if world > 1 and int(batch_size) % world:
+        raise ValueError(f"batch {batch_size} not divisible by the world of {world} ranks")
+    return world
+
+
+def _export(serve: ServeStage1, batch_size: Optional[int], n_points: int,
+            world: int = 1) -> bytes:
     """torch.export the serving module, for n_points observed points a row,
     on its model's device; the .pt2 bytes.
 
     ``batch_size=None`` exports a BATCH-POLYMORPHIC artifact (a symbolic
     batch, torch.export.Dim "B" in [1, poly_max_batch]): one artifact serves
-    any batch up to that bound, through the same kernels."""
+    any batch up to that bound, through the same kernels. ``world=N > 1``
+    exports the per-rank program of a global batch of batch_size rows
+    sharded over N ranks: batch_size / N rows; batch_size must divide by N,
+    and a polymorphic batch cannot be sharded."""
+    world = check_world(batch_size, world)
     model = serve.model
     dev = _device(model)
-    b = 2 if batch_size is None else int(batch_size)
+    b = 2 if batch_size is None else int(batch_size) // world
     args = (torch.zeros((b, n_points, 7), dtype=torch.float32, device=dev),
             torch.zeros((b, n_points, 3), dtype=torch.int32, device=dev),
             torch.zeros((b,), dtype=torch.int32, device=dev))
@@ -164,29 +198,33 @@ def _export(serve: ServeStage1, batch_size: Optional[int], n_points: int) -> byt
     # torch.export.save would store the zero example batch too (21 MB at 512)
     program.example_inputs = None
     buf = io.BytesIO()
-    torch.export.save(program, buf)
+    meta = {"world": world, "batch": None if batch_size is None else int(batch_size)}
+    torch.export.save(program, buf, extra_files={ARTIFACT_META: json.dumps(meta)})
     return buf.getvalue()
 
 
 def export_serve(model, bank: Dict[str, object], batch_size: Optional[int],
-                 n_points: int) -> bytes:
+                 n_points: int, world: int = 1) -> bytes:
     """Export the stage-1 serving module, for n_points observed points a row
     (the config's model.n_inp), to .pt2 bytes.
 
-    ``batch_size=None`` -> batch-polymorphic artifact (see :func:`_export`)."""
+    ``batch_size=None`` -> batch-polymorphic artifact; ``world=N`` -> the
+    data-parallel artifact of N ranks (see :func:`_export`)."""
     serve = make_serve_fn(model, encode_template_cache(model, bank))
-    return _export(serve, batch_size, n_points)
+    return _export(serve, batch_size, n_points, world)
 
 
 def export_serve_stage2(model, refiner, bank: Dict[str, object],
-                        batch_size: Optional[int], iterations: int = 2) -> bytes:
+                        batch_size: Optional[int], iterations: int = 2,
+                        world: int = 1) -> bytes:
     """Export the refined (stage-1 + stage-2) serving module, for the
     refiner's n_inp observed points a row.
 
-    ``batch_size=None`` -> batch-polymorphic artifact (see :func:`_export`)."""
+    ``batch_size=None`` -> batch-polymorphic artifact; ``world=N`` -> the
+    data-parallel artifact of N ranks (see :func:`_export`)."""
     cache = encode_template_cache(model, bank)
     serve = make_serve_fn_stage2(model, refiner, cache, iterations)
-    return _export(serve, batch_size, refiner.n_inp)
+    return _export(serve, batch_size, refiner.n_inp, world)
 
 
 # ---------------------------------------------------------------------------
@@ -312,14 +350,79 @@ class BundleServer:
         return {k: torch.cat([c[k] for c in chunks]) for k in chunks[0]}
 
 
-def load_serve(path_or_bytes: Union[str, os.PathLike, bytes, bytearray]) -> nn.Module:
-    """Load a serving artifact (a path or the .pt2 bytes); returns the module
-    (feats, voxel_idx, obj_idx) -> dict, its weights on the device it was
-    exported on and frozen (no gradient is kept). Registers the dclx ops
-    (importing this module does) and turns TF32 off (strict_f32)."""
-    strict_f32()
+class ShardedServe(nn.Module):
+    """A data-parallel artifact on one rank of its group: the global batch
+    in, this rank's block of it (parallel/mesh.py::shard_batch) through the
+    per-rank program, and the whole batch's outputs out, all-gathered over
+    the group in rank order, on this rank's device (parallel/mesh.py::
+    allgather_rows). Every rank must call it with the same global batch, as
+    the ranks of a JAX mesh hold one global array. A group of one rank runs
+    the whole batch."""
+
+    def __init__(self, module: nn.Module, group):
+        super().__init__()
+        self.module = module
+        self.group = group
+
+    def forward(self, feats, voxel_idx, obj_idx) -> Dict[str, torch.Tensor]:
+        block = shard_batch({"feats": feats, "voxel_idx": voxel_idx, "obj_idx": obj_idx},
+                            self.group)
+        out = self.module(block["feats"], block["voxel_idx"], block["obj_idx"])
+        return {k: allgather_rows(v, self.group) for k, v in out.items()}
+
+
+def _load(path_or_bytes):
     if isinstance(path_or_bytes, (bytes, bytearray)):
         path_or_bytes = io.BytesIO(bytes(path_or_bytes))
-    module = torch.export.load(path_or_bytes).module()
+    extra = {ARTIFACT_META: ""}
+    program = torch.export.load(path_or_bytes, extra_files=extra)
+    meta = json.loads(extra[ARTIFACT_META]) if extra[ARTIFACT_META] else {"world": 1}
+    return program, meta
+
+
+def _to_device(program, device: torch.device):
+    """The exported program with its weights, constants and every device its
+    graph names (the export pins the device of each tensor it makes or
+    checks) moved to `device`. Raises if a tensor or a device of another
+    place is left."""
+    program = move_to_device_pass(program, device)
+    tensors = list(program.state_dict.values()) + [
+        v for v in program.constants.values() if isinstance(v, torch.Tensor)]
+    named = [n.kwargs["device"] for m in program.graph_module.modules()
+             if isinstance(m, torch.fx.GraphModule) for n in m.graph.nodes
+             if n.kwargs.get("device") is not None]
+    left = ({t.device for t in tensors} | {torch.device(d) for d in named}) - {device}
+    if left:
+        raise ValueError(f"the artifact keeps tensors on {sorted(map(str, left))} "
+                         f"after its move to {device}")
+    return program
+
+
+def load_serve(path_or_bytes: Union[str, os.PathLike, bytes, bytearray],
+               group=None) -> nn.Module:
+    """Load a serving artifact (a path or the .pt2 bytes); returns the module
+    (feats, voxel_idx, obj_idx) -> dict, frozen (no gradient is kept).
+    Registers the dclx ops (importing this module does) and turns TF32 off
+    (strict_f32). Without a group its weights stay on the device it was
+    exported on.
+
+    group: this rank's parallel/mesh.py::Group, for an artifact of N ranks
+    (export_serve(..., world=N)): the program is moved to the group's
+    device, wherever it was exported, and the module is a ShardedServe,
+    which takes the global batch. ValueError when the group's size is not
+    the artifact's N (no group: a world of 1)."""
+    strict_f32()
+    program, meta = _load(path_or_bytes)
+    world = int(meta["world"])
+    have = 1 if group is None else int(group.world)
+    if have != world:
+        raise ValueError(f"the artifact was exported for a world of {world} ranks; "
+                         f"it is loaded on {have}")
+    if group is not None:
+        device = torch.device(group.device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        program = _to_device(program, device)
+    module = program.module()
     module.requires_grad_(False)
-    return module
+    return module if group is None else ShardedServe(module, group)

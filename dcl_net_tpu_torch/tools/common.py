@@ -194,8 +194,9 @@ def build_model(cfg: Config, device=None, seed: int = 0):
     variants of K1, K2, K3 and K6 and trains through those of K4, K5 and
     K7, its parameters kept in f32 (so a checkpoint of either type loads
     into either). cfg.model.remat recomputes the backbones' activations in
-    the backward (models/dcl_net.py). interp_mode "local" is not ported yet
-    and raises."""
+    the backward (models/dcl_net.py). interp_mode "local" runs the
+    windowed 3-NN on the dense grids (ops/grid_interp.py) after K1, and
+    model.voxelization_mode takes 0-4 (models/dcl_net.py)."""
     from dcl_net_tpu_torch.models.dcl_net import DCLNet
 
     m = cfg.model
@@ -338,16 +339,6 @@ def load_model_weights(model, path: str):
         return load_reference_weights(model, path)
     model.load_state_dict(load_checkpoint(path)["model"])
     return model
-
-
-def refuse_data_parallel(args) -> None:
-    """The export CLI's refusal of data parallelism: the mesh-sharded
-    serving artifact (dcl_net_tpu/serving.py with mesh=, tools/export.py
-    --n_devices) is not ported yet."""
-    if (args.n_devices is not None and args.n_devices > 1) or args.coordinator:
-        raise NotImplementedError(
-            "--n_devices > 1: data parallelism in export (the mesh-sharded serving "
-            "artifact) is not ported yet")
 
 
 def write_result_json(cfg: Config, tool_name: str, result: dict, group=None) -> str:

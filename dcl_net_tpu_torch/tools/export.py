@@ -12,6 +12,12 @@ serving.BundleServer serves at any request size. --checkpoint (and
 --checkpoint_refiner) take a checkpoint directory of the port or a
 reference .pth. The artifact is exported on the card, where it will run,
 unless --device names another device (--device cpu: a CPU artifact).
+
+--n_devices N (or any data-parallel launch of tools/common.py::run_tool)
+exports the data-parallel artifact of N ranks: the per-rank program of
+--batch / N rows, which serving.load_serve(path, group=...) serves over a
+group of N ranks (the JAX package's mesh-sharded artifact). The ranks
+check that they hold the same weights; rank 0 writes the file.
 """
 
 from __future__ import annotations
@@ -47,14 +53,7 @@ def _bank_dataset(cfg):
 
 
 def main(argv=None):
-    from dcl_net_tpu_torch import resolve_device
-    from dcl_net_tpu_torch.models.refiner import Refiner
-    from dcl_net_tpu_torch.serving import (
-        export_bundle, export_serve, export_serve_stage2, save_bundle,
-    )
-    from dcl_net_tpu_torch.tools.common import (
-        base_parser, build_model, init, load_model_weights, refuse_data_parallel,
-    )
+    from dcl_net_tpu_torch.tools.common import base_parser, run_tool
 
     parser = base_parser("DCL-Net serving export, stage 1 or refined (PyTorch)")
     parser.add_argument("--out", default=None, help="artifact output path (.pt2)")
@@ -69,7 +68,8 @@ def main(argv=None):
     parser.add_argument("--batch", default=None,
                         help="serving batch size (default: eval bs), or 'poly' for a "
                         "batch-polymorphic artifact (one artifact serves any batch "
-                        "up to serving.poly_max_batch)")
+                        "up to serving.poly_max_batch); with --n_devices N the global "
+                        "batch, N dividing it")
     parser.add_argument(
         "--checkpoint_refiner", default=None,
         help="stage-2 refiner checkpoint; exports the full refined pipeline "
@@ -82,9 +82,25 @@ def main(argv=None):
     args = parser.parse_args(argv)
     if (args.out is None) == (args.bundle is None):
         parser.error("exactly one of --out / --bundle is required")
-    refuse_data_parallel(args)
-    logger, cfg = init(args, "export")
-    device = resolve_device(args.device)
+    if args.bundle and (args.stage2 or args.checkpoint_refiner):
+        parser.error("--bundle exports the stage-1 pipeline")
+    return run_tool(args, argv, main, _export)
+
+
+def _export(args, group, device):
+    """The export on one process, or on each rank of a data-parallel group
+    (rank 0 writes the artifact)."""
+    from functools import partial
+
+    from dcl_net_tpu_torch.models.refiner import Refiner
+    from dcl_net_tpu_torch.parallel.mesh import barrier, replicate
+    from dcl_net_tpu_torch.serving import (
+        check_world, export_bundle, export_serve, export_serve_stage2, save_bundle,
+    )
+    from dcl_net_tpu_torch.tools.common import build_model, init, load_model_weights
+
+    world = group.world if group is not None else 1
+    logger, cfg = init(args, "export", group)
     model = build_model(cfg, device=device)
     if args.checkpoint:
         load_model_weights(model, args.checkpoint)
@@ -92,12 +108,15 @@ def main(argv=None):
         # export from seeded weights: exercises the artifact pipeline without
         # a checkpoint (smoke, testing); a real deployment passes one
         logger.warning("no --checkpoint: exporting seeded weights (smoke mode)")
+    replicate(model, group)
     bank = _bank_dataset(cfg).template_bank()
     n_points = int(cfg.model.n_inp)
+    main_rank = group is None or group.is_main
 
     if args.bundle:
-        if args.stage2 or args.checkpoint_refiner:
-            parser.error("--bundle exports the stage-1 pipeline")
+        if world > 1:
+            raise ValueError("--bundle: a bundle serves one process; export the sharded "
+                             "artifact with --out")
         sizes = [int(b) for b in args.bundle_batches.split(",") if b.strip()]
         artifacts = export_bundle(model, bank, n_points, batch_sizes=sizes)
         mpath = save_bundle(args.bundle, artifacts, model)
@@ -115,6 +134,7 @@ def main(argv=None):
             cfg.get("hyper_dataloader_test", {}).get("bs", 512)
             if cfg.get("hyper_dataloader_test") else 512)
 
+    check_world(bs, world)  # on every rank, before rank 0 exports
     if args.stage2 or args.checkpoint_refiner is not None:
         refiner = Refiner(n_inp=n_points, device=device, seed=int(cfg.get("rd_seed", 1)))
         if args.checkpoint_refiner:
@@ -122,16 +142,22 @@ def main(argv=None):
         else:
             logger.warning("no --checkpoint_refiner: exporting seeded refiner weights "
                            "(smoke mode)")
-        data = export_serve_stage2(model, refiner, bank, bs, iterations=int(args.iteration))
+        replicate(refiner, group)
+        export = partial(export_serve_stage2, model, refiner, bank, bs,
+                         iterations=int(args.iteration), world=world)
         kind = f"refined (x{args.iteration})"
     else:
-        data = export_serve(model, bank, bs, n_points)
+        export = partial(export_serve, model, bank, bs, n_points, world=world)
         kind = "stage-1"
-    with open(args.out, "wb") as f:
-        f.write(data)
-    logger.warning(
-        f"exported {kind} serving artifact: {args.out} ({len(data) / 1e6:.1f} MB, "
-        f"batch={'poly' if bs is None else bs}, device={device})")
+    if main_rank:
+        data = export()
+        with open(args.out, "wb") as f:
+            f.write(data)
+        logger.warning(
+            f"exported {kind} serving artifact: {args.out} ({len(data) / 1e6:.1f} MB, "
+            f"batch={'poly' if bs is None else bs}, device={device}"
+            f"{f', world={world}' if world > 1 else ''})")
+    barrier(group)
     return args.out
 
 

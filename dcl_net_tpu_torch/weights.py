@@ -1,7 +1,8 @@
 """Weights carried between the JAX package's variable tree and the port.
 
-The JAX DCLNet keeps {"params", "batch_stats"} trees whose paths the port's
-module names follow, so the bridge changes layouts only:
+The JAX DCLNet (and the PointNet++ modules of ops/pointnet_modules.py)
+keeps {"params", "batch_stats"} trees whose paths the port's module names
+follow, so the bridge changes layouts only:
 
   sparse-conv kernel   [kz, ky, kx, Cin, Cout] <-> Conv3d weight [Cout, Cin, kz, ky, kx]
   Dense kernel         [Cin, Cout]             <-> Linear weight [Cout, Cin]
@@ -84,7 +85,8 @@ def _to_torch_layout(name: str, arr: np.ndarray) -> np.ndarray:
 
 @torch.no_grad()
 def load_jax_variables(model: nn.Module, variables: Mapping[str, Any]) -> nn.Module:
-    """Fill the port's DCLNet from a JAX {"params", "batch_stats"} tree."""
+    """Fill a port module (DCLNet, Refiner, a PointNet++ module) from a JAX
+    {"params", "batch_stats"} tree."""
     state = model.state_dict()
     filled = set()
     for collection in ("params", "batch_stats"):

@@ -227,6 +227,30 @@ def case_eval(group, inp):
     return {"stage1": s1, "stage2": s2}
 
 
+def case_serve_mesh(group, inp):
+    """Each data-parallel artifact of inp["sharded"] loaded over the group
+    and called with the global request on every rank; and whether loading
+    a one-process artifact over the group raises."""
+    from dcl_net_tpu_torch import serving
+
+    outs = []
+    for data in inp["sharded"]:
+        module = serving.load_serve(data, group=group)
+        with torch.inference_mode():
+            outs.append(module(*inp["request"]))
+    try:
+        serving.load_serve(inp["single"], group=group)
+        refused = False
+    except ValueError:
+        refused = True
+    # rows of the types gloo carries as others: bf16 (as f32) and bool (as uint8)
+    r = group.rank
+    rows = {"bf16": (torch.arange(3, dtype=torch.float32) / 3 + r).to(torch.bfloat16),
+            "bool": torch.tensor([r == 0, True, False])}
+    gathered = {k: mesh.allgather_rows(v, group) for k, v in rows.items()}
+    return {"outputs": outs, "refused_single": refused, "gathered": gathered}
+
+
 CASES: Dict[str, Callable] = {
     "masked_bn": case_masked_bn,
     "point_mlp": case_point_mlp,
@@ -244,13 +268,16 @@ CASES: Dict[str, Callable] = {
     "ddp": case_ddp,
     "eval": case_eval,
 }
+# cases a test starts by name, outside the set tests/test_torch_parallel.py
+# runs whole: the data-parallel serving artifact (tests/test_torch_serving_mesh.py)
+RANK_CASES: Dict[str, Callable] = {**CASES, "serve_mesh": case_serve_mesh}
 
 
 def _rank(rank: int, world: int, init: str, out: str, inputs, cases) -> None:
     torch.set_num_threads(1)
     group = mesh.init_distributed(init, world, rank, device="cpu")
     try:
-        results = {name: CASES[name](group, inputs) for name in cases}
+        results = {name: RANK_CASES[name](group, inputs) for name in cases}
         torch.save(results, os.path.join(out, f"rank{rank}.pt"))
     finally:
         mesh.destroy(group)

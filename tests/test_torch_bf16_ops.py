@@ -11,6 +11,8 @@ agree to within one bf16 ulp (a sum taken in another order can round the
 other way) and the selections (idx, coords, counts) exactly.
 """
 
+import sys
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -29,7 +31,7 @@ from dcl_net_tpu_torch.data.synthetic import SyntheticPoseDataset
 from dcl_net_tpu_torch.models.dcl_net import DCLNet, dcl_losses
 from dcl_net_tpu_torch.models.refiner import Refiner
 from dcl_net_tpu_torch.ops import cuda_compact, cuda_fused, cuda_interp, cuda_voxelize
-from dcl_net_tpu_torch.ops import knn as tknn
+import dcl_net_tpu_torch.ops.knn  # noqa: F401
 from dcl_net_tpu_torch.ops import sparse_conv as tsc
 from dcl_net_tpu_torch.ops.sparse_conv import voxel_center_affine
 from dcl_net_tpu_torch.train.solver import TrainState, build_optimizer, make_train_step
@@ -37,6 +39,9 @@ from dcl_net_tpu_torch.train.stage2 import make_stage2_train_step
 from tests.test_torch_train_ops import _occupied_grid
 
 torch.set_num_threads(2)
+
+# the port's ops re-exports a function named knn over its module
+tknn = sys.modules["dcl_net_tpu_torch.ops.knn"]
 
 D = 16
 BF16 = torch.bfloat16

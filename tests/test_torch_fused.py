@@ -234,7 +234,8 @@ def test_build_model_takes_the_fused_mode_and_refuses_local():
         "pallas_fused"}
     over = cfg.apply_overrides(["model.interp_mode=pallas"])
     assert build_model(over, device="cpu").point_feats_inp.interp_mode == "pallas"
-    with pytest.raises(NotImplementedError, match="local"):
-        build_model(cfg.apply_overrides(["model.interp_mode=local"]), device="cpu")
+    # local is ported (ops/grid_interp.py): it builds on both branches
+    local = build_model(cfg.apply_overrides(["model.interp_mode=local"]), device="cpu")
+    assert {local.point_feats_inp.interp_mode, local.point_feats_tmp.interp_mode} == {"local"}
     with pytest.raises(ValueError, match="interp_mode"):
         DCLNet(interp_mode="nearest", device="cpu")

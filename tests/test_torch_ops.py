@@ -17,18 +17,20 @@ import torch
 
 import dcl_net_tpu.ops.knn  # noqa: F401
 import dcl_net_tpu.ops.voxelize  # noqa: F401
+import dcl_net_tpu_torch.ops.knn  # noqa: F401
+import dcl_net_tpu_torch.ops.voxelize  # noqa: F401
 from dcl_net_tpu.ops import sparse_conv as jsc
 from dcl_net_tpu.ops.pallas_compact import pallas_dense_to_sparse
 from dcl_net_tpu.ops.pallas_interp import _run_fwd as pallas_interp_fwd
 from dcl_net_tpu.ops.pallas_voxelize import pallas_voxelize
 from dcl_net_tpu_torch.ops import cuda_compact, cuda_interp, cuda_voxelize
-from dcl_net_tpu_torch.ops import knn as tknn
 from dcl_net_tpu_torch.ops import sparse_conv as tsc
-from dcl_net_tpu_torch.ops import voxelize as tvox
 
-# dcl_net_tpu.ops re-exports functions named knn and voxelize over its modules
+# both packages' ops re-export functions named knn and voxelize over their modules
 jknn = sys.modules["dcl_net_tpu.ops.knn"]
 jvox = sys.modules["dcl_net_tpu.ops.voxelize"]
+tknn = sys.modules["dcl_net_tpu_torch.ops.knn"]
+tvox = sys.modules["dcl_net_tpu_torch.ops.voxelize"]
 
 torch.set_num_threads(2)
 

@@ -1,7 +1,7 @@
 """The port's stage-2 training CLI on the CPU at tiny shapes: from a stage-1
 checkpoint of the port it trains the refiner, writes its run directory with
 the per_val probe score, resumes from it, also on a bf16 stage 1, and
-refuses what it does not run yet."""
+on a stage 1 of voxelization mode 2 or interp_mode local."""
 
 import json
 import os
@@ -72,22 +72,12 @@ def test_train_stage2_writes_checkpoint_eval_and_resumes(tmp_path, stage1_checkp
     assert len(_records(exp_dir, "eval")) == 2
 
 
-@pytest.mark.parametrize("ckpt, extra, match", [
-    ("reference.pth", ["--override", "model.voxelization_mode=2"], "not ported"),
-    (None, ["--override", "model.interp_mode=local"], "not ported"),
-])
-def test_train_stage2_refuses_what_is_not_ported(tmp_path, stage1_checkpoint, ckpt,
-                                                 extra, match):
-    # a model key the port does not run is refused before the checkpoint,
-    # a reference .pth here, is read
-    args = ["--config", CONFIG, "--log_root", str(tmp_path), "--device", "cpu",
-            "--checkpoint_stage1", ckpt or stage1_checkpoint]
-    if extra and extra[0] == "--override":
-        args += ["--override", *OVERRIDES, extra[1]]
-    else:
-        args += extra
-    with pytest.raises(NotImplementedError, match=match):
-        main(args)
+@pytest.mark.parametrize("extra", ["model.voxelization_mode=2", "model.interp_mode=local"])
+def test_train_stage2_takes_voxelization_modes_and_local(tmp_path, stage1_checkpoint, extra):
+    # the stage-1 checkpoint's weights do not depend on either key
+    _run(str(tmp_path), stage1_checkpoint, extra)
+    for rec in _records(os.path.join(str(tmp_path), EXP), "train"):
+        assert np.isfinite(rec["loss_all"])
 
 
 def test_train_stage2_reads_a_reference_pth(tmp_path, stage1_checkpoint):

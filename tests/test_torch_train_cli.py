@@ -1,7 +1,8 @@
 """The port's stage-1 training CLI on the CPU at tiny shapes: it writes its
 run directory and resumes from it, in f32 and in bf16 (whose checkpoint
-then evaluates in either type), and refuses what it does not run yet (a
-voxelization mode, interp_mode local, a worker type it lacks)."""
+then evaluates in either type), and trains with voxelization mode 2 and
+interp_mode local, and refuses what it does not run (a worker type it
+lacks)."""
 
 import json
 import os
@@ -75,9 +76,15 @@ def test_train_stage1_template_bank_option(tmp_path):
     assert np.isfinite(rec["loss_all"])
 
 
+@pytest.mark.parametrize("extra", ["model.voxelization_mode=2", "model.interp_mode=local"])
+def test_train_stage1_takes_voxelization_modes_and_local(tmp_path, extra):
+    log_root = str(tmp_path / "log")
+    _run(log_root, extra)
+    rec = _records(os.path.join(log_root, EXP))[-1]
+    assert np.isfinite(rec["loss_all"])
+
+
 @pytest.mark.parametrize("extra, match", [
-    (["--override", "model.voxelization_mode=2"], "not ported"),
-    (["--override", "model.interp_mode=local"], "not ported"),
     (["--override", "hyper_dataloader_train.worker_type=fiber"], "not ported"),
 ])
 def test_train_stage1_refuses_what_is_not_ported(tmp_path, extra, match):

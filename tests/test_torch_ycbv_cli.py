@@ -149,9 +149,17 @@ def test_stage1_cli_matches_jax(runs, monkeypatch):
     np.testing.assert_allclose(big["auc_per_class"], got["auc_per_class"], atol=AUC_ATOL)
 
 
+def test_stage1_cli_voxelization_mode_2_matches_jax(runs, monkeypatch):
+    # interp_mode local: tests/test_torch_local_interp.py
+    seen = capture_distances(monkeypatch)
+    over = ["--override", *OVERRIDES, "hyper_dataloader_test.bs=4", "model.voxelization_mode=2"]
+    want = jax_main(runs["jax"] + over)
+    got = main(runs["port"] + over)
+    assert got["n_scored"] == 6 and got["n_lost"] == 1
+    assert_scores_match(got, want, seen)
+
+
 @pytest.mark.parametrize("extra, match", [
-    (["--override", *OVERRIDES, "model.voxelization_mode=2"], "not ported"),
-    (["--override", *OVERRIDES, "model.interp_mode=local"], "not ported"),
     (["--override", *OVERRIDES, "hyper_dataloader_test.worker_type=fiber"], "thread"),
 ])
 def test_stage1_cli_refuses_what_is_not_ported(runs, extra, match):
