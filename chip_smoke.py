@@ -209,7 +209,13 @@ Phases, any failure exits non-zero:
     library surface against CPU copies: FPS of 16384 -> 1024 points, ball
     query, grouping, an SA-MSG and an FP module, the sparse max pool forward
     and gradient on a 64^3 grid at batch 2, the transposed and inverse
-    convs, the field max pool. K1's launches of (a) and (b) go into its
+    convs, the field max pool; (e) K1's backward (the autograd formula of
+    dclx::voxelize) at the main batch, modes 3 and 4, with and without a
+    point mask, f32 and bf16 grids: one K1 launch a forward, the gradient
+    torch.equal to the same op's on CPU copies of K1GRAD_CPU_ROWS rows, and
+    to the plain version's autograd gradient on the card (in bf16, that
+    gradient rounded to bf16, as the plain version's bf16 cast of the
+    features rounds it). K1's launches of (a) and (b) go into its
     entries (local_eval_launches, local_train_launches, mode0_launches,
     and launches). `python3 chip_smoke.py --phase 16` runs phases 1, 2 and
     16 alone;
@@ -3282,6 +3288,10 @@ LOCAL_TRAIN = {"voxelize": 2}  # a train step encodes both branches
 LOCAL_ATOL = 1e-5  # local vs exact where the exact 3 neighbours lie in the window
 SHARDED_ATOL = 1e-5  # a sharded artifact against the single one (test_serving.py:171)
 SURFACE_ATOL = 1e-4  # a module's card run against its CPU copy: matmuls in other orders
+# K1's gradient is compared on the CPU for the first rows only: a row's
+# gradient depends on that row alone, and the plain version takes seconds a
+# case at batch 32 on the host
+K1GRAD_CPU_ROWS = 2
 FPS_POINTS, FPS_SAMPLES = 16384, 1024
 
 
@@ -3683,11 +3693,60 @@ def surface_phase(card) -> None:
           f"CPU run", flush=True)
 
 
-def rest_phase(card, cfg, batches, bank, model_points, entries) -> None:
-    """Phase 16 (the module docstring): (a) local, (b) modes, (c) the sharded
-    artifact, (d) the library surface."""
+def k1_grad_phase(card, batch, grid_shape) -> None:
+    """Phase 16(e): K1's backward on the card (the module docstring)."""
     import torch
 
+    from dcl_net_tpu_torch.ops import cuda_voxelize
+
+    dev = torch.device("cuda")
+    feats, vidx = batch["inp"]["feats"].to(dev), batch["inp"]["voxel_idx"].to(dev)
+    b, n, c = feats.shape
+    gen = torch.Generator().manual_seed(61)
+    mask = (torch.rand((b, n), generator=gen) > 0.3).float().to(dev)
+    g = torch.randn((b, *grid_shape, c), generator=gen).to(dev)
+    rows = K1GRAD_CPU_ROWS
+    cases = []
+    for mode in (3, 4):
+        for m in (None, mask):
+            for out in (None, torch.bfloat16):
+                what = (f"K1 gradient mode {mode}, {'mask' if m is not None else 'no mask'}, "
+                        f"{'bf16' if out else 'f32'} grid")
+                cot = g.to(out or torch.float32)
+                f = feats.clone().requires_grad_(True)
+                reset_counts()
+                grid, _ = cuda_voxelize.voxelize_cuda(f, vidx, grid_shape, mode, m, out)
+                launched = read_counts()
+                check(launched["voxelize_bf16" if out else "voxelize"] == 1
+                      and sum(launched.values()) == 1, f"{what}: launches {launched}")
+                (got,) = torch.autograd.grad(grid, f, cot)
+                check(got.is_cuda and got.dtype == torch.float32 and bool(got.abs().sum() > 0),
+                      f"{what}: gradient {got.dtype} on {got.device}")
+                fc = feats[:rows].cpu().requires_grad_(True)
+                gc, _ = cuda_voxelize.voxelize_cuda(fc, vidx[:rows].cpu(), grid_shape, mode,
+                                                    None if m is None else m[:rows].cpu(), out)
+                (cpu,) = torch.autograd.grad(gc, fc, cot[:rows].cpu())
+                check(torch.equal(got[:rows].cpu(), cpu), f"{what}: differs from the CPU's")
+                fp = feats.clone().requires_grad_(True)
+                gp, _ = cuda_voxelize.voxelize_reference(fp, vidx, grid_shape, mode, m, out)
+                (plain,) = torch.autograd.grad(gp, fp, cot)
+                want = got if out is None else got.to(torch.bfloat16).float()
+                check(torch.equal(want, plain),
+                      f"{what}: differs from the plain version's gradient by "
+                      f"{max_err(want, plain)}")
+                cases.append(what.removeprefix("K1 gradient "))
+    print(f"K1 gradient on {card} at batch {b} ({n} points, {c} features, "
+          f"{'x'.join(map(str, grid_shape))} grid): {len(cases)} cases ({'; '.join(cases)}) "
+          f"torch.equal to the CPU's ({rows} rows) and to the plain version's on the card",
+          flush=True)
+
+
+def rest_phase(card, cfg, batches, bank, model_points, entries) -> None:
+    """Phase 16 (the module docstring): (a) local, (b) modes, (c) the sharded
+    artifact, (d) the library surface, (e) K1's backward."""
+    import torch
+
+    from dcl_net_tpu_torch.data.schema import batch_to_torch
     from dcl_net_tpu_torch.models.dcl_net import DCLNet
 
     t_phase = time.perf_counter()
@@ -3707,10 +3766,15 @@ def rest_phase(card, cfg, batches, bank, model_points, entries) -> None:
         t0 = time.perf_counter()
         surface_phase(card)
         t_d = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        k1_grad_phase(card, batch_to_torch(batches[0], torch.device("cuda")),
+                      tuple(int(d) for d in cfg.model.voxel_num_limit))
+        t_e = time.perf_counter() - t0
     finally:
         torch.backends.cudnn.benchmark = benchmark
     print(f"rest-of-package phase: (a) {t_a:.1f} s (b) {t_b:.1f} s (c) {t_c:.1f} s "
-          f"(d) {t_d:.1f} s; phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+          f"(d) {t_d:.1f} s (e) {t_e:.1f} s; phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
 
 
 def main() -> int:

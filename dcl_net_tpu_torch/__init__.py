@@ -11,7 +11,19 @@ Stage 2 (the refiner) is plain PyTorch on top of a stage-1 model. Inference
 and training also run in bf16 (model.compute_dtype: bfloat16) through bf16
 variants of the kernels. The forward kernels are torch.library custom ops
 (ops/library.py), so that serving.py can export the eval forward, with its
-weights and template cache, as torch.export artifacts.
+weights and template cache, as torch.export artifacts; the voxelize op has
+an autograd formula for its features (the JAX package's VJP, in stock
+torch). Data parallelism runs over torch.distributed (parallel/mesh.py).
+
+The package exports the JAX package's top-level names: Config, and the
+registries (registry.py) in which the models (DCL_Net, Refiner) and the
+datasets (synthetic, ycbv_train, ycbv_test, linemod, lmo) register when
+their modules are imported; tools/common.py::build_model resolves
+cfg.model.name there. Importing the package loads no CUDA and builds no
+kernel. On an H100, scripts/train_ddp_multi_gpu.py holds data-parallel
+training over NCCL on 2 and 4 cards to one process, and
+scripts/torch_synthetic_convergence.py trains stage 1 and the refiner from
+scratch on synthetic data and scores them on held-out rows.
 """
 
 import torch
@@ -44,3 +56,7 @@ def autotune_convs() -> None:
     (wgrad2d_grouped_direct_kernel) took 96 % of a step's device time on an
     H100 (scripts/profile_torch_train.py)."""
     torch.backends.cudnn.benchmark = True
+
+
+from dcl_net_tpu_torch.config import Config  # noqa: E402,F401
+from dcl_net_tpu_torch.registry import Registry, MODELS, DATASETS  # noqa: E402,F401

@@ -37,6 +37,7 @@ from dcl_net_tpu_torch.data import png
 from dcl_net_tpu_torch.data import preprocess as pp
 from dcl_net_tpu_torch.data.ply import read_ply, sample_points_uniformly
 from dcl_net_tpu_torch.data.png import imread
+from dcl_net_tpu_torch.registry import DATASETS
 
 CAM = dict(cx=325.26110, cy=242.04899, fx=572.41140, fy=573.57043)
 LM_OBJLIST = [1, 2, 4, 5, 6, 8, 9, 10, 11, 12, 13, 14, 15]
@@ -243,6 +244,7 @@ class _LMBase:
         return {"feats": np.stack(feats), "voxel_idx": np.stack(vidx)}
 
 
+@DATASETS.register("linemod")
 class LineMODDataset(_LMBase):
     """13-object LineMOD (train / test / eval with SegNet masks)."""
 
@@ -453,6 +455,7 @@ class LineMODDataset(_LMBase):
         )
 
 
+@DATASETS.register("lmo")
 class OcclusionLineMODDataset(_LMBase):
     """Occlusion-LineMOD eval set with HybridPose masks."""
 

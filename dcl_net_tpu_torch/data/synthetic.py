@@ -13,6 +13,8 @@ from typing import Dict, Optional, Sequence
 
 import numpy as np
 
+from dcl_net_tpu_torch.registry import DATASETS
+
 
 def _sample_superquadric(rng: np.random.RandomState, n: int):
     """Random superquadric-ish closed surface with per-point colors."""
@@ -35,6 +37,7 @@ def _sample_superquadric(rng: np.random.RandomState, n: int):
     return pts, colors
 
 
+@DATASETS.register("synthetic")
 class SyntheticPoseDataset:
     """Fixed-shape samples matching the real loaders' contract: features
     [1, rgb - imagenet_mean, xyz] and voxel indices from the metric volume."""

@@ -39,6 +39,7 @@ from dcl_net_tpu_torch.data import png
 from dcl_net_tpu_torch.data import preprocess as pp
 from dcl_net_tpu_torch.data.ply import read_ply
 from dcl_net_tpu_torch.data.png import imread
+from dcl_net_tpu_torch.registry import DATASETS
 
 # Camera intrinsics (reference YCBV/dataloader_train_YCBV.py:83-91)
 CAM_1 = dict(cx=312.9869, cy=241.3109, fx=1066.778, fy=1067.487)
@@ -174,6 +175,7 @@ class _YCBVBase:
         return {"feats": np.stack(feats), "voxel_idx": np.stack(vidx)}
 
 
+@DATASETS.register("ycbv_train")
 class YCBVTrainDataset(_YCBVBase):
     def __init__(self, cfg, root: str, list_file: Optional[str] = None,
                  assets_dir: Optional[str] = None):
@@ -307,6 +309,7 @@ class YCBVTrainDataset(_YCBVBase):
         }
 
 
+@DATASETS.register("ycbv_test")
 class YCBVTestDataset(_YCBVBase):
     """Per-frame eval dataset with FFB6D masks (reference
     YCBV/dataloader_test_YCBV.py). __getitem__ yields the frame's instance

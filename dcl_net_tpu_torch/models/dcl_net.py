@@ -77,6 +77,7 @@ from dcl_net_tpu_torch.ops.voxelize import (
 from dcl_net_tpu_torch.parallel.mesh import (
     all_reduce_sum, batch_group, replicated, sharded,
 )
+from dcl_net_tpu_torch.registry import MODELS
 
 _POINT_FEATS = 480  # 32 + 64 + 128 + 256
 
@@ -105,6 +106,7 @@ def aligner(ri_1: torch.Tensor, ri_2: torch.Tensor, re_2: torch.Tensor):
     return att.transpose(1, 2) @ re_2, att
 
 
+@MODELS.register("DCL_Net")
 class DCLNet(nn.Module):
     """The stage-1 DCL-Net.
 

@@ -32,10 +32,12 @@ from dcl_net_tpu_torch.geometry.transform import (
 )
 from dcl_net_tpu_torch.models.blocks import PointMLP, init_weights, softmax
 from dcl_net_tpu_torch.parallel.mesh import all_reduce_sum, batch_group
+from dcl_net_tpu_torch.registry import MODELS
 
 _IN_FEATS = 259  # 3 canonical coordinates + the 256 channels of F_Xo_p
 
 
+@MODELS.register("Refiner")
 class Refiner(nn.Module):
     """One refinement step: per-point MLP, confidence pooling, delta pose.
 

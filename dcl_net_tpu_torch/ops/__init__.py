@@ -5,7 +5,9 @@ Importing the package registers the custom ops of the forward kernels
 (library.py), through which the wrappers reach them. As in the JAX
 package, the functions `voxelize` and `knn` stand in this namespace over
 the submodules of those names: reach the modules through
-importlib.import_module (or sys.modules)."""
+importlib.import_module (or sys.modules). The JAX package's Pallas 3-NN
+interpolation, pallas_nn_interpolate, is kernel K3 here:
+ops/cuda_interp.py::nn_interpolate."""
 
 from dcl_net_tpu_torch.ops import library  # noqa: F401
 from dcl_net_tpu_torch.ops.voxelize import (  # noqa: F401
@@ -34,7 +36,3 @@ from dcl_net_tpu_torch.ops.knn import (  # noqa: F401
     gather_operation,
 )
 from dcl_net_tpu_torch.ops.grid_interp import local_grid_interpolate  # noqa: F401
-# the JAX package's Pallas 3-NN interpolation is kernel K3 here
-from dcl_net_tpu_torch.ops.cuda_interp import (  # noqa: F401
-    nn_interpolate as pallas_nn_interpolate,
-)

@@ -16,6 +16,10 @@ variant writes a bf16 grid with the semantics of the JAX package's
 pallas_voxelize(out_dtype=bfloat16): sums of the bf16-rounded features, in
 f32, stored as bf16; mode 4 divides that bf16 sum by the count and rounds
 again; the counts stay f32. It has its own launch count, `launches_bf16`.
+
+The op is differentiable with respect to the features (`voxelize_vjp`, the
+JAX package's custom VJP of pallas_voxelize): each point takes its voxel's
+cotangent, in stock torch, as the JAX package takes it with XLA.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ from typing import Optional, Tuple
 import torch
 
 from dcl_net_tpu_torch.ops import cuda_build
-from dcl_net_tpu_torch.ops.voxelize import MODE_MEAN, MODE_SUM, voxelize_dense
+from dcl_net_tpu_torch.ops.voxelize import MODE_MEAN, MODE_SUM, _linear, voxelize_dense
 
 # Launches of the kernel and of its bf16 variant since the last reset (set
 # to 0 to reset).
@@ -137,3 +141,26 @@ def voxelize_kernel(
     else:
         launches += 1
     return grid, count
+
+
+def voxelize_vjp(g_grid: torch.Tensor, count: torch.Tensor, voxel_idx: torch.Tensor,
+                 point_mask: Optional[torch.Tensor], grid_size: Tuple[int, int, int],
+                 mode: int, feats_dtype: torch.dtype) -> torch.Tensor:
+    """The features' gradient [B, N, C] of K1 for the grid's cotangent
+    g_grid [B, D0, D1, D2, C] (dcl_net_tpu/ops/pallas_voxelize.py:180-199):
+    each point gathers its voxel's cotangent in f32, divided by max(count, 1)
+    in mode 4 and multiplied by its point_mask, cast to the features' type.
+    A point outside the grid, which the forward drops, gets zero. Stock
+    torch on every device: the JAX package computes it with XLA."""
+    b, n = voxel_idx.shape[:2]
+    c = g_grid.shape[-1]
+    flat = g_grid.reshape(b, -1, c).to(torch.float32)
+    if mode == MODE_MEAN:
+        flat = flat / torch.clamp(count.reshape(b, -1), min=1.0)[..., None]
+    lin, inside = _linear(voxel_idx, grid_size)
+    lin = torch.where(inside, lin, torch.zeros_like(lin))
+    d = torch.gather(flat, 1, lin[..., None].expand(b, n, c))
+    d = torch.where(inside[..., None], d, torch.zeros_like(d))
+    if point_mask is not None:
+        d = d * point_mask[..., None].to(torch.float32)
+    return d.to(feats_dtype)

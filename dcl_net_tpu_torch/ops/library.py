@@ -19,8 +19,11 @@ variants are the same ops.
 
 The wrappers (voxelize_cuda, dense_to_sparse_cuda, nn_interpolate_cuda,
 compact_interpolate_cuda) call these ops; the package registers them on
-import (ops/__init__.py). The backward kernels K4, K5 and K7 are called by
-the autograd Functions directly: no served graph runs them.
+import (ops/__init__.py). dclx::voxelize has an autograd formula with
+respect to the features (cuda_voxelize.voxelize_vjp, stock torch on every
+device, as the JAX package's VJP is XLA). The backward kernels K4, K5 and
+K7 are called by the autograd Functions directly: no served graph runs
+them.
 """
 
 from __future__ import annotations
@@ -61,6 +64,24 @@ def _voxelize_fake(feats, voxel_idx, grid_size, mode, point_mask, out_dtype):
     d0, d1, d2 = grid_size
     return (feats.new_empty((b, d0, d1, d2, c), dtype=out_dtype or feats.dtype),
             feats.new_empty((b, d0, d1, d2), dtype=torch.float32))
+
+
+def _voxelize_setup_context(ctx, inputs, output):
+    _, voxel_idx, grid_size, mode, point_mask, _ = inputs
+    ctx.save_for_backward(voxel_idx, point_mask, output[1])
+    ctx.grid_size, ctx.mode, ctx.feats_dtype = tuple(grid_size), int(mode), inputs[0].dtype
+
+
+def _voxelize_backward(ctx, g_grid, g_count):
+    # the counts are integer-valued in the features: no gradient, nor for
+    # the indices and the mask (the JAX VJP's zeros)
+    voxel_idx, point_mask, count = ctx.saved_tensors
+    return (cuda_voxelize.voxelize_vjp(g_grid, count, voxel_idx, point_mask, ctx.grid_size,
+                                       ctx.mode, ctx.feats_dtype),
+            None, None, None, None, None)
+
+
+voxelize.register_autograd(_voxelize_backward, setup_context=_voxelize_setup_context)
 
 
 # ---- K2 ----------------------------------------------------------------------

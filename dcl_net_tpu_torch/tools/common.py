@@ -196,13 +196,17 @@ def build_model(cfg: Config, device=None, seed: int = 0):
     into either). cfg.model.remat recomputes the backbones' activations in
     the backward (models/dcl_net.py). interp_mode "local" runs the
     windowed 3-NN on the dense grids (ops/grid_interp.py) after K1, and
-    model.voxelization_mode takes 0-4 (models/dcl_net.py)."""
-    from dcl_net_tpu_torch.models.dcl_net import DCLNet
+    model.voxelization_mode takes 0-4 (models/dcl_net.py).
+
+    The class is cfg.model.name (default "DCL_Net") in the registry MODELS,
+    as the JAX package resolves it: an unknown name raises the registry's
+    KeyError, which lists the registered names."""
+    import dcl_net_tpu_torch.models  # noqa: F401  (fills the registry)
+    from dcl_net_tpu_torch.registry import MODELS
 
     m = cfg.model
-    if m.get("name", "DCL_Net") != "DCL_Net":
-        raise NotImplementedError(f"model {m.name}: the port builds DCL_Net")
-    return DCLNet.from_config(m, device=device, seed=seed)
+    model_cls = MODELS.get(m.get("name", cfg.get("model_name", "DCL_Net")))
+    return model_cls.from_config(m, device=device, seed=seed)
 
 
 def build_device_preprocess(ds_cfg, dataset, *, augment: bool, eval_keep_clamp: bool = False,

@@ -22,7 +22,9 @@ GPU (--device cpu: gloo ranks on the CPU), --coordinator / --num_hosts /
 --host_id across hosts, or under torchrun (tools/common.py). The config's
 bs is the global batch; each rank loads its block of it, and the ranks'
 steps equal one process's step on the global batch (parallel/mesh.py).
-Rank 0 logs and writes the checkpoints.
+Rank 0 logs and writes the checkpoints. At the end each rank logs the
+sha256 of its parameters (train/logging.py::parameter_digest), which must be
+the same on every rank.
 """
 
 from __future__ import annotations
@@ -43,7 +45,9 @@ def _train(args, group, device) -> None:
         build_device_preprocess, build_model, build_train_dataset, init, process_stride,
     )
     from dcl_net_tpu_torch.train.checkpoints import latest_checkpoint
-    from dcl_net_tpu_torch.train.logging import ScalarWriter, parameter_count
+    from dcl_net_tpu_torch.train.logging import (
+        ScalarWriter, parameter_count, parameter_digest,
+    )
     from dcl_net_tpu_torch.train.solver import Solver
 
     logger, cfg = init(args, "train_stage1", group)
@@ -91,6 +95,9 @@ def _train(args, group, device) -> None:
         loader.close()
         if writer is not None:
             writer.close()
+    if group is not None:
+        logger.warning(f"rank {group.rank} of {group.world}: parameters sha256 "
+                       f"{parameter_digest(model)}")
     logger.warning("training done")
 
 

@@ -2,17 +2,21 @@
 
 Counterpart of dcl_net_tpu/train/logging.py: a console + file logger, a
 scalar writer (scalars.jsonl always, tensorboard as well when it imports),
-a source backup per run, seeding and parameter counting.
+a source backup per run, seeding, parameter counting and a digest of the
+parameters.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import logging
 import os
 import shutil
 import time
 from typing import Dict, Optional
+
+import torch
 
 
 def get_logger(level_print: int = logging.INFO, level_save: int = logging.WARNING,
@@ -97,3 +101,13 @@ def set_random_seed(seed: int) -> None:
 def parameter_count(model) -> int:
     """Total number of parameters of a module."""
     return sum(p.numel() for p in model.parameters())
+
+
+def parameter_digest(model) -> str:
+    """sha256 of the bytes of a module's parameters, in order: two ranks of
+    a data-parallel run hold the same parameters exactly when their digests
+    are equal."""
+    h = hashlib.sha256()
+    for p in model.parameters():
+        h.update(p.detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()

@@ -135,6 +135,12 @@ def build_lr_schedule(cfg: Config, steps_per_epoch: int) -> Callable:
     raise NotImplementedError(f"lr_scheduler type {stype}")
 
 
+def autoclip(percentile: float = 50.0, history_len: int = 1024) -> AutoClip:
+    """Percentile gradient clipping (dcl_net_tpu/train/solver.py::autoclip,
+    an optax transformation there): the AutoClip the optimizer applies."""
+    return AutoClip(percentile, history_len)
+
+
 # ---------------------------------------------------------------------------
 # Optimizer: AutoClip -> Adam -> learning rate
 # ---------------------------------------------------------------------------

@@ -4,11 +4,15 @@ width, on the CPU, on the same weights and inputs (no card needed).
 
 Usage, from the root of the repository:
   python3 scripts/bf16_fullwidth_drift.py [--batch 16] [--chunk 4] [--mode pallas]
+      [--weights <dir>]
 
 The model is configs/config_YCBV_bs32.yaml's at full width (64^3 grid at
 6 mm, 1024 + 1024 points, capacities (2048, 1024, 512, 64)) with the port's
 seeded weights (DCLNet.from_config(seed=0), the weights of chip_smoke.py's
-eval phases), carried into the JAX model by weights.py. The inputs are
+eval phases), or with --weights those of a stage-1 checkpoint of the port
+(an epoch_<n> directory, e.g. one that scripts/torch_synthetic_convergence.py
+--save writes) or of a reference .pth, carried into the JAX model by
+weights.py. The inputs are
 rows 0 .. batch-1 of SyntheticPoseDataset(n_objects=16, seed=0) at that
 width, chip_smoke.py's model cell. Four eval-mode forwards score every
 row: the port in f32 and in bf16 (model.compute_dtype: bfloat16, the
@@ -58,11 +62,24 @@ def summary(name, deg, mm):
             f"{TRANS_BOUND_MM} mm {int((mm > TRANS_BOUND_MM).sum())}")
 
 
+def load_weights(models, path: str) -> None:
+    """Fill each of the port's models from the checkpoint or .pth at path
+    (tools/common.py::load_model_weights); bf16 models keep f32 parameters,
+    so one checkpoint fills both."""
+    from dcl_net_tpu_torch.tools.common import load_model_weights
+
+    for model in models.values():
+        load_model_weights(model, path)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--batch", type=int, default=16)
     parser.add_argument("--chunk", type=int, default=4)
     parser.add_argument("--mode", default="pallas", choices=("pallas", "pallas_fused"))
+    parser.add_argument("--weights", default=None,
+                        help="a stage-1 checkpoint directory of the port or a reference "
+                        ".pth (default: the seeded weights)")
     args = parser.parse_args(argv)
     sys.path.insert(0, str(ROOT))
 
@@ -87,6 +104,8 @@ def main(argv=None) -> int:
     port = {name: DCLNet.from_config(mcfg, seed=0, device="cpu", interp_mode=args.mode,
                                      dtype=dtype)
             for name, dtype in (("f32", None), ("bf16", torch.bfloat16))}
+    if args.weights:
+        load_weights(port, args.weights)
     variables = jax.tree.map(np.asarray, to_jax_variables(port["f32"]))
     width = dict(n_inp=int(mcfg.n_inp), n_tmp=int(mcfg.n_tmp),
                  unit_voxel_extent=tuple(mcfg.unit_voxel_extent),

@@ -8,7 +8,9 @@ multi-process dryrun among them; and of
 chip_smoke.py, the scripts/profile_torch_*.py, the tree writers
 scripts/ycbv_tree.py and scripts/lm_tree.py and the row counter
 scripts/lm_level_occupancy.py and the pooling check
-scripts/window_sum_large_batch.py), then a fresh interpreter that imports them all with
+scripts/window_sum_large_batch.py, the multi-GPU scripts
+scripts/serve_sharded_multi_gpu.py and scripts/train_ddp_multi_gpu.py and
+the convergence acceptance scripts/torch_synthetic_convergence.py), then a fresh interpreter that imports them all with
 jax, flax and dcl_net_tpu blocked in sys.modules. Importing builds nothing:
 the kernels and the PNG host library are compiled at first use only, so
 the import runs with subprocess creation blocked.
@@ -30,7 +32,10 @@ FILES = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                          ROOT / "scripts" / "ycbv_tree.py",
                                          ROOT / "scripts" / "lm_tree.py",
                                          ROOT / "scripts" / "lm_level_occupancy.py",
-                                         ROOT / "scripts" / "window_sum_large_batch.py"]
+                                         ROOT / "scripts" / "window_sum_large_batch.py",
+                                         ROOT / "scripts" / "serve_sharded_multi_gpu.py",
+                                         ROOT / "scripts" / "train_ddp_multi_gpu.py",
+                                         ROOT / "scripts" / "torch_synthetic_convergence.py"]
 
 
 def _imported_roots(path: Path):
@@ -68,6 +73,9 @@ def test_package_imports_with_jax_blocked():
         "sys.path.insert(0, 'scripts')",
         "import ycbv_tree",
         "import lm_tree",
+        "import serve_sharded_multi_gpu",
+        "import train_ddp_multi_gpu",
+        "import torch_synthetic_convergence",
     ])
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
