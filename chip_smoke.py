@@ -219,7 +219,28 @@ Phases, any failure exits non-zero:
     entries (local_eval_launches, local_train_launches, mode0_launches,
     and launches). `python3 chip_smoke.py --phase 16` runs phases 1, 2 and
     16 alone;
-17. prints the per-kernel JSON line (the f32 kernels and the bf16
+17. the last departures from the JAX package, cuDNN autotuning off: (a)
+    K1 at N = 8192 and 16384, C = 7, through its rounds kernel (a hot cell
+    of 5000 points spread over the point order, a hot last cell, points
+    outside the grid), modes 3 and 4, with and without a point mask, f32
+    and bf16 grids, torch.equal to the plain version; (b) K4 and K7 at N =
+    4096 and 8192, C = 256 and 512 (cap 1024, a 16^3 grid), f32 and bf16
+    cotangents, bit-equal to their plain versions on CPU copies and launch
+    to launch, their chunked inverse index bit-equal to its plain version;
+    each timed on the device at its new shapes beside its byte bound, the
+    bf16 variants at the largest (large_n in the kernel line); (c) the model at n_inp = n_tmp = 4096: a
+    two-stage and a fused train pass at batch 8, the launches of one pass,
+    losses within TRAIN_LOSS_RTOL of the same pass on a CPU copy, then
+    Evaluator at n_inp 8192 on 2 rows, poses within POSE_ATOL of the CPU
+    (launches as large_n_launches); (d) Evaluator pipelined against strict
+    order on 4 batches of 32, f32 and bf16: per-row distances and summary
+    equal, batch i + 1 dispatched before batch i is fetched, no host sync
+    in a dispatch (torch.cuda.set_sync_debug_mode("error")), one Memcpy
+    DtoH a batch (torch.profiler), instances/s of both printed with no
+    claim; (e) a 6-step Solver epoch at batch 4 with profile_dir, whose
+    trace of steps 2-4 holds CUDA kernels of K1-K5. `python3 chip_smoke.py
+    --phase 17` runs phases 1, 2 and 17 alone;
+18. prints the per-kernel JSON line (the f32 kernels and the bf16
     variants), then the result line {"ok": true, "device": {...}} last.
 """
 
@@ -3777,6 +3798,407 @@ def rest_phase(card, cfg, batches, bank, model_points, entries) -> None:
           flush=True)
 
 
+# ---- phase 17: the last departures from the JAX package --------------------------
+LARGE_VOX_POINTS = (8192, 16384)  # (a): K1 past its in-tile list (about 6,200 at C = 7)
+LARGE_VOX_BATCH = 8
+LARGE_VOX_HOT = 5000  # (a): points of one cell of sample 0, across K1's rounds
+LARGE_BWD_POINTS = (4096, 8192)  # (b): K4 and K7 past one sorting block (2048)
+LARGE_BWD_CHANNELS = (256, 512)  # (b): the writers past one pass of 256 channels
+LARGE_BWD_BATCH = 4
+LARGE_BWD_GRID = (16, 16, 16)  # (b): K7's grid, of the 16^3 level's capacity 1024
+LARGE_BWD_CAP = 1024
+LARGE_TRAIN_POINTS, LARGE_TRAIN_BATCH = 4096, 8  # (c): n_inp = n_tmp of two train steps
+LARGE_EVAL_POINTS, LARGE_EVAL_ROWS = 8192, 2  # (c): n_inp = n_tmp of an Evaluator
+PIPELINE_BATCHES = 4  # (d)
+PROFILE_BATCH, PROFILE_STEPS = 4, 6  # (e): a Solver epoch, steps 2-4 traced
+# (e): a name each of K1-K5's kernels has in the trace (csrc/*.cu)
+PROFILE_KERNELS = (("K1", "voxelize_tiles"), ("K2", "compact_write"),
+                   ("K3", "three_nn_rows"), ("K4", "interp_rows_bwd"),
+                   ("K5", "compact_occupied_bwd"))
+
+
+def large_voxelize_check(card, grid_shape, entries) -> None:
+    """Phase 17(a): K1 at N = LARGE_VOX_POINTS, C = 7, through the rounds
+    kernel (cuda_voxelize.plan): modes 3 and 4, with and without a point
+    mask, f32 and bf16 grids, torch.equal to the plain version on the card;
+    sample 0 in one tile with LARGE_VOX_HOT points of one cell spread over
+    the point order (its sum carried across rounds), sample 1 with a hot
+    last cell, the rest at random with points outside the grid. Mode 4
+    timed on the device, f32 and bf16 grids, beside its byte bound."""
+    import torch
+
+    from dcl_net_tpu_torch.ops import cuda_voxelize
+
+    dev = torch.device("cuda")
+    d0, d1, d2 = grid_shape
+    gen = torch.Generator().manual_seed(171)
+    b, c = LARGE_VOX_BATCH, 7
+    timings = {}
+    for n in LARGE_VOX_POINTS:
+        vidx = torch.stack([torch.randint(-1, d + 1, (b, n), generator=gen)
+                            for d in grid_shape], -1).int()
+        vidx[0, :, 0] = 0  # sample 0: one tile of the grid's first cells
+        vidx[0, :, 1] = torch.randint(0, min(d1, cuda_voxelize.TILE // d2), (n,), generator=gen)
+        vidx[0, :, 2] = torch.randint(0, d2, (n,), generator=gen)
+        hot = torch.randperm(n, generator=gen)[:LARGE_VOX_HOT]
+        vidx[0, hot] = torch.tensor([0, 3, 5], dtype=torch.int32)
+        # sample 1: its first LARGE_VOX_HOT // 2 points in the grid's last cell
+        vidx[1, :LARGE_VOX_HOT // 2] = torch.tensor([d0 - 1, d1 - 1, d2 - 1],
+                                                     dtype=torch.int32)
+        scale = 10.0 ** torch.randint(-3, 4, (b, n, 1), generator=gen).float()
+        feats = (torch.randn((b, n, c), generator=gen) * scale).to(dev)
+        vidx = vidx.to(dev)
+        mask = (torch.rand((b, n), generator=gen) > 0.2).float().to(dev)
+        p = cuda_voxelize.plan(n, c)
+        check(p.round_len > 0, f"K1 at N = {n}: the planner kept the list kernel")
+        cases = 0
+        for mode in (3, 4):
+            for m in (None, mask):
+                for out in (None, torch.bfloat16):
+                    what = (f"K1 at N = {n} mode {mode} {'mask' if m is not None else 'no mask'}"
+                            f" {'bf16' if out else 'f32'}")
+                    grid, count = cuda_voxelize.voxelize_cuda(feats, vidx, grid_shape, mode, m,
+                                                              out)
+                    want, want_c = cuda_voxelize.voxelize_reference(feats, vidx, grid_shape,
+                                                                    mode, m, out)
+                    check(torch.equal(count, want_c), f"{what}: counts differ")
+                    check(m is not None or int(count[0].max()) >= LARGE_VOX_HOT,
+                          f"{what}: the hot cell lost points")
+                    check(torch.equal(grid, want),
+                          f"{what}: grid differs by {max_err(grid.float(), want.float())}")
+                    cases += 1
+
+        g = d0 * d1 * d2
+        for key, out, size in (("voxelize", None, 4), ("voxelize_bf16", torch.bfloat16, 2)):
+            dev_ms = graph_ms(lambda: cuda_voxelize.voxelize_cuda(feats, vidx, grid_shape, 4,
+                                                                  None, out))
+            # features, indices read once; the grid and the counts written once
+            bms, bby = bound(b * n * (c * 4 + 12) + b * g * (c * size + 4), b * n * c * 2)
+            timings.setdefault(key, {})[f"[{b}, {n}, {c}]"] = dict(
+                device_ms=dev_ms, bound_ms=bms, bound_by=bby)
+            print(f"K1 ({key}) at [{b}, {n}, {c}] on {card}: {cases} cases torch.equal to "
+                  f"the plain version (rounds kernel: tile {p.tile}, {p.round_len} entries a "
+                  f"round, {p.smem} B shared); mode 4 device {dev_ms:.4f} ms, bound "
+                  f"{bms:.4f} ms ({bby})", flush=True)
+    for key, t in timings.items():
+        entries[key]["large_n"] = t
+
+
+def k2_layout(b: int, cap: int, grid_shape, gen):
+    """coords [b, cap, 3] int32 and vmask [b, cap] f32 in K2's layout: a
+    valid prefix of rising linear indices (occupancies from cap / 2 to cap),
+    zeros past it; and the occupancies."""
+    import torch
+
+    d0, d1, d2 = grid_shape
+    coords = torch.zeros((b, cap, 3), dtype=torch.int32)
+    vmask = torch.zeros((b, cap))
+    occ = torch.randint(cap // 2, cap + 1, (b,), generator=gen)
+    for i in range(b):
+        k = int(occ[i])
+        lin = torch.sort(torch.randperm(d0 * d1 * d2, generator=gen)[:k]).values
+        coords[i, :k] = torch.stack([lin // (d1 * d2), (lin // d2) % d1, lin % d2], -1).int()
+        vmask[i, :k] = 1.0
+    return coords, vmask, occ
+
+
+def large_bwd_check(card, entries) -> None:
+    """Phase 17(b): K4 and K7 at N = LARGE_BWD_POINTS and C =
+    LARGE_BWD_CHANNELS, f32 and bf16 cotangents: bit-equal to their plain
+    versions on CPU copies and from launch to launch, their inverse index
+    (the counting sort over chunks) bit-equal to its plain version; sample 0's
+    3N contributions all on slot 0. Each timed on the device at every shape
+    in f32 and at the largest in bf16, beside its byte bound."""
+    import torch
+
+    from dcl_net_tpu_torch.ops import cuda_fused, cuda_interp
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(172)
+    b, cap = LARGE_BWD_BATCH, LARGE_BWD_CAP
+    coords, vmask, occ = k2_layout(b, cap, LARGE_BWD_GRID, gen)
+    coords, vmask = coords.to(dev), vmask.to(dev)
+    timings = {}
+    cases = []
+    for n in LARGE_BWD_POINTS:
+        idx = (torch.rand((b, 3, n), generator=gen) * occ[:, None, None]).int()
+        idx[0] = 0  # every contribution of sample 0 on one slot
+        idx = idx.to(dev)
+        w = torch.rand((b, 3, n), generator=gen).to(dev)
+        check_inverse_index(idx, cap, f"inverse index at N = {n}")
+        for c in LARGE_BWD_CHANNELS:
+            scale = 10.0 ** torch.randint(-3, 4, (b, n, 1), generator=gen).float()
+            g32 = (torch.randn((b, n, c), generator=gen) * scale).to(dev)
+            for g in (g32, g32.to(torch.bfloat16)):
+                tag = f"N = {n} C = {c} {'bf16' if g.dtype == torch.bfloat16 else 'f32'}"
+                bit_equal_on_cpu(cuda_interp.nn_interpolate_bwd_cuda,
+                                 cuda_interp.nn_interpolate_bwd_reference,
+                                 (g, w, idx, cap), f"K4 at {tag}")
+                bit_equal_on_cpu(cuda_fused.compact_interpolate_bwd_cuda,
+                                 cuda_fused.compact_interpolate_bwd_reference,
+                                 (g, w, idx, coords, vmask, LARGE_BWD_GRID), f"K7 at {tag}")
+                cases.append(tag)
+            shape = f"[{b}, {n}, {c}]"
+            cells = LARGE_BWD_GRID[0] * LARGE_BWD_GRID[1] * LARGE_BWD_GRID[2]
+            # bf16 timed at the largest shape only
+            last = (n, c) == (LARGE_BWD_POINTS[-1], LARGE_BWD_CHANNELS[-1])
+            for tag, g in (("", g32), ("_bf16", g32.to(torch.bfloat16)))[:2 if last else 1]:
+                size = g.element_size()
+                ins = b * n * c * size + b * 3 * n * 8  # g, w and idx read once
+                k4_ms = graph_ms(lambda: cuda_interp.nn_interpolate_bwd_cuda(g, w, idx, cap))
+                bms, bby = bound(ins + b * cap * c * size, b * 3 * n * c * 2)
+                timings.setdefault("interp_bwd" + tag, {})[shape] = dict(
+                    device_ms=k4_ms, bound_ms=bms, bound_by=bby)
+                k7_ms = graph_ms(lambda: cuda_fused.compact_interpolate_bwd_cuda(
+                    g, w, idx, coords, vmask, LARGE_BWD_GRID))
+                b7, b7by = bound(ins + b * cap * 16 + b * cells * c * size, b * 3 * n * c * 2)
+                timings.setdefault("fused_bwd" + tag, {})[shape] = dict(
+                    device_ms=k7_ms, bound_ms=b7, bound_by=b7by)
+                print(f"K4 / K7 {'bf16' if tag else 'f32'} at {shape} (cap {cap}, "
+                      f"{LARGE_BWD_GRID[0]}^3 grid) on {card}: device {k4_ms:.4f} / "
+                      f"{k7_ms:.4f} ms, bound {bms:.4f} / {b7:.4f} ms", flush=True)
+    for key, t in timings.items():
+        entries[key]["large_n"] = t
+    print(f"K4 and K7 bit-equal to their plain versions on CPU copies, launch to launch, "
+          f"at {len(cases)} shapes ({'; '.join(cases)}); the inverse index at N = "
+          f"{', '.join(map(str, LARGE_BWD_POINTS))} bit-equal to its plain version",
+          flush=True)
+
+
+def large_model_check(card, cfg, entries) -> None:
+    """Phase 17(c): the model at n_inp = n_tmp = LARGE_TRAIN_POINTS, one
+    two-stage and one fused train pass at batch LARGE_TRAIN_BATCH (the
+    launches of one pass, finite losses and gradient, the losses within
+    TRAIN_LOSS_RTOL of the same pass on a CPU copy, the two-stage one, which
+    the fused one equals on the CPU), then Evaluator at
+    n_inp = LARGE_EVAL_POINTS on LARGE_EVAL_ROWS rows, its poses within
+    POSE_ATOL of the CPU's."""
+    import numpy as np
+    import torch
+
+    from dcl_net_tpu_torch.data.schema import batch_to_torch, make_batch
+    from dcl_net_tpu_torch.data.synthetic import SyntheticPoseDataset
+    from dcl_net_tpu_torch.eval.evaluator import Evaluator
+    from dcl_net_tpu_torch.models.dcl_net import DCLNet, dcl_losses
+
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+
+    def data(n, rows):
+        mcfg = cfg.merge({"model": {"n_inp": n, "n_tmp": n}}).model
+        ds = SyntheticPoseDataset(n_objects=N_CLASSES, n_points=n,
+                                  unit_voxel_extent=tuple(mcfg.unit_voxel_extent),
+                                  voxel_num_limit=tuple(int(d) for d in mcfg.voxel_num_limit),
+                                  seed=0)
+        return mcfg, ds, make_batch([ds[i] for i in range(rows)]).to_dict()
+
+    mcfg, _, batch = data(LARGE_TRAIN_POINTS, LARGE_TRAIN_BATCH)
+    tb, tc = batch_to_torch(batch, dev), batch_to_torch(batch, cpu)
+    # one CPU pass serves both paths: on the CPU the fused op's plain version
+    # is K2 -> centers -> K3's, bit for bit
+    ref = DCLNet.from_config(mcfg, seed=0, interp_mode="pallas", device=cpu).train()
+    with torch.no_grad():
+        want = {k: float(v) for k, v in dcl_losses(ref(tc), tc).items()}
+    del ref
+    launches = {}
+    for mode, per_pass in (("pallas", TWO_STAGE_TRAIN), ("pallas_fused", FUSED_TRAIN)):
+        model = DCLNet.from_config(mcfg, seed=0, interp_mode=mode)
+        reset_counts()
+        losses, grad = train_pass(model, tb)
+        counts = read_counts()
+        expect_counts(counts, per_pass, 1, f"n_inp {LARGE_TRAIN_POINTS} train pass ({mode})")
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        check(all(np.isfinite(v) for v in losses.values())
+              and bool(torch.isfinite(grad).all()), f"{mode}: non-finite train pass")
+        rel = max(abs(losses[k] - want[k]) / abs(want[k]) for k in want)
+        print(f"n_inp {LARGE_TRAIN_POINTS} train pass ({mode}) at batch {LARGE_TRAIN_BATCH} "
+              f"on {card}: loss_all {losses['loss_all']:.6f}, losses rel {rel:.3g} from the "
+              f"CPU's, gradient norm {float(grad.norm()):.4g}", flush=True)
+        check(rel <= TRAIN_LOSS_RTOL, f"{mode}: losses differ from the CPU's by {rel}")
+        del model
+    mcfg, ds, batch = data(LARGE_EVAL_POINTS, LARGE_EVAL_ROWS)
+    bank = ds.template_bank()
+    points = np.stack([ds.model_points(c, MODEL_POINTS) for c in range(N_CLASSES)])
+    reset_counts()
+    ev = Evaluator(DCLNet.from_config(mcfg, seed=0), points, template_bank=bank)
+    res = ev.evaluate([batch])
+    counts = read_counts()
+    # the template bank once, then the batch
+    expect_counts(counts, {"voxelize": 1, "compact": 4, "interp": 4}, 2,
+                  f"n_inp {LARGE_EVAL_POINTS} Evaluator")
+    for k, v in counts.items():
+        launches[k] = launches.get(k, 0) + v
+    check(bool(np.isfinite(res["auc_mean"])), "n_inp 8192: auc_mean is not finite")
+    got = ev._run(batch_to_torch(batch, dev))
+    ref = Evaluator(DCLNet.from_config(mcfg, seed=0, device=cpu), points, template_bank=bank,
+                    device=cpu)._run(batch_to_torch(batch, cpu))
+    e_rot = max_err(got["rot_pred"].cpu(), ref["rot_pred"])
+    e_trans = max_err(got["trans_pred"].cpu(), ref["trans_pred"])
+    print(f"n_inp {LARGE_EVAL_POINTS} Evaluator on {card}, {LARGE_EVAL_ROWS} rows: launches "
+          f"{dict((k, v) for k, v in counts.items() if v)}, vs the CPU rot_pred {e_rot:.3g} "
+          f"trans_pred {e_trans:.3g}", flush=True)
+    check(e_rot <= POSE_ATOL and e_trans <= POSE_ATOL, "n_inp 8192: card differs from CPU")
+    for k, v in launches.items():
+        if v:
+            entries[k]["large_n_launches"] = v
+
+
+def pipelined_eval_check(card, model, model_b, batches, bank, model_points) -> None:
+    """Phase 17(d): the eval path's sync-free rotation projection
+    (geometry/rotation.py::nearest_rotation) against the SVD's in f64; then
+    Evaluator pipelined against strict order (each batch's device-to-host
+    copy waited for as it is dispatched) on
+    PIPELINE_BATCHES batches, f32 and bf16: the per-row distances and the
+    summary torch.equal; batch i + 1 dispatched before batch i is fetched,
+    the last batch fetched after the loop; no host sync while a batch is
+    dispatched (torch.cuda.set_sync_debug_mode("error")); one device-to-host
+    copy a batch (torch.profiler's Memcpy DtoH); instances/s of both, with
+    no claim."""
+    import numpy as np
+    import torch
+
+    from dcl_net_tpu_torch.eval.evaluator import Evaluator
+
+    from dcl_net_tpu_torch.geometry.rotation import nearest_rotation
+
+    # the eval path's sync-free projection against torch.linalg.svd's, both
+    # in f64 on the card: the same matrices to f64 round-off, cast to f32
+    gen = torch.Generator().manual_seed(174)
+    m = torch.randn((BATCH * REPEAT, 3, 3), generator=gen, dtype=torch.float64).cuda()
+    m = m / m.norm(dim=1, keepdim=True)  # unit columns, as the 9D head gives them
+    u, _, vh = torch.linalg.svd(m)
+    det = torch.linalg.det(u @ vh)
+    want = (u * torch.stack([torch.ones_like(det), torch.ones_like(det), det], -1)[:, None]) @ vh
+    e_proj = max_err(nearest_rotation(m), want)
+    check(e_proj <= 1e-12, f"nearest_rotation differs from the SVD projection by {e_proj}")
+    run = batches[:PIPELINE_BATCHES]
+    rows = PIPELINE_BATCHES * BATCH
+    for name, m in (("f32", model), ("bf16", model_b)):
+        seen, rates = {}, {}
+        for pipe in (False, True):
+            ev = Evaluator(m, model_points, template_bank=bank)
+            ev.evaluate(run[:1])  # warm-up: the first calls' lazy set-up may sync
+            fetched, order = [], []
+            fetch, dispatch = ev._fetch, ev._dispatch
+
+            def counted_fetch(pending, fetch=fetch, fetched=fetched):
+                fetched.append(fetch(pending))
+                return fetched[-1]
+
+            def guarded_dispatch(batch, dispatch=dispatch, fetch=fetch, fetched=fetched,
+                                 order=order, strict=not pipe):
+                order.append(len(fetched))
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    pending = dispatch(batch)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                if strict:  # the reference: batch i done before batch i + 1 is queued
+                    fetch(pending)
+                return pending
+
+            ev._fetch, ev._dispatch = counted_fetch, guarded_dispatch
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                res = ev.evaluate(run)
+            copies = sum(1 for e in prof.events() if e.name.startswith("Memcpy DtoH"))
+            want = [0] + list(range(PIPELINE_BATCHES - 1))
+            check(order == want and len(fetched) == PIPELINE_BATCHES,
+                  f"{name} pipelined={pipe}: batches fetched before each dispatch {order}, "
+                  f"expected {want}; {len(fetched)} fetched")
+            check(copies == PIPELINE_BATCHES,
+                  f"{name} pipelined={pipe}: {copies} device-to-host copies for "
+                  f"{PIPELINE_BATCHES} batches")
+            ev._fetch = fetch
+            if pipe:
+                ev._dispatch = dispatch
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ev.evaluate(run)
+            rates[pipe] = rows / (time.perf_counter() - t0)
+            seen[pipe] = (np.concatenate([f["adds"] for f in fetched]), res)
+        (d0, r0), (d1, r1) = seen[False], seen[True]
+        check(np.array_equal(d0, d1), f"{name}: pipelined distances differ from strict order")
+        check(json.dumps(r0, sort_keys=True, default=str)
+              == json.dumps(r1, sort_keys=True, default=str),
+              f"{name}: pipelined summary differs from strict order")
+        print(f"pipelined Evaluator ({name}) on {card}: {PIPELINE_BATCHES} batches of {BATCH}, "
+              f"per-row distances torch.equal to strict order, one device-to-host copy a "
+              f"batch, no sync in a dispatch; instances/s strict {rates[False]:.1f}, "
+              f"pipelined {rates[True]:.1f} (no claim: one run each); the sync-free "
+              f"projection {e_proj:.3g} from the SVD's in f64", flush=True)
+
+
+def profiled_solver_check(card, cfg) -> None:
+    """Phase 17(e): a Solver epoch of PROFILE_STEPS steps at batch
+    PROFILE_BATCH with cfg.profile_dir: the trace of steps 2-4 holds CUDA
+    kernels of K1-K5 (PROFILE_KERNELS)."""
+    import tempfile
+
+    import torch
+
+    from dcl_net_tpu_torch.data.loader import BatchLoader
+    from dcl_net_tpu_torch.data.synthetic import SyntheticPoseDataset
+    from dcl_net_tpu_torch.models.dcl_net import DCLNet, dcl_losses
+    from dcl_net_tpu_torch.train.solver import Solver
+
+    mcfg = cfg.model
+    ds = SyntheticPoseDataset(
+        n_objects=N_CLASSES, n_points=int(mcfg.n_inp),
+        unit_voxel_extent=tuple(mcfg.unit_voxel_extent),
+        voxel_num_limit=tuple(int(d) for d in mcfg.voxel_num_limit),
+        length=PROFILE_BATCH * PROFILE_STEPS, seed=0)
+    loader = BatchLoader(ds, batch_size=PROFILE_BATCH, num_workers=2, seed=1)
+    with tempfile.TemporaryDirectory(prefix="dclx_profile_") as tmp:
+        solver = Solver(DCLNet.from_config(mcfg, seed=0), dcl_losses,
+                        cfg.merge({"per_write": 1, "per_save": 0, "profile_dir": tmp}),
+                        loader)
+        torch.backends.cudnn.benchmark = False  # Solver turned it on; the phase runs without
+        t0 = time.perf_counter()
+        solver.train_epoch()
+        seconds = time.perf_counter() - t0
+        loader.close()
+        path = Path(solver.profile_trace_path())
+        check(path.is_file(), f"no trace at {path}")
+        events = json.loads(path.read_text())["traceEvents"]
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    missing = [k for k, sub in PROFILE_KERNELS if not any(sub in nm for nm in kernels)]
+    check(not missing, f"the trace lacks {missing}; its kernels: {sorted(kernels)[:40]}")
+    check(solver.state.step == PROFILE_STEPS, f"{solver.state.step} steps")
+    print(f"profiled Solver on {card}: {PROFILE_STEPS} steps at batch {PROFILE_BATCH} in "
+          f"{seconds:.1f} s; the trace of steps 2-4 ({path.name}, {len(events)} events, "
+          f"{len(kernels)} kernel names) holds K1-K5 ({', '.join(s for _, s in PROFILE_KERNELS)})",
+          flush=True)
+
+
+def departures_phase(card, cfg, model, model_b, batches, bank, model_points,
+                     entries) -> None:
+    """Phase 17 (the module docstring), cuDNN autotuning off."""
+    import torch
+
+    t_phase = time.perf_counter()
+    benchmark = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False
+    grid_shape = tuple(int(d) for d in cfg.model.voxel_num_limit)
+    times = {}
+    try:
+        for part, fn in (
+                ("a", lambda: large_voxelize_check(card, grid_shape, entries)),
+                ("b", lambda: large_bwd_check(card, entries)),
+                ("c", lambda: large_model_check(card, cfg, entries)),
+                ("d", lambda: pipelined_eval_check(card, model, model_b, batches, bank,
+                                                   model_points)),
+                ("e", lambda: profiled_solver_check(card, cfg))):
+            t0 = time.perf_counter()
+            fn()
+            times[part] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.benchmark = benchmark
+    print("departures phase: " + " ".join(f"({k}) {v:.1f} s" for k, v in times.items())
+          + f"; phase {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -3858,6 +4280,13 @@ def main() -> int:
         rest_phase(card, cfg, batches, bank, model_points, {k: {} for k in KERNEL_ORDER})
         stop_child_processes()
         print("phase 16 alone: passed", flush=True)
+        return 0
+    if sys.argv[1:] == ["--phase", "17"]:
+        # a development run of phase 17 alone: no kernel line, no result line
+        departures_phase(card, cfg, model, model_b, batches, bank, model_points,
+                         {k: {} for k in KERNEL_ORDER})
+        stop_child_processes()
+        print("phase 17 alone: passed", flush=True)
         return 0
 
     # ---- 3. kernels vs plain versions at main-path shapes -------------------
@@ -4479,7 +4908,13 @@ def main() -> int:
     rest_phase(card, cfg, batches, bank, model_points, entries)
     stop_child_processes()
 
-    # ---- 17. result lines -----------------------------------------------------
+    # ---- 17. the last departures from the JAX package: any N and C, pipelining ----
+    torch.cuda.empty_cache()
+    departures_phase(card, cfg, model, DCLNet.from_config(mcfg, seed=0, dtype=torch.bfloat16),
+                     batches, bank, model_points, entries)
+    stop_child_processes()
+
+    # ---- 18. result lines -----------------------------------------------------
     print(json.dumps({"kernels": [entries[k] for k in KERNEL_ORDER]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

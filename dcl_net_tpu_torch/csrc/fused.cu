@@ -54,8 +54,10 @@
 // the four levels of one branch on the main path, where the grid is ~2 %
 // occupied), then g. Design: one entry point of two kernels, no [B, cap, C]
 // intermediate, no atomics, no zero fill by the caller:
-//  1. build_csr (inverse_index.cuh, shared with K4): per sample, the
-//     contributions grouped by slot in ascending e = k * N + t;
+//  1. the inverse index (inverse_index.cuh, shared with K4): per sample,
+//     the contributions grouped by slot in ascending e = k * N + t (one
+//     block a sample up to N = 2048, a counting sort over chunks of 6144
+//     entries beyond);
 //  2. compact_interp_grid_bwd: the grid of blocks is (cell tiles, B), as
 //     K5's. Two warps find the tile's slot range [s0, s1) by K5's search of
 //     the valid prefix (tile_fill::first_slot_at), the block stores zeros
@@ -94,7 +96,7 @@ namespace {
 
 using inverse_index::kWriterThreads;
 
-template <class T>
+template <class T, bool kSliced>
 __global__ void __launch_bounds__(kWriterThreads)
 compact_interp_grid_bwd(const T* __restrict__ g, const float* __restrict__ w,
                         const int* __restrict__ start, const int* __restrict__ ent,
@@ -119,7 +121,7 @@ compact_interp_grid_bwd(const T* __restrict__ g, const float* __restrict__ w,
   const int s0 = slot_range[0];
   const long long m = 3LL * n;
   const int* xyz = xyz_b + 3 * (long long)s0;
-  inverse_index::write_rows(
+  inverse_index::write_rows<kSliced>(
       stage, start + (long long)b * (cap + 1) + s0, slot_range[1] - s0, ent + b * m,
       w + b * m, g + (long long)b * n * c, n, c, [&](int r, int ch, float x) {
         const long long cell =
@@ -135,11 +137,13 @@ int compact_interp_bwd(const void* g, const void* w, const void* idx, const void
   if (b <= 0 || cells <= 0 || c <= 0) return (int)cudaGetLastError();
   int* start = static_cast<int*>(scratch);
   int* ent = start + (long long)b * (cap + 1);
-  const int err = inverse_index::launch_csr(static_cast<const int*>(idx), start, ent, b,
-                                            3 * n, cap, s);
+  const int err = inverse_index::launch_csr(static_cast<const int*>(idx), start, ent,
+                                            ent + 3LL * b * n, b, 3 * n, cap, s);
   if (err != (int)cudaSuccess) return err;
   const dim3 blocks((unsigned)((cells + tile - 1) / tile), (unsigned)b);
-  compact_interp_grid_bwd<T><<<blocks, kWriterThreads, 0, s>>>(
+  const auto kernel = c <= kWriterThreads ? compact_interp_grid_bwd<T, false>
+                                          : compact_interp_grid_bwd<T, true>;
+  kernel<<<blocks, kWriterThreads, 0, s>>>(
       static_cast<const T*>(g), static_cast<const float*>(w), start, ent,
       static_cast<const int*>(coords), static_cast<const float*>(vmask),
       static_cast<T*>(dgrid), n, cap, cells, c, d1, d2, tile);
@@ -190,8 +194,8 @@ extern "C" int dclx_compact_interp_bf16(const void* points, const void* coords,
 // g [B,N,C] f32, w [B,3,N] f32 and idx [B,3,N] i32 (each in [0, cap)) as K6
 // writes them; coords [B,cap,3] i32 and vmask [B,cap] f32 as K2 writes
 // them, under the precondition above; writes every float of dgrid [B,G,C]
-// f32 (no zero fill needed). scratch [B, cap + 1 + 3N] i32 for the CSR;
-// tile: cells per block.
+// f32 (no zero fill needed). scratch: the CSR, as dclx_inverse_index's
+// with V = cap (cuda_interp.index_scratch_words); tile: cells per block.
 extern "C" int dclx_compact_interp_bwd(const void* g, const void* w, const void* idx,
                                        const void* coords, const void* vmask, void* dgrid,
                                        void* scratch, int b, int n, int cap, int cells,

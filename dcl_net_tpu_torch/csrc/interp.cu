@@ -61,10 +61,13 @@
 // an order that changes from run to run, and need a zero fill first. So
 // the design gives every output row an owner, as K1 and K5 do, and sums
 // in a fixed order (inverse_index.cuh), in one entry point of two kernels:
-//  1. build_csr: per sample, the contributions grouped by row in ascending
-//     e = k * N + t (a block radix sort; B blocks);
+//  1. the inverse index: per sample, the contributions grouped by row in
+//     ascending e = k * N + t (a block radix sort, B blocks, up to N =
+//     2048; beyond, a stable counting sort over chunks of 6144 entries,
+//     inverse_index.cuh);
 //  2. interp_rows_bwd: the grid of blocks is (row tiles, B), 256 / C rows a
-//     block, one thread a (row, channel), which sums the row's
+//     block (one row, C in slices of 256, above C = 256), one thread a
+//     (row, channel), which sums the row's
 //     contributions in that order from 0.f (inverse_index::write_rows) and
 //     writes it once, zeros included. The rows' (t, w) go through shared
 //     memory, the g reads coalesce across channels, and each thread issues
@@ -99,7 +102,7 @@ namespace tl = three_nn_lanes;
 
 using inverse_index::kWriterThreads;
 
-template <class T>
+template <class T, bool kSliced>
 __global__ void __launch_bounds__(kWriterThreads)
 interp_rows_bwd(const T* __restrict__ g, const float* __restrict__ w,
                 const int* __restrict__ start, const int* __restrict__ ent,
@@ -109,11 +112,11 @@ interp_rows_bwd(const T* __restrict__ g, const float* __restrict__ w,
   const int r0 = blockIdx.x * rows;
   const long long m = 3LL * n;
   T* out = dfeats + ((long long)b * v + r0) * c;
-  inverse_index::write_rows(stage, start + (long long)b * (v + 1) + r0, min(rows, v - r0),
-                            ent + b * m, w + b * m, g + (long long)b * n * c, n, c,
-                            [&](int r, int ch, float x) {
-                              out[(long long)r * c + ch] = elem::from_float<T>(x);
-                            });
+  inverse_index::write_rows<kSliced>(
+      stage, start + (long long)b * (v + 1) + r0, min(rows, v - r0), ent + b * m, w + b * m,
+      g + (long long)b * n * c, n, c, [&](int r, int ch, float x) {
+        out[(long long)r * c + ch] = elem::from_float<T>(x);
+      });
 }
 
 template <class T>
@@ -122,13 +125,14 @@ int interp_bwd(const void* g, const void* w, const void* idx, void* dfeats, void
   if (b <= 0 || v <= 0 || c <= 0) return (int)cudaGetLastError();
   int* start = static_cast<int*>(scratch);
   int* ent = start + (long long)b * (v + 1);
-  const int err = inverse_index::launch_csr(static_cast<const int*>(idx), start, ent, b,
-                                            3 * n, v, s);
+  const int err = inverse_index::launch_csr(static_cast<const int*>(idx), start, ent,
+                                            ent + 3LL * b * n, b, 3 * n, v, s);
   if (err != (int)cudaSuccess) return err;
   const dim3 blocks((unsigned)((v + rows - 1) / rows), (unsigned)b);
-  interp_rows_bwd<T><<<blocks, kWriterThreads, 0, s>>>(
-      static_cast<const T*>(g), static_cast<const float*>(w), start, ent,
-      static_cast<T*>(dfeats), n, v, c, rows);
+  const auto kernel = c <= kWriterThreads ? interp_rows_bwd<T, false> : interp_rows_bwd<T, true>;
+  kernel<<<blocks, kWriterThreads, 0, s>>>(static_cast<const T*>(g),
+                                           static_cast<const float*>(w), start, ent,
+                                           static_cast<T*>(dfeats), n, v, c, rows);
   return (int)cudaGetLastError();
 }
 
@@ -163,13 +167,16 @@ extern "C" int dclx_interp_bf16(const void* points, const void* centers, const v
                     queries, static_cast<cudaStream_t>(stream));
 }
 
-// idx [B,3,N] i32 (each in [0, V)); scratch [B, V + 1 + 3N] i32: the CSR
-// of the contributions by slot (start, then ent), written here.
+// idx [B,3,N] i32 (each in [0, V)); scratch: the CSR of the contributions
+// by slot (start [B, V + 1], then ent [B, 3N]), written here, then for
+// N > 2048 the chunks' counts [B, V + 1, chunks] (cuda_interp.
+// index_scratch_words).
 extern "C" int dclx_inverse_index(const void* idx, void* scratch, int b, int n, int v,
                                   void* stream) {
   int* start = static_cast<int*>(scratch);
-  return inverse_index::launch_csr(static_cast<const int*>(idx), start,
-                                   start + (long long)b * (v + 1), b, 3 * n, v,
+  int* ent = start + (long long)b * (v + 1);
+  return inverse_index::launch_csr(static_cast<const int*>(idx), start, ent,
+                                   ent + 3LL * b * n, b, 3 * n, v,
                                    static_cast<cudaStream_t>(stream));
 }
 

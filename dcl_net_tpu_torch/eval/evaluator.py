@@ -9,6 +9,13 @@ is numpy. A lost detection scores an infinite distance under adds_auc
 (YCB-V); under add_0.1d it is skipped (LineMOD) or, with count_lost,
 counted in its class's denominator (Occlusion-LineMOD).
 
+evaluate pipelines the dispatch one batch deep, as the JAX Evaluator does
+(dcl_net_tpu/eval/evaluator.py:212-290): batch i + 1 is copied to the card
+from pinned memory without a host wait and its forward dispatched before
+batch i's [B]-sized results come back, in one device-to-host copy that was
+queued behind batch i's work, and are scored. Every row is scored once, in
+loader order.
+
 Data parallelism (group, parallel/mesh.py): each rank scores its block of
 every global batch (the loaders' process striding), then the ranks gather
 the ragged distances and class ids and sum the per-class lost counts,
@@ -32,11 +39,6 @@ from dcl_net_tpu_torch.models.refiner import refine_pose
 from dcl_net_tpu_torch.parallel.mesh import active, all_reduce_sum, allgather_host
 
 PROTOCOLS = ("adds_auc", "add_0.1d")
-
-
-def _host(x) -> np.ndarray:
-    """A host array of a batch entry: numpy as it is, a tensor copied back."""
-    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
 class Evaluator:
@@ -135,30 +137,71 @@ class Evaluator:
         """The pose that is scored: stage 1's."""
         return out["rot_pred"], out["trans_pred"]
 
+    # The rows of the block that _dispatch copies back for each batch.
+    _ROWS = ("adds", "add", "overflow", "valid", "obj_idx", "sym_flag", "pad")
+
+    def _dispatch(self, batch: Dict[str, Any]):
+        """Copy a batch to the device (from pinned memory, without a host
+        wait), queue its forward and queue the copy of its [B]-sized results
+        and flags (_ROWS) to the host as one f32 block behind it. Returns
+        (host block, event recorded after the copy or None), which _fetch
+        reads: nothing here waits for the device."""
+        tb = batch_to_torch(batch, self.device, non_blocking=True)
+        res = self._run(tb)
+        zeros = torch.zeros_like(tb["valid"])
+        rows = {"adds": res["adds"], "add": res.get("add", res["adds"]),
+                "overflow": res["overflow"], "valid": tb["valid"],
+                "obj_idx": tb["labels"]["obj_idx"], "sym_flag": tb["sym_flag"],
+                "pad": tb.get("pad", zeros)}
+        # f32 holds each row exactly: distances are f32, flags 0 / 1, class ids < 2^24
+        block = torch.stack([rows[k].reshape(-1).to(torch.float32) for k in self._ROWS])
+        if block.device.type != "cuda":
+            return block, None
+        host = torch.empty(block.shape, dtype=block.dtype, pin_memory=True)
+        host.copy_(block, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return host, done
+
+    @classmethod
+    def _fetch(cls, pending) -> Dict[str, np.ndarray]:
+        """Wait for a _dispatch's copy and split its block into _ROWS."""
+        host, done = pending
+        if done is not None:
+            done.synchronize()
+        return dict(zip(cls._ROWS, host.numpy()))
+
     def evaluate(self, loader: Iterable[Dict[str, Any]]) -> Dict[str, object]:
         """One pass over batches (make_batch(...).to_dict(), or the
         DeviceBatch of device preprocessing); returns
         the protocol's report plus n_overflow, n_scored (the distances
-        aggregated) and n_lost (the lost detections among the real rows)."""
+        aggregated) and n_lost (the lost detections among the real rows).
+        Batch i + 1 is dispatched before batch i is fetched and scored; the
+        last batch is scored after the loop."""
         distances: List[float] = []
         class_ids: List[int] = []
         lost_per_class: Dict[int, int] = {}
         n_overflow = 0
         n_lost = 0
-        for batch in loader:
-            res = self._run(batch_to_torch(batch, self.device))
-            adds = res["adds"].cpu().numpy()
-            add = res["add"].cpu().numpy() if "add" in res else adds
-            ovf = res["overflow"].cpu().numpy()
-            # the flags of a host batch, or of a device-preprocessed one
-            valid = _host(batch["valid"])
-            pad = _host(batch["pad"]) if "pad" in batch else np.zeros_like(valid)
-            cls = _host(batch["labels"]["obj_idx"]).astype(np.int64)
-            sym = _host(batch["sym_flag"])
+
+        def consume(pending) -> None:
+            nonlocal n_overflow, n_lost
+            r = self._fetch(pending)
+            valid, pad = r["valid"], r["pad"]
+            ovf = r["overflow"] > 0
             n_overflow += int((ovf & (valid > 0) & ~(pad > 0)).sum())
             n_lost += int(((valid <= 0) & ~(pad > 0)).sum())
-            self._score_batch(adds, add, valid, cls, sym, pad,
-                              distances, class_ids, lost_per_class)
+            self._score_batch(r["adds"], r["add"], valid, r["obj_idx"].astype(np.int64),
+                              r["sym_flag"], pad, distances, class_ids, lost_per_class)
+
+        pending = None
+        for batch in loader:
+            nxt = self._dispatch(batch)
+            if pending is not None:
+                consume(pending)
+            pending = nxt
+        if pending is not None:
+            consume(pending)
         if self.group is not None:
             distances, class_ids, lost_per_class, n_overflow, n_lost = self._gather(
                 distances, class_ids, lost_per_class, n_overflow, n_lost)

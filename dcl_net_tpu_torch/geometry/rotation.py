@@ -29,18 +29,75 @@ def normalize_vector(v: torch.Tensor, eps: float = _EPS) -> torch.Tensor:
     return v / torch.clamp(mag, min=eps)
 
 
+_JACOBI_SWEEPS = 6  # cyclic sweeps of nearest_rotation: f64 round-off after 4 on a 3x3
+_JACOBI_PAIRS = ((0, 1), (0, 2), (1, 2))
+
+
+def _plane_rotations(c: torch.Tensor, s: torch.Tensor, p: int, q: int) -> torch.Tensor:
+    """[B, 3, 3] rotations in the (p, q) plane: J[p, p] = J[q, q] = c,
+    J[p, q] = s, J[q, p] = -s, the identity elsewhere."""
+    one, zero = torch.ones_like(c), torch.zeros_like(c)
+    rows = [[one, zero, zero], [zero, one, zero], [zero, zero, one]]
+    rows[p][p], rows[q][q], rows[p][q], rows[q][p] = c, c, s, -s
+    return torch.stack([torch.stack(r, -1) for r in rows], -2)
+
+
+def nearest_rotation(m: torch.Tensor) -> torch.Tensor:
+    """U diag(1, 1, det(U V^T)) V^T for [B, 3, 3] matrices M = U S V^T, in
+    f64 and without a host sync: torch.linalg.svd reads its convergence
+    flags back on the host, which stalls the dispatch of the next batch
+    (eval/evaluator.py pipelines it). V comes from cyclic Jacobi rotations
+    of M^T M (_JACOBI_SWEEPS sweeps, each pair zeroed by the angle
+    0.5 atan2(2 a_pq, a_qq - a_pp)), its columns sorted by eigenvalue;
+    u1 = M v1 normalised, u2 = M v2 less its u1 part, normalised (any unit
+    vector normal to u1 where M has rank 1). Then the result is
+    u1 v1^T + u2 v2^T + (u1 x u2)(v1 x v2)^T: the det fix of the SVD form,
+    whatever the signs of U's and V's third columns. Returns M's type."""
+    a = m.to(torch.float64)
+    gram = a.transpose(-1, -2) @ a
+    v = torch.eye(3, dtype=a.dtype, device=a.device).expand(a.shape[0], 3, 3)
+    for _ in range(_JACOBI_SWEEPS):
+        for p, q in _JACOBI_PAIRS:
+            theta = 0.5 * torch.atan2(2.0 * gram[:, p, q], gram[:, q, q] - gram[:, p, p])
+            j = _plane_rotations(torch.cos(theta), torch.sin(theta), p, q)
+            gram = j.transpose(-1, -2) @ gram @ j
+            v = v @ j
+    order = torch.argsort(torch.diagonal(gram, dim1=-2, dim2=-1), dim=-1, descending=True)
+    v = torch.gather(v, 2, order[:, None, :].expand(-1, 3, -1))
+    v1, v2 = v[..., 0], v[..., 1]
+    u1 = normalize_vector((a @ v1[..., None])[..., 0], eps=1e-300)
+    w = (a @ v2[..., None])[..., 0]
+    w = w - (w * u1).sum(-1, keepdim=True) * u1
+    # rank 1: the axis least aligned with u1, crossed with it
+    axis = torch.nn.functional.one_hot(u1.abs().argmin(-1), 3).to(a.dtype)
+    fallback = torch.linalg.cross(u1, axis, dim=-1)
+    small = torch.linalg.norm(w, dim=-1, keepdim=True) <= 1e-12
+    u2 = normalize_vector(torch.where(small, fallback, w), eps=1e-300)
+    u = torch.stack([u1, u2, torch.linalg.cross(u1, u2, dim=-1)], -1)
+    v = torch.stack([v1, v2, torch.linalg.cross(v1, v2, dim=-1)], -1)
+    return (u @ v.transpose(-1, -2)).to(m.dtype)
+
+
 def ortho9d_to_matrix(x_raw: torch.Tensor, y_raw: torch.Tensor,
                       z_raw: torch.Tensor) -> torch.Tensor:
     """9D -> SO(3): normalise the three [B, 3] vectors, stack them as the
     columns of M and project to U diag(1, 1, det(U V^T)) V^T. Returns
-    [B, 3, 3] rotations with det +1."""
+    [B, 3, 3] rotations with det +1.
+
+    On a CUDA device, where no gradient is taken (evaluation, serving), the
+    projection is nearest_rotation, which queues no host sync; otherwise it
+    is torch.linalg.svd, whose backward training takes. The two agree to
+    f32 round-off."""
     m = torch.stack([normalize_vector(x_raw), normalize_vector(y_raw),
                      normalize_vector(z_raw)], dim=-1)
     m = m.to(torch.promote_types(m.dtype, torch.float32))
-    u, _, vh = torch.linalg.svd(m)
-    det = torch.linalg.det(u @ vh)
-    sigma = torch.stack([torch.ones_like(det), torch.ones_like(det), det], -1)
-    r = (u * sigma[:, None, :]) @ vh
+    if m.is_cuda and not (torch.is_grad_enabled() and m.requires_grad):
+        r = nearest_rotation(m)
+    else:
+        u, _, vh = torch.linalg.svd(m)
+        det = torch.linalg.det(u @ vh)
+        sigma = torch.stack([torch.ones_like(det), torch.ones_like(det), det], -1)
+        r = (u * sigma[:, None, :]) @ vh
     eye = torch.eye(3, dtype=r.dtype, device=r.device)
     for _ in range(2):
         r = 0.5 * (r @ (3.0 * eye - r.transpose(-1, -2) @ r))

@@ -38,8 +38,8 @@ _F = ctypes.c_float
 # A "_bf16" entry point is its kernel's bf16 variant, with the same
 # arguments.
 SIGNATURES = {
-    "dclx_voxelize": [_P] * 5 + [_I] * 9 + [_P],
-    "dclx_voxelize_bf16": [_P] * 5 + [_I] * 9 + [_P],
+    "dclx_voxelize": [_P] * 5 + [_I] * 11 + [_P],
+    "dclx_voxelize_bf16": [_P] * 5 + [_I] * 11 + [_P],
     "dclx_compact": [_P] * 6 + [_I] * 7 + [_P],
     "dclx_compact_bf16": [_P] * 6 + [_I] * 7 + [_P],
     "dclx_interp": [_P] * 8 + [_I] * 6 + [_P],

@@ -11,7 +11,10 @@ there is no fallback.
 K4 and the fused path's backward K7 (ops/cuda_fused.py) share the inverse
 index: each sample's 3N contributions e = k * N + t grouped by slot, in
 ascending e, so that every output row is the sum of its contributions in
-the plain version's order (`inverse_index_reference`).
+the plain version's order (`inverse_index_reference`). One block sorts a
+sample up to N = 2048; beyond, a counting sort over chunks of
+INDEX_CHUNK_ENTRIES entries does (`index_plan`). The writers take C in
+slices of WRITER_THREADS channels, so neither N nor C is bounded.
 
 bf16 features (model.compute_dtype: bfloat16) go through K3's bf16
 variant: points, centers, mask, distances, w and idx stay f32 (idx and w
@@ -48,23 +51,51 @@ QUERIES = 128
 LANE_CHOICES = (2, 4, 8)
 QUERY_CHOICES = (32, 64, 128)
 
-# The inverse index sorts a sample's 3N entries in one block: N <= MAX_POINTS.
-MAX_POINTS = 2048
+# The entries one block of the inverse index sorts (csrc/inverse_index.cuh:
+# kChunkEntries, 1024 threads of 6): a whole sample up to N = MAX_POINTS,
+# a chunk of a larger one.
+SORT_THREADS = 1024
+INDEX_CHUNK_ENTRIES = SORT_THREADS * 6
+MAX_POINTS = INDEX_CHUNK_ENTRIES // 3  # one block a sample up to here
 # The writers of K4 and K7 (csrc/inverse_index.cuh: kWriterThreads): one
-# thread a (row, channel), WRITER_THREADS a block, so C <= WRITER_THREADS.
+# thread a (row, channel), WRITER_THREADS a block; a wider C goes
+# WRITER_THREADS channels at a time.
 WRITER_THREADS = 256
+# The shared memory of the writer's staged CSR chunk (inverse_index.cuh:
+# Stage, 1024 positions of an int and a float).
+WRITER_SMEM = 1024 * 8
 
 
 def writer_rows(c: int) -> int:
     """Rows a K4 or K7 writer block sums at once, and K4's rows per block:
-    WRITER_THREADS // c (8 at C = 32, 1 at 256)."""
+    WRITER_THREADS // c (8 at C = 32, 1 at 256 and above)."""
     return max(1, WRITER_THREADS // c)
+
+
+def index_chunks(n: int) -> int:
+    """Chunks of the counting sort for 3n entries a sample; 0 where one block
+    sorts the sample (N <= MAX_POINTS)."""
+    m = 3 * n
+    return 0 if m <= INDEX_CHUNK_ENTRIES else -(-m // INDEX_CHUNK_ENTRIES)
 
 
 def index_scratch_words(b: int, n: int, v: int) -> int:
     """int32 words of the inverse index of b samples of 3n entries over v
-    slots: start [b, v + 1], then ent [b, 3n]."""
-    return b * (v + 1 + 3 * n)
+    slots: start [b, v + 1], then ent [b, 3n], then, for N > MAX_POINTS, the
+    chunks' counts [b, v + 1, index_chunks(n)]."""
+    return b * (v + 1 + 3 * n + (v + 1) * index_chunks(n))
+
+
+def index_plan(b: int, n: int, v: int):
+    """The inverse index's kernels for b samples of 3n entries over v slots,
+    as csrc/inverse_index.cuh launches them: [(kernel, (grid x, grid y),
+    threads)]. Each block holds at most the 48 KB of static shared memory
+    that nvcc allows."""
+    k = index_chunks(n)
+    if k == 0:
+        return [("build_csr", (b, 1), SORT_THREADS)]
+    return [("chunk_counts", (k, b), SORT_THREADS), ("scan_counts", (b, 1), SORT_THREADS),
+            ("place_chunk", (k, b), SORT_THREADS)]
 
 
 def nn_interpolate_reference(
@@ -233,10 +264,6 @@ def check_bwd_inputs(name: str, g: torch.Tensor, w: torch.Tensor,
         lambda: f"w must be f32 [{b}, 3, {n}]")
     req(idx.dtype == torch.int32 and tuple(idx.shape) == (b, 3, n), name,
         lambda: f"idx must be int32 [{b}, 3, {n}]")
-    req(n <= MAX_POINTS, name,
-        lambda: f"{n} points per sample: the inverse index takes at most {MAX_POINTS}")
-    req(c <= WRITER_THREADS, name,
-        lambda: f"{c} channels: the writer takes at most {WRITER_THREADS}")
     req(b <= 65535, name, lambda: f"batch {b} above 65535 (the kernel's grid y)")
     for t in (g, w, idx):
         req(t.device == g.device, name, "inputs on different devices")
@@ -258,15 +285,15 @@ def inverse_index_cuda(idx: torch.Tensor, v: int) -> Tuple[torch.Tensor, torch.T
         lambda: f"idx must be int32 [B, 3, N], got {idx.dtype} {tuple(idx.shape)}")
     req(idx.is_contiguous(), name, "idx must be contiguous")
     b, _, n = idx.shape
-    req(n <= MAX_POINTS, name,
-        lambda: f"{n} points per sample: the inverse index takes at most {MAX_POINTS}")
+    req(b <= 65535, name, lambda: f"batch {b} above 65535 (the kernel's grid y)")
     req(v > 0, name, "no slots")
     scratch = torch.empty(index_scratch_words(b, n, v), dtype=torch.int32, device=idx.device)
     cuda_build.launch("dclx_inverse_index", name, idx.device,
                       idx.data_ptr(), scratch.data_ptr(), b, n, v)
     index_launches += 1
     split = b * (v + 1)
-    return scratch[:split].view(b, v + 1), scratch[split:].view(b, 3 * n)
+    return (scratch[:split].view(b, v + 1),
+            scratch[split:split + b * 3 * n].view(b, 3 * n))
 
 
 def nn_interpolate_bwd_cuda(g: torch.Tensor, w: torch.Tensor,

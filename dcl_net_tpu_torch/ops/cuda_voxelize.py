@@ -9,7 +9,10 @@ The kernel is one launch in which each block owns TILE contiguous cells of
 one sample and writes them whole, zeros included; it sums each cell's
 points in point order and divides as the plain version does, so the two
 are bit-equal. Each block keeps the list of its tile's points in shared
-memory, which bounds N (`list_smem_bytes`).
+memory. Where that list does not fit (N above about 6,200 at C = 7), the
+rounds kernel takes the points in rounds and carries each cell's sum and
+count across them in shared memory, with the same result; `plan` picks
+the kernel, the tile and the round's length, for any N and C.
 
 With out_dtype bfloat16 (model.compute_dtype: bfloat16) the kernel's bf16
 variant writes a bf16 grid with the semantics of the JAX package's
@@ -24,7 +27,7 @@ cotangent, in stock torch, as the JAX package takes it with XLA.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -43,20 +46,46 @@ TILE = 2048  # grid cells per block: 56 KB of grid and 8 KB of counts at C = 7
 # Shared memory a block may take on an H100 (232,448 bytes), less 1 KB for
 # the kernel's static shared memory.
 SMEM_LIMIT = 232448 - 1024
+THREADS = 1024  # a block of either kernel (csrc/voxelize.cu: kThreads)
+# The rounds kernel's channels a slice (csrc/voxelize.cu: cw), at most.
+ROUND_CHANNELS = 256
+
+
+class Plan(NamedTuple):
+    """K1's launch for N points of C features: the kernel (round_len 0: the
+    list kernel; else the rounds kernel, round_len list entries a round and
+    cw channels a slice), its cells per block and its dynamic shared
+    memory in bytes."""
+    tile: int
+    smem: int
+    cw: int
+    round_len: int
 
 
 def list_smem_bytes(n: int, c: int) -> int:
-    """Dynamic shared memory of one block for N points of C features per
-    sample: the in-tile list (a cell, a link and C features for each of at
-    most N points) and each of the TILE cells' chain tail, 4 bytes a word.
-    Raises where it exceeds SMEM_LIMIT."""
-    nbytes = 4 * (n * (2 + c) + TILE)
-    cuda_build.require(
-        nbytes <= SMEM_LIMIT, "voxelize_cuda",
-        lambda: f"N = {n} points of C = {c} features need {nbytes} bytes of shared "
-        f"memory for the in-tile list, above the {SMEM_LIMIT} a block may use "
-        f"(at most {(SMEM_LIMIT - 4 * TILE) // (4 * (2 + c))} points)")
-    return nbytes
+    """Dynamic shared memory of the list kernel's block for N points of C
+    features per sample: the in-tile list (a cell, a link and C features for
+    each of at most N points) and each of the TILE cells' chain tail, 4
+    bytes a word."""
+    return 4 * (n * (2 + c) + TILE)
+
+
+def plan(n: int, c: int) -> Plan:
+    """K1's launch for N points of C features (see Plan). The list kernel
+    where its list fits SMEM_LIMIT (the configs' N = 1024 at C = 7); else
+    the rounds kernel: channels in slices of cw = min(C, ROUND_CHANNELS),
+    TILE cells a block halved until the carried sums and counts ([tile, cw
+    + 2] words) take at most half of SMEM_LIMIT, and as long a round as the
+    rest holds (2 + cw words an entry), at most N."""
+    if list_smem_bytes(n, c) <= SMEM_LIMIT:
+        return Plan(TILE, list_smem_bytes(n, c), c, 0)
+    cw = min(c, ROUND_CHANNELS)
+    tile = TILE
+    while tile > 1 and 4 * tile * (cw + 2) > SMEM_LIMIT // 2:
+        tile //= 2
+    carried = 4 * tile * (cw + 2)
+    round_len = max(1, min(n, (SMEM_LIMIT - carried) // (4 * (2 + cw))))
+    return Plan(tile, carried + 4 * round_len * (2 + cw), cw, round_len)
 
 
 def voxelize_cuda(
@@ -99,7 +128,7 @@ def voxelize_kernel(
     (the bf16 variant). Points outside the grid are dropped. Each cell sums
     its points in point order, then divides by max(count, 1): bit-equal to
     the plain version. One kernel launch writes both outputs whole (they
-    are allocated empty); N is bounded by `list_smem_bytes`."""
+    are allocated empty); `plan` picks the kernel for N and C."""
     global launches, launches_bf16
     name = "voxelize_cuda"
     req = cuda_build.require
@@ -123,7 +152,7 @@ def voxelize_kernel(
         req(t.device == feats.device, name, "inputs on different devices")
         req(t.is_contiguous(), name, "inputs must be contiguous")
     req(b <= 65535, name, lambda: f"batch {b} above 65535 (the kernel's grid y)")
-    smem = list_smem_bytes(n, c)
+    p = plan(n, c)
     d0, d1, d2 = (int(d) for d in grid_size)
     grid = torch.empty((b, d0, d1, d2, c),
                        dtype=torch.bfloat16 if bf16 else torch.float32,
@@ -135,7 +164,7 @@ def voxelize_kernel(
         feats.data_ptr(), voxel_idx.data_ptr(),
         None if point_mask is None else point_mask.data_ptr(),
         grid.data_ptr(), count.data_ptr(), b, n, c, d0, d1, d2,
-        int(mode == MODE_MEAN), TILE, smem)
+        int(mode == MODE_MEAN), p.tile, p.smem, p.cw, p.round_len)
     if bf16:
         launches_bf16 += 1
     else:

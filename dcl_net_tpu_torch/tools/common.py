@@ -11,7 +11,9 @@ the data-parallel launch (run_tool).
 Data parallelism (parallel/mesh.py), one process per device:
 - `--n_devices N` starts N local ranks (spawned processes, rank r on
   cuda:r, or on the CPU with --device cpu), which meet through a file://
-  rendezvous in a temporary directory; fewer than N visible GPUs raises;
+  rendezvous in a temporary directory; fewer than N visible GPUs raises.
+  Without the flag, the config's parallel.n_devices (default 1) is N, as
+  the JAX tools' build_mesh reads it;
 - `--coordinator host:port --num_hosts H --host_id h` joins a world of H
   hosts: with --n_devices N each host starts its N local ranks into a
   world of H*N (ranks h*N + r), without it this process is the host's one
@@ -75,8 +77,20 @@ def _rank_main(local_rank: int, main: Callable, argv, world: int, first_rank: in
             pickle.dump(result, f)
 
 
+def local_rank_count(args) -> int:
+    """This host's ranks: --n_devices, else the config's parallel.n_devices
+    (with the --override's applied), else 1."""
+    if args.n_devices is not None:
+        return int(args.n_devices)
+    cfg = Config.fromfile(args.config)
+    if args.override:
+        cfg = cfg.apply_overrides(args.override)
+    return int(cfg.get("parallel", Config()).get("n_devices", 1))
+
+
 def launch_local_ranks(args, main: Callable, argv):
-    """With --n_devices N > 1, in a process that is not a rank already:
+    """With N = local_rank_count(args) > 1 (--n_devices, or the config's
+    parallel.n_devices), in a process that is not a rank already:
     start this host's N ranks, each running main(argv), and return
     (True, local rank 0's return value) once all have ended; a rank that
     fails ends the others and raises here. Otherwise (False, None).
@@ -90,11 +104,14 @@ def launch_local_ranks(args, main: Callable, argv):
     from dcl_net_tpu_torch import resolve_device
     from dcl_net_tpu_torch.parallel.mesh import env_rank, init_method
 
-    n = args.n_devices or 1
-    if n <= 1 or env_rank() is not None:
+    if env_rank() is not None:
+        return False, None
+    n = local_rank_count(args)
+    if n <= 1:
         return False, None
     if resolve_device(args.device).type == "cuda" and torch.cuda.device_count() < n:
-        raise ValueError(f"--n_devices {n}: only {torch.cuda.device_count()} GPUs are "
+        where = "--n_devices" if args.n_devices is not None else "parallel.n_devices"
+        raise ValueError(f"{where} {n}: only {torch.cuda.device_count()} GPUs are "
                          "visible (one rank a GPU)")
     if args.coordinator and (args.num_hosts is None or args.host_id is None):
         raise ValueError("--coordinator needs --num_hosts and --host_id")

@@ -23,7 +23,9 @@ the replicas stay equal.
 
 from __future__ import annotations
 
+import os
 import time
+import warnings
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
@@ -353,9 +355,13 @@ class Solver:
     step all-reduces the gradient, the metrics are global, and rank 0 alone
     logs and writes scalars and checkpoints.
 
-    Metrics are fetched one step late: step k+1 is queued on the device
-    before step k's scalars are read, so the read does not leave the card
-    idle."""
+    Metrics are fetched one step late (cfg.pipeline_metrics, default on):
+    step k+1 is queued on the device before step k's scalars are read, so
+    the read does not leave the card idle; off, each step's scalars are
+    read at once. cfg.profile_dir (or $DCLX_PROFILE_DIR) traces steps 2-4
+    of the first epoch with torch.profiler, CPU and CUDA activities, into a
+    Chrome trace in that directory (`profile_trace_path`), as the JAX
+    Solver traces them with jax.profiler."""
 
     def __init__(self, model, loss_fn, cfg: Config, loader, logger=None,
                  checkpoint_dir: Optional[str] = None, writer=None,
@@ -482,10 +488,50 @@ class Solver:
         if consumed and hasattr(self.loader, "skip_next"):
             self.loader.skip_next = consumed
 
+    def profile_trace_path(self) -> Optional[str]:
+        """The trace file of cfg.profile_dir (else $DCLX_PROFILE_DIR), one a
+        rank, or None where neither is set."""
+        profile_dir = self.cfg.get("profile_dir") or os.environ.get("DCLX_PROFILE_DIR")
+        if not profile_dir:
+            return None
+        rank = 0 if self.group is None else self.group.rank
+        return os.path.join(str(profile_dir), f"trace_epoch0_steps2-4_rank{rank}.json")
+
+    def _start_profile(self):
+        """A started torch.profiler.profile of CPU and, on a CUDA device, CUDA
+        activity; a profiler that fails to start is reported (the logger and
+        a warning) and the epoch runs on without it. Returns it or None."""
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=activities)
+        try:
+            prof.start()
+        except Exception as e:  # noqa: BLE001 - reported below
+            msg = f"profile_dir: torch.profiler did not start ({type(e).__name__}: {e})"
+            if self.logger:
+                self.logger.warning(msg)
+            warnings.warn(msg, RuntimeWarning, stacklevel=2)
+            return None
+        return prof
+
+    def _stop_profile(self, prof, path: str) -> None:
+        """Stop the profiler once the traced steps ran and write its trace."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)  # the traced steps' kernels end in it
+        prof.stop()
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        prof.export_chrome_trace(path)
+        if self.logger:
+            self.logger.info(f"profile of steps 2-4: {path}")
+
     def train_epoch(self) -> Dict[str, float]:
         per_write = int(self.cfg.get("per_write", 10))
         buffer: Dict[str, list] = {}
         pending = None  # (device metrics, T_data, step, loader index)
+        pipeline = bool(self.cfg.get("pipeline_metrics", True))
+        trace = self.profile_trace_path() if self.epoch == 0 else None
+        prof = None
 
         def consume(pend, t_start, t_excl=0.0):
             pmetrics, pdata, pstep, pi = pend
@@ -520,10 +566,15 @@ class Solver:
         offset = getattr(self.loader, "skip_next", 0)  # mid-epoch resume
         for i0, host_batch in enumerate(self.loader):
             i = i0 + offset
+            if trace and i == 2:
+                prof = self._start_profile()
+            if prof is not None and i == 5:
+                self._stop_profile(prof, trace)
+                prof = None
             t_data = time.time() - end
             batch = batch_to_torch(host_batch, self.device, non_blocking=True)
             metrics = self.train_step(self.state, batch)
-            if not self.save_due(i):
+            if pipeline and not self.save_due(i):
                 if pending is not None:
                     consume(pending, end, t_excl=t_data)
                 pending = (metrics, t_data, self.state.step, i)
@@ -540,4 +591,6 @@ class Solver:
             end = time.time()
         if pending is not None:
             consume(pending, end)
+        if prof is not None:  # an epoch of fewer than 6 steps
+            self._stop_profile(prof, trace)
         return {k: float(np.mean(v)) for k, v in buffer.items()}

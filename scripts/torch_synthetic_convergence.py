@@ -25,12 +25,20 @@ with the loader's wait, the rate, the evaluations and the trained model's
 bf16 drift added. The drift is the rotation (degrees) and translation (mm)
 between the bf16 model's poses and those of an f32 copy of its weights, on
 the held-out rows. It then prints each bar as passed or failed, and exits 1
-if one failed. The JAX script's --cad-dir arm (the YCB-V CAD clouds) is left
-out.
+if one failed.
+
+--seed seeds the weights (stage 1 and the refiner) and the loader's shuffle
+only. The datasets stay at seed 0, as in the JAX script (a sample's draws
+are keyed by its index), so the training rows, the held-out split and the
+identity baseline are those of every seed. --cad-dir trains and scores on
+the *_pc.ply clouds of a directory (e.g. the 21 YCB-V objects) in place of
+the procedural shapes, as the JAX script's option does; --classes 0 then
+takes every cloud found.
 
 Usage, from the root of a checkout, on a machine with a CUDA device:
   python3 scripts/torch_synthetic_convergence.py           # the acceptance
   python3 scripts/torch_synthetic_convergence.py --bank    # banked-template arm
+  python3 scripts/torch_synthetic_convergence.py --seed 1  # another draw of the weights
   python3 scripts/torch_synthetic_convergence.py --save <dir>
       # also writes <dir>/stage1/epoch_<steps>/ and <dir>/stage2/epoch_<steps>/
       # (weights only); scripts/bf16_fullwidth_drift.py --weights
@@ -71,6 +79,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                     "one batch; the held-out rows stay the independent split")
     ap.add_argument("--auc-bar", type=float, default=90.0)
     ap.add_argument("--classes", type=int, default=8)
+    ap.add_argument("--cad-dir", default=None,
+                    help="directory of CAD clouds (*_pc.ply, e.g. the 21 YCB-V objects) "
+                    "to train and score on in place of the procedural shapes; "
+                    "--classes 0 takes every cloud found")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the weights and of the loader's shuffle; the datasets "
+                    "stay at seed 0")
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--protocol", default="adds_auc", choices=["adds_auc", "add_0.1d"],
                     help="ADD-S AUC (YCB-V) or the ADD(-S) < 0.1 d success rate "
@@ -160,31 +175,30 @@ def pose_drift(model_a, model_b, eval_batches, device) -> dict:
             "trans_mm_max": float(mm.max()), "trans_mm_p95": float(np.percentile(mm, 95))}
 
 
-def run(args: argparse.Namespace, grid_side: int = 64, n_points: int = 1024,
-        log=print) -> dict:
-    """The acceptance at a grid of grid_side^3 cells (the volume of the
-    64^3 grid at 6 mm) and n_points points a branch. Returns the result."""
+def build(args: argparse.Namespace, grid_side: int = 64, n_points: int = 1024):
+    """The run's data and stage-1 model at a grid of grid_side^3 cells (the
+    volume of the 64^3 grid at 6 mm) and n_points points a branch: a
+    namespace of dev, grid, unit, n_classes, spf, train_ds, heldout_ds, the
+    loader (shuffled by --seed), the model (weights from --seed),
+    model_points and the held-out eval_batches (the datasets' seed 0 for
+    every --seed)."""
+    import types
+
     import numpy as np
     import torch
 
-    from dcl_net_tpu_torch import autotune_convs, resolve_device
-    from dcl_net_tpu_torch.config import Config
-    from dcl_net_tpu_torch.data import SyntheticPoseDataset, batch_to_torch, make_batch
+    from dcl_net_tpu_torch import resolve_device
+    from dcl_net_tpu_torch.data import SyntheticPoseDataset, make_batch
     from dcl_net_tpu_torch.data.loader import BatchLoader
-    from dcl_net_tpu_torch.eval import Evaluator, Stage2Evaluator
-    from dcl_net_tpu_torch.models import DCLNet, Refiner, dcl_losses
-    from dcl_net_tpu_torch.train import TrainState, build_optimizer, make_train_step
-    from dcl_net_tpu_torch.train.checkpoints import save_checkpoint
-    from dcl_net_tpu_torch.train.stage2 import make_stage2_train_step
+    from dcl_net_tpu_torch.models import DCLNet
 
     dev = resolve_device(args.device)
-    if dev.type == "cuda":
-        autotune_convs()  # as Solver does: cuDNN's default f32 3D wgrad is slow
     grid = (grid_side,) * 3
     unit = (UNIT_AT_64 * 64 / grid_side,) * 3
     n_classes = args.classes
     spf = max(args.samples_per_frame, 0)
-    width = dict(n_points=n_points, unit_voxel_extent=unit, voxel_num_limit=grid, seed=0)
+    width = dict(n_points=n_points, unit_voxel_extent=unit, voxel_num_limit=grid, seed=0,
+                 cad_dir=args.cad_dir)
     # frame mode indexes frames; the pool stays TRAIN_LEN at every spf, as
     # the JAX script keeps it
     train_ds = SyntheticPoseDataset(n_objects=n_classes, length=TRAIN_LEN,
@@ -194,12 +208,45 @@ def run(args: argparse.Namespace, grid_side: int = 64, n_points: int = 1024,
     # training range (a sample's RNG is keyed by its index)
     heldout_ds = SyntheticPoseDataset(n_objects=n_classes, length=TRAIN_LEN + HELD_LEN,
                                       **width)
+    n_classes = len(train_ds.cad_points)  # cad_dir may set the class count
     loader = BatchLoader(train_ds, batch_size=args.batch, num_workers=args.workers,
-                         seed=0, worker_type=args.worker_type,
+                         seed=args.seed, worker_type=args.worker_type,
                          samples_per_item=max(spf, 1))
 
     model = DCLNet(unit_voxel_extent=unit, voxel_num_limit=grid, interp_mode="pallas",
-                   dtype=torch.bfloat16, device=dev, seed=0)  # the production config
+                   dtype=torch.bfloat16, device=dev, seed=args.seed)  # the production config
+    model_points = np.stack([heldout_ds.model_points(c, MODEL_POINTS)
+                             for c in range(n_classes)])
+    eval_batches = [make_batch([heldout_ds[TRAIN_LEN + k * HELD_BATCH + i]
+                                for i in range(HELD_BATCH)]).to_dict()
+                    for k in range(HELD_BATCHES)]
+    return types.SimpleNamespace(dev=dev, grid=grid, unit=unit, n_classes=n_classes, spf=spf,
+                                 train_ds=train_ds, heldout_ds=heldout_ds, loader=loader,
+                                 model=model, model_points=model_points,
+                                 eval_batches=eval_batches)
+
+
+def run(args: argparse.Namespace, grid_side: int = 64, n_points: int = 1024,
+        log=print) -> dict:
+    """The acceptance at a grid of grid_side^3 cells (the volume of the
+    64^3 grid at 6 mm) and n_points points a branch. Returns the result."""
+    import torch
+
+    from dcl_net_tpu_torch import autotune_convs
+    from dcl_net_tpu_torch.config import Config
+    from dcl_net_tpu_torch.data import batch_to_torch
+    from dcl_net_tpu_torch.eval import Evaluator, Stage2Evaluator
+    from dcl_net_tpu_torch.models import DCLNet, Refiner, dcl_losses
+    from dcl_net_tpu_torch.train import TrainState, build_optimizer, make_train_step
+    from dcl_net_tpu_torch.train.checkpoints import save_checkpoint
+    from dcl_net_tpu_torch.train.stage2 import make_stage2_train_step
+
+    w = build(args, grid_side, n_points)
+    dev, grid, unit, n_classes, spf = w.dev, w.grid, w.unit, w.n_classes, w.spf
+    train_ds, loader, model = w.train_ds, w.loader, w.model
+    model_points, eval_batches = w.model_points, w.eval_batches
+    if dev.type == "cuda":
+        autotune_convs()  # as Solver does: cuDNN's default f32 3D wgrad is slow
     cfg_d = {"optimizer": {"type": "Adam", "lr": args.lr, "betas": [0.5, 0.999],
                            "eps": 1e-6},
              "clip_percentile": 50}
@@ -215,11 +262,6 @@ def run(args: argparse.Namespace, grid_side: int = 64, n_points: int = 1024,
     params = [p for p in model.parameters() if p.requires_grad]
     state = TrainState(opt.init(sum(p.numel() for p in params), dev))
 
-    model_points = np.stack([heldout_ds.model_points(c, MODEL_POINTS)
-                             for c in range(n_classes)])
-    eval_batches = [make_batch([heldout_ds[TRAIN_LEN + k * HELD_BATCH + i]
-                                for i in range(HELD_BATCH)]).to_dict()
-                    for k in range(HELD_BATCHES)]
     protocol_kw, metric_key, scale, sym_ids, diams = build_protocol(
         args.protocol, train_ds, n_classes)
     if args.protocol == "add_0.1d":
@@ -276,7 +318,7 @@ def run(args: argparse.Namespace, grid_side: int = 64, n_points: int = 1024,
 
     # ---- the trained model's bf16 drift: an f32 copy of its weights ----
     model_f32 = DCLNet(unit_voxel_extent=unit, voxel_num_limit=grid, interp_mode="pallas",
-                       device=dev, seed=0)
+                       device=dev, seed=args.seed)
     model_f32.load_state_dict(model.state_dict())
     drift = pose_drift(model, model_f32, eval_batches, dev)
     drift["stage1_auc_f32"] = score(Evaluator(model_f32, model_points,
@@ -288,7 +330,7 @@ def run(args: argparse.Namespace, grid_side: int = 64, n_points: int = 1024,
     # ---- stage 2: the refiner on the frozen stage 1 ----
     t2 = time.time()
     cld = torch.as_tensor(model_points, device=dev)
-    refiner = Refiner(n_inp=n_points, device=dev, seed=1)
+    refiner = Refiner(n_inp=n_points, device=dev, seed=args.seed + 1)
     step2 = make_stage2_train_step(model, refiner, opt, ITERATIONS, cld)
     rstate = TrainState(opt.init(sum(p.numel() for p in refiner.parameters()), dev))
     wait = 0.0
@@ -320,7 +362,8 @@ def run(args: argparse.Namespace, grid_side: int = 64, n_points: int = 1024,
         "protocol": args.protocol,
         "config": "banked-template" if args.bank else "per-instance",
         "samples_per_frame": spf or None,
-        "steps": args.steps, "batch": args.batch,
+        "steps": args.steps, "batch": args.batch, "seed": args.seed,
+        "classes": n_classes, "cad_dir": args.cad_dir,
         "identity_auc": identity,
         "stage1_auc": stage1_auc,
         "stage2_auc": stage2_auc,

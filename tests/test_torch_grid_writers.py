@@ -127,15 +127,20 @@ def test_voxelize_plain_is_the_point_order_serial_sum(mode, masked):
 
 
 def test_voxelize_shared_memory_limit_raises_for_too_many_points():
+    """Past the list kernel's limit the planner no longer raises: it takes
+    the rounds kernel, the main path's N keeps the list kernel."""
     c = 7
     fits = (cuda_voxelize.SMEM_LIMIT - 4 * cuda_voxelize.TILE) // (4 * (2 + c))
-    assert cuda_voxelize.list_smem_bytes(1024, c) == 4 * (1024 * 9 + cuda_voxelize.TILE)
-    assert cuda_voxelize.list_smem_bytes(fits, c) <= cuda_voxelize.SMEM_LIMIT
-    with pytest.raises(ValueError, match=f"at most {fits} points"):
-        cuda_voxelize.list_smem_bytes(fits + 1, c)
-    # more features per point leave room for fewer points
-    with pytest.raises(ValueError, match="shared memory"):
-        cuda_voxelize.list_smem_bytes(fits, 64)
+    main = cuda_voxelize.plan(1024, c)
+    assert main == cuda_voxelize.Plan(cuda_voxelize.TILE, 4 * (1024 * 9 + cuda_voxelize.TILE),
+                                      c, 0)
+    assert cuda_voxelize.plan(fits, c).round_len == 0
+    beyond = cuda_voxelize.plan(fits + 1, c)
+    assert beyond.round_len > 0 and beyond.tile == cuda_voxelize.TILE
+    # a wider C halves the tile until the carried sums take half the memory
+    wide = cuda_voxelize.plan(fits, 512)
+    assert wide.round_len > 0 and wide.cw == cuda_voxelize.ROUND_CHANNELS
+    assert wide.tile < cuda_voxelize.TILE
 
 
 @pytest.mark.parametrize("c,cells", [(32, 128), (64, 64), (128, 32), (256, 16), (7, 585)])

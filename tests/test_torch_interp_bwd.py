@@ -161,6 +161,10 @@ def test_index_scratch_and_point_limit():
     assert cuda_interp.index_scratch_words(2, 0, 5) == 12
     # one block sorts a sample's 3N entries, up to 6144: the configs' 1024 fit
     assert cuda_interp.MAX_POINTS == 2048
+    # past it the entries are sorted in chunks of 6144, whose per-slot counts
+    # [B, V + 1, chunks] follow ent in the scratch
+    assert cuda_interp.index_chunks(2048) == 0 and cuda_interp.index_chunks(2049) == 2
+    assert cuda_interp.index_scratch_words(32, 4096, 2048) == 32 * (2049 + 12288 + 2049 * 2)
 
 
 def test_backward_wrappers_refuse_non_cpu_tensors():

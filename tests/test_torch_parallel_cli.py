@@ -66,3 +66,29 @@ def test_n_devices_beyond_the_visible_gpus_raises(tool, tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="--n_devices 2: only 1 GPUs are visible"):
         tool.main(argv)
     assert not os.listdir(tmp_path)  # raised before any rank or run directory
+
+
+def test_config_n_devices_starts_the_ranks_without_the_flag(tmp_path, monkeypatch):
+    """parallel.n_devices stands for an absent --n_devices, as the JAX
+    tools' build_mesh reads it (dcl_net_tpu/tools/common.py:126-140)."""
+    started = []
+    start = torch.multiprocessing.start_processes
+
+    def counted(fn, args=(), nprocs=1, **kw):
+        started.append(nprocs)
+        return start(fn, args=args, nprocs=nprocs, **kw)
+
+    monkeypatch.setattr(torch.multiprocessing, "start_processes", counted)
+    log_root = str(tmp_path / "log")
+    train_stage1.main(["--config", TRAIN_CONFIG, "--log_root", log_root, "--device", "cpu",
+                       "--override", *SMALL_OVERRIDES, "parallel.n_devices=2"])
+    assert started == [2]
+    # rank 0 alone writes: one record a step of the global batch of 4
+    records = _records(os.path.join(log_root, TRAIN_EXP))
+    assert len(records) == 2 and records[0]["skipped_nonfinite"] == 0.0
+    assert os.listdir(os.path.join(log_root, TRAIN_EXP, "epoch_1")) == ["state.pt"]
+    # on the card path the config's count is held to the visible GPUs too
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="parallel.n_devices 2: only 1 GPUs are visible"):
+        train_stage1.main(["--config", TRAIN_CONFIG, "--log_root", str(tmp_path / "gpu"),
+                           "--override", "parallel.n_devices=2"])

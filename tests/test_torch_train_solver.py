@@ -13,6 +13,9 @@ close to linear in the gradient); the optimizer chain itself is compared
 with the configs' eps on identical gradients.
 """
 
+import logging
+import os
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -296,3 +299,77 @@ def test_training_entry_points_turn_tf32_off(entry, monkeypatch):
                                torch.zeros(2, 8, 3))
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
+
+
+class _Writer:
+    """A scalar writer that keeps what the Solver writes."""
+
+    def __init__(self):
+        self.records = []
+
+    def add_scalars(self, tag, values, step):
+        self.records.append((tag, step, dict(values)))
+
+
+def _epoch(cfg_extra: dict, steps: int = 6, writer=None):
+    """One Solver epoch of `steps` steps at batch 2 on the CPU, a scalar
+    record a step; returns the solver."""
+    ds = SyntheticPoseDataset(n_objects=2, n_points=64, unit_voxel_extent=UNIT,
+                              voxel_num_limit=GRID, seed=0, length=2 * steps)
+    cfg = Config(dict(OPT_CFG, max_epoch=1, per_write=1, per_save=0, **cfg_extra))
+    solver = tsolver.Solver(DCLNet(device="cpu", seed=3, **KW), dcl_losses, cfg,
+                            BatchLoader(ds, batch_size=2, num_workers=1, seed=1),
+                            device="cpu", writer=writer,
+                            logger=logging.getLogger("test_torch_train_solver"))
+    solver.train_epoch()
+    return solver
+
+
+def test_pipeline_metrics_off_logs_the_same_metrics():
+    """cfg.pipeline_metrics false reads each step's scalars at once, as the
+    JAX Solver does (dcl_net_tpu/train/solver.py:470-480): the same records,
+    the timings aside."""
+    runs = {}
+    for pipeline in (True, False):
+        writer = _Writer()
+        _epoch({"pipeline_metrics": pipeline}, steps=3, writer=writer)
+        runs[pipeline] = [(tag, step, {k: v for k, v in rec.items()
+                                       if k not in ("T_step", "T_data")})
+                          for tag, step, rec in writer.records]
+    assert len(runs[True]) == 3 and [r[1] for r in runs[True]] == [1, 2, 3]
+    assert runs[True] == runs[False]
+
+
+def test_profile_dir_traces_steps_2_to_4(tmp_path, monkeypatch):
+    """cfg.profile_dir (else $DCLX_PROFILE_DIR) traces steps 2-4 of the first
+    epoch into a Chrome trace there, as the JAX Solver's hook does with
+    jax.profiler; without either no trace is written."""
+    import json
+
+    monkeypatch.delenv("DCLX_PROFILE_DIR", raising=False)
+    solver = _epoch({"profile_dir": str(tmp_path / "cfg")})
+    path = solver.profile_trace_path()
+    assert path == str(tmp_path / "cfg" / "trace_epoch0_steps2-4_rank0.json")
+    events = json.loads(open(path).read())["traceEvents"]
+    assert any(e.get("name", "").startswith("aten::") for e in events)  # CPU activity
+    monkeypatch.setenv("DCLX_PROFILE_DIR", str(tmp_path / "env"))
+    assert os.listdir(os.path.dirname(_epoch({}).profile_trace_path())) == [
+        "trace_epoch0_steps2-4_rank0.json"]
+    monkeypatch.delenv("DCLX_PROFILE_DIR")
+    plain = _epoch({})
+    assert plain.profile_trace_path() is None
+    assert sorted(os.listdir(tmp_path)) == ["cfg", "env"]
+
+
+def test_profiler_that_fails_to_start_is_reported(tmp_path, monkeypatch):
+    class Refusing:
+        def __init__(self, *args, **kwargs):
+            pass
+
+        def start(self):
+            raise RuntimeError("profiler busy")
+
+    monkeypatch.setattr(torch.profiler, "profile", Refusing)
+    with pytest.warns(RuntimeWarning, match="profiler busy"):
+        solver = _epoch({"profile_dir": str(tmp_path)})
+    assert solver.state.step == 6 and not os.listdir(tmp_path)
