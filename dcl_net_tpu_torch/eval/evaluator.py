@@ -37,6 +37,7 @@ from dcl_net_tpu_torch.eval.metrics import (
 )
 from dcl_net_tpu_torch.models.refiner import refine_pose
 from dcl_net_tpu_torch.parallel.mesh import active, all_reduce_sum, allgather_host
+from dcl_net_tpu_torch.telemetry import span
 
 PROTOCOLS = ("adds_auc", "add_0.1d")
 
@@ -125,12 +126,13 @@ class Evaluator:
                 out = self.model(batch)
             # a bf16 model's trans_pred is bf16: the pose is scored in f32
             rot, trans = (t.float() for t in self._pose(out))
-            pose = (self.model_points[cls], rot, trans,
-                    batch["labels"]["rot_gt"], batch["labels"]["trans_gt"])
-            res = {"adds": add_s_batch(*pose), "rot_pred": rot, "trans_pred": trans,
-                   "overflow": out["overflow"]}
-            if self.protocol == "add_0.1d":
-                res["add"] = add_batch(*pose)
+            with span("eval.score"):
+                pose = (self.model_points[cls], rot, trans,
+                        batch["labels"]["rot_gt"], batch["labels"]["trans_gt"])
+                res = {"adds": add_s_batch(*pose), "rot_pred": rot, "trans_pred": trans,
+                       "overflow": out["overflow"]}
+                if self.protocol == "add_0.1d":
+                    res["add"] = add_batch(*pose)
         return res
 
     def _pose(self, out: Dict[str, torch.Tensor]):
@@ -145,30 +147,40 @@ class Evaluator:
         wait), queue its forward and queue the copy of its [B]-sized results
         and flags (_ROWS) to the host as one f32 block behind it. Returns
         (host block, event recorded after the copy or None), which _fetch
-        reads: nothing here waits for the device."""
-        tb = batch_to_torch(batch, self.device, non_blocking=True)
-        res = self._run(tb)
-        zeros = torch.zeros_like(tb["valid"])
-        rows = {"adds": res["adds"], "add": res.get("add", res["adds"]),
-                "overflow": res["overflow"], "valid": tb["valid"],
-                "obj_idx": tb["labels"]["obj_idx"], "sym_flag": tb["sym_flag"],
-                "pad": tb.get("pad", zeros)}
-        # f32 holds each row exactly: distances are f32, flags 0 / 1, class ids < 2^24
-        block = torch.stack([rows[k].reshape(-1).to(torch.float32) for k in self._ROWS])
-        if block.device.type != "cuda":
-            return block, None
-        host = torch.empty(block.shape, dtype=block.dtype, pin_memory=True)
-        host.copy_(block, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
-        return host, done
+        reads: nothing here waits for the device. Under a profiler the host
+        span eval.dispatch holds eval.h2d (the copy), the model's spans,
+        eval.score (ADD-S / ADD, in _run) and eval.rows (the block and its
+        queued copy)."""
+        with span("eval.dispatch"):
+            with span("eval.h2d"):
+                tb = batch_to_torch(batch, self.device, non_blocking=True)
+            res = self._run(tb)
+            with span("eval.rows"):
+                zeros = torch.zeros_like(tb["valid"])
+                rows = {"adds": res["adds"], "add": res.get("add", res["adds"]),
+                        "overflow": res["overflow"], "valid": tb["valid"],
+                        "obj_idx": tb["labels"]["obj_idx"], "sym_flag": tb["sym_flag"],
+                        "pad": tb.get("pad", zeros)}
+                # f32 holds each row exactly: distances are f32, flags 0 / 1,
+                # class ids < 2^24
+                block = torch.stack([rows[k].reshape(-1).to(torch.float32)
+                                     for k in self._ROWS])
+                if block.device.type != "cuda":
+                    return block, None
+                host = torch.empty(block.shape, dtype=block.dtype, pin_memory=True)
+                host.copy_(block, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record()
+                return host, done
 
     @classmethod
     def _fetch(cls, pending) -> Dict[str, np.ndarray]:
-        """Wait for a _dispatch's copy and split its block into _ROWS."""
+        """Wait for a _dispatch's copy (the host span eval.fetch) and split
+        its block into _ROWS."""
         host, done = pending
-        if done is not None:
-            done.synchronize()
+        with span("eval.fetch"):
+            if done is not None:
+                done.synchronize()
         return dict(zip(cls._ROWS, host.numpy()))
 
     def evaluate(self, loader: Iterable[Dict[str, Any]]) -> Dict[str, object]:
@@ -187,12 +199,13 @@ class Evaluator:
         def consume(pending) -> None:
             nonlocal n_overflow, n_lost
             r = self._fetch(pending)
-            valid, pad = r["valid"], r["pad"]
-            ovf = r["overflow"] > 0
-            n_overflow += int((ovf & (valid > 0) & ~(pad > 0)).sum())
-            n_lost += int(((valid <= 0) & ~(pad > 0)).sum())
-            self._score_batch(r["adds"], r["add"], valid, r["obj_idx"].astype(np.int64),
-                              r["sym_flag"], pad, distances, class_ids, lost_per_class)
+            with span("eval.consume"):
+                valid, pad = r["valid"], r["pad"]
+                ovf = r["overflow"] > 0
+                n_overflow += int((ovf & (valid > 0) & ~(pad > 0)).sum())
+                n_lost += int(((valid <= 0) & ~(pad > 0)).sum())
+                self._score_batch(r["adds"], r["add"], valid, r["obj_idx"].astype(np.int64),
+                                  r["sym_flag"], pad, distances, class_ids, lost_per_class)
 
         pending = None
         for batch in loader:
@@ -287,5 +300,6 @@ class Stage2Evaluator(Evaluator):
         self.iterations = int(iterations)
 
     def _pose(self, out: Dict[str, torch.Tensor]):
-        return refine_pose(self.refiner, out["points_inp"], out["F_Xo_p"], out["conf"],
-                           out["rot_pred"], out["trans_pred"], self.iterations)
+        with span("model.refine"):
+            return refine_pose(self.refiner, out["points_inp"], out["F_Xo_p"], out["conf"],
+                               out["rot_pred"], out["trans_pred"], self.iterations)

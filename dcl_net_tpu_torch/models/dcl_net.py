@@ -78,6 +78,7 @@ from dcl_net_tpu_torch.parallel.mesh import (
     all_reduce_sum, batch_group, replicated, sharded,
 )
 from dcl_net_tpu_torch.registry import MODELS
+from dcl_net_tpu_torch.telemetry import span
 
 _POINT_FEATS = 480  # 32 + 64 + 128 + 256
 
@@ -200,36 +201,41 @@ class DCLNet(nn.Module):
     # ------------------------------------------------------------------
     def _encode(self, backbone, point_feats, feats, voxel_idx):
         mode = self.voxelization_mode
-        if mode in (MODE_SUM, MODE_MEAN):
-            grid, count = voxelize_cuda(feats, voxel_idx, self.grid_shape, mode=mode,
-                                        out_dtype=self.dtype)
-        else:
-            # modes 0-2: an f32 grid in the compute type, as the JAX model's
-            # voxelize_dense feeds its convolutions; mode 0 is K1's sum,
-            # modes 1 and 2 a selection no kernel computes
-            if mode == MODE_UNIQUE:
-                grid, count = voxelize_cuda(feats, voxel_idx, self.grid_shape, mode=MODE_SUM)
+        with span("model.voxelize"):
+            if mode in (MODE_SUM, MODE_MEAN):
+                grid, count = voxelize_cuda(feats, voxel_idx, self.grid_shape, mode=mode,
+                                            out_dtype=self.dtype)
             else:
-                grid, count = voxelize_dense(feats, voxel_idx, self.grid_shape, mode)
-            grid = grid.to(self.dtype or grid.dtype)
-        mask = (count > 0).to(feats.dtype)
-        if self.remat and self.training and torch.is_grad_enabled():
-            group = batch_group()
-            pyramid = checkpoint(
-                backbone, grid, mask, use_reentrant=False,
-                context_fn=lambda: (contextlib.nullcontext(),
-                                    _recompute_context(backbone, group)))
-        else:
-            pyramid = backbone(grid, mask)
-        points = feats[..., 4:7].contiguous()
-        interp, overflow = point_feats(points, pyramid)
+                # modes 0-2: an f32 grid in the compute type, as the JAX model's
+                # voxelize_dense feeds its convolutions; mode 0 is K1's sum,
+                # modes 1 and 2 a selection no kernel computes
+                if mode == MODE_UNIQUE:
+                    grid, count = voxelize_cuda(feats, voxel_idx, self.grid_shape,
+                                                mode=MODE_SUM)
+                else:
+                    grid, count = voxelize_dense(feats, voxel_idx, self.grid_shape, mode)
+                grid = grid.to(self.dtype or grid.dtype)
+            mask = (count > 0).to(feats.dtype)
+        with span("model.backbone"):
+            if self.remat and self.training and torch.is_grad_enabled():
+                group = batch_group()
+                pyramid = checkpoint(
+                    backbone, grid, mask, use_reentrant=False,
+                    context_fn=lambda: (contextlib.nullcontext(),
+                                        _recompute_context(backbone, group)))
+            else:
+                pyramid = backbone(grid, mask)
+        with span("model.point_feats"):
+            points = feats[..., 4:7].contiguous()
+            interp, overflow = point_feats(points, pyramid)
         return points, interp, overflow
 
     def _heads(self, side: str, points, f, overflow) -> Dict[str, torch.Tensor]:
-        out = {"points": points, "overflow": overflow}
-        for name in ("p1", "m1", "p2", "m2"):
-            out[name] = getattr(self, f"disengage_{side}_{name}")(f)
-        return out
+        with span("model.heads"):
+            out = {"points": points, "overflow": overflow}
+            for name in ("p1", "m1", "p2", "m2"):
+                out[name] = getattr(self, f"disengage_{side}_{name}")(f)
+            return out
 
     def encode_observed(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """Observed branch: backbone + interp + the four Xc disengage heads."""
@@ -251,39 +257,40 @@ class DCLNet(nn.Module):
     # ------------------------------------------------------------------
     def fuse(self, obs: Dict[str, torch.Tensor], tmp: Dict[str, torch.Tensor]
              ) -> Dict[str, torch.Tensor]:
-        f_xo_p, att = aligner(obs["m1"], tmp["m1"], tmp["p1"])     # [B, N, 256]
-        xo_pred = self.regressor_Xo(f_xo_p)
-        f_yc_p, att_bi = aligner(tmp["m2"], obs["m2"], obs["p2"])  # [B, M, 256]
-        yc_pred = self.regressor_Yc(f_yc_p)
+        with span("model.fuse"):
+            f_xo_p, att = aligner(obs["m1"], tmp["m1"], tmp["p1"])     # [B, N, 256]
+            xo_pred = self.regressor_Xo(f_xo_p)
+            f_yc_p, att_bi = aligner(tmp["m2"], obs["m2"], obs["p2"])  # [B, M, 256]
+            yc_pred = self.regressor_Yc(f_yc_p)
 
-        f_xo_m = att.transpose(1, 2) @ tmp["m1"]                   # [B, N, 64]
-        f_m1 = torch.cat([obs["m1"], f_xo_m], dim=-1)              # [B, N, 128]
-        f_yc_m = att_bi.transpose(1, 2) @ obs["m2"]                # [B, M, 64]
-        f_m2 = torch.cat([f_yc_m, tmp["m2"]], dim=-1)              # [B, M, 128]
-        conf = sigmoid(torch.cat(
-            [self.regressor_conf(f_m1), self.regressor_conf_bi(f_m2)], dim=1))
-        conf_softmax = softmax(conf, dim=1)
+            f_xo_m = att.transpose(1, 2) @ tmp["m1"]                   # [B, N, 64]
+            f_m1 = torch.cat([obs["m1"], f_xo_m], dim=-1)              # [B, N, 128]
+            f_yc_m = att_bi.transpose(1, 2) @ obs["m2"]                # [B, M, 64]
+            f_m2 = torch.cat([f_yc_m, tmp["m2"]], dim=-1)              # [B, M, 128]
+            conf = sigmoid(torch.cat(
+                [self.regressor_conf(f_m1), self.regressor_conf_bi(f_m2)], dim=1))
+            conf_softmax = softmax(conf, dim=1)
 
-        f_p1 = self.neck_fuser(torch.cat([obs["p1"], f_xo_p], dim=-1))
-        f_p2 = self.neck_fuser_bi(torch.cat([f_yc_p, tmp["p2"]], dim=-1))
-        f_p = torch.cat([f_p1, f_p2], dim=1)                       # [B, N+M, 1024]
-        f_p_wei = torch.sum(f_p * conf_softmax, dim=1)             # [B, 1024]
+            f_p1 = self.neck_fuser(torch.cat([obs["p1"], f_xo_p], dim=-1))
+            f_p2 = self.neck_fuser_bi(torch.cat([f_yc_p, tmp["p2"]], dim=-1))
+            f_p = torch.cat([f_p1, f_p2], dim=1)                       # [B, N+M, 1024]
+            f_p_wei = torch.sum(f_p * conf_softmax, dim=1)             # [B, 1024]
 
-        ortho9d = self.regressor_rot(f_p_wei[:, None, :])[:, 0, :]
-        rot_pred = ortho9d_to_matrix(ortho9d[:, :3], ortho9d[:, 3:6],
-                                     ortho9d[:, 6:])
-        trans_pred = self.regressor_trans(f_p_wei[:, None, :])[:, 0, :]
-        return {
-            "trans_pred": trans_pred,                    # [B, 3]
-            "rot_pred": rot_pred,                        # [B, 3, 3]
-            "conf": conf[..., 0],                        # [B, N+M]
-            "overflow": obs["overflow"] | tmp["overflow"],  # [B] bool
-            "F_Xo_p": f_xo_p,                            # [B, N, 256]
-            "Xo_pred": xo_pred,                          # [B, N, 3]
-            "Yc_pred": yc_pred,                          # [B, M, 3]
-            "points_inp": obs["points"],                 # [B, N, 3]
-            "points_tmp": tmp["points"],                 # [B, M, 3]
-        }
+            ortho9d = self.regressor_rot(f_p_wei[:, None, :])[:, 0, :]
+            rot_pred = ortho9d_to_matrix(ortho9d[:, :3], ortho9d[:, 3:6],
+                                         ortho9d[:, 6:])
+            trans_pred = self.regressor_trans(f_p_wei[:, None, :])[:, 0, :]
+            return {
+                "trans_pred": trans_pred,                    # [B, 3]
+                "rot_pred": rot_pred,                        # [B, 3, 3]
+                "conf": conf[..., 0],                        # [B, N+M]
+                "overflow": obs["overflow"] | tmp["overflow"],  # [B] bool
+                "F_Xo_p": f_xo_p,                            # [B, N, 256]
+                "Xo_pred": xo_pred,                          # [B, N, 3]
+                "Yc_pred": yc_pred,                          # [B, M, 3]
+                "points_inp": obs["points"],                 # [B, N, 3]
+                "points_tmp": tmp["points"],                 # [B, M, 3]
+            }
 
     def forward(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         return self.fuse(self.encode_observed(batch), self.encode_template(batch))

@@ -60,6 +60,7 @@ from dcl_net_tpu_torch.data.schema import batch_to_torch
 from dcl_net_tpu_torch.models.refiner import refine_pose
 from dcl_net_tpu_torch.ops import library  # noqa: F401  (registers the dclx ops)
 from dcl_net_tpu_torch.parallel.mesh import allgather_rows, shard_batch
+from dcl_net_tpu_torch.telemetry import span
 
 BUNDLE_MANIFEST = "manifest.json"
 # the record of an artifact's world size, stored beside its program
@@ -289,7 +290,13 @@ class BundleServer:
 
     Inputs (numpy arrays or tensors) are moved to the bundle's device; the
     outputs are the artifacts' tensors, on that device. Artifacts load
-    lazily on first use. TF32 is turned off (strict_f32)."""
+    lazily on first use. TF32 is turned off (strict_f32).
+
+    Under a profiler a call is the host span serve.request, which holds
+    serve.h2d (the inputs to the device), one serve.run.b<B> (B zero-padded
+    to five digits) or serve.run.poly a chunk (the padding and the call of
+    the artifact it names: a fixed artifact runs B rows, the poly artifact
+    the chunk's) and serve.gather (the chunks' rows cut and joined)."""
 
     def __init__(self, dirpath: str):
         strict_f32()
@@ -313,41 +320,47 @@ class BundleServer:
         return self._fns[name]
 
     def __call__(self, feats, voxel_idx, obj_idx) -> Dict[str, torch.Tensor]:
-        inputs = batch_to_torch({"feats": feats, "voxel_idx": voxel_idx,
-                                 "obj_idx": obj_idx}, self.device)
-        feats, voxel_idx, obj_idx = inputs["feats"], inputs["voxel_idx"], inputs["obj_idx"]
-        n = int(obj_idx.shape[0])
-        if n == 0:
-            raise ValueError("BundleServer: empty request (0 instances); batch at least "
-                             "one instance per call")
-        if not self.fixed_sizes and not self.has_poly:
-            raise RuntimeError("empty bundle")
-        chunks = []
-        i = 0
-        with torch.inference_mode():
-            while i < n:
-                rem = n - i
-                if not self.fixed_sizes:
-                    name, b = "poly", min(rem, self.poly_max)
-                else:
-                    fit = [s for s in self.fixed_sizes if s >= rem]
-                    b = fit[0] if fit else self.fixed_sizes[-1]
-                    name = f"b{b:05d}"
-                take = min(rem, b)
+        with span("serve.request"):
+            with span("serve.h2d"):
+                inputs = batch_to_torch({"feats": feats, "voxel_idx": voxel_idx,
+                                         "obj_idx": obj_idx}, self.device)
+            feats, voxel_idx, obj_idx = inputs["feats"], inputs["voxel_idx"], inputs["obj_idx"]
+            n = int(obj_idx.shape[0])
+            if n == 0:
+                raise ValueError("BundleServer: empty request (0 instances); batch at least "
+                                 "one instance per call")
+            if not self.fixed_sizes and not self.has_poly:
+                raise RuntimeError("empty bundle")
+            chunks = []
+            i = 0
+            with torch.inference_mode():
+                while i < n:
+                    rem = n - i
+                    if not self.fixed_sizes:
+                        name, b = "poly", min(rem, self.poly_max)
+                    else:
+                        fit = [s for s in self.fixed_sizes if s >= rem]
+                        b = fit[0] if fit else self.fixed_sizes[-1]
+                        name = f"b{b:05d}"
+                    take = min(rem, b)
 
-                def pad(x):
-                    if take == b:
-                        return x[i:i + take]
-                    padded = x.new_zeros((b,) + tuple(x.shape[1:]))
-                    padded[:take] = x[i:i + take]
-                    return padded
+                    def pad(x):
+                        if take == b:
+                            return x[i:i + take]
+                        padded = x.new_zeros((b,) + tuple(x.shape[1:]))
+                        padded[:take] = x[i:i + take]
+                        return padded
 
-                res = self._fn(name)(pad(feats), pad(voxel_idx), pad(obj_idx))
-                chunks.append({k: v[:take] for k, v in res.items()})
-                i += take
-        if len(chunks) == 1:
-            return chunks[0]
-        return {k: torch.cat([c[k] for c in chunks]) for k in chunks[0]}
+                    with span(f"serve.run.{name}"):
+                        res = self._fn(name)(pad(feats), pad(voxel_idx), pad(obj_idx))
+                    chunks.append((res, take))
+                    i += take
+            with span("serve.gather"):
+                if len(chunks) == 1:
+                    res, take = chunks[0]
+                    return {k: v[:take] for k, v in res.items()}
+                return {k: torch.cat([res[k][:take] for res, take in chunks])
+                        for k in chunks[0][0]}
 
 
 class ShardedServe(nn.Module):

@@ -38,6 +38,7 @@ from dcl_net_tpu_torch.data.schema import batch_to_torch
 from dcl_net_tpu_torch.parallel.mesh import (
     Group, active, all_reduce_sum, replicate, sharded,
 )
+from dcl_net_tpu_torch.telemetry import span
 
 
 # ---------------------------------------------------------------------------
@@ -298,7 +299,9 @@ def make_train_step(model: torch.nn.Module, opt: Optimizer, loss_fn: Callable,
 
     on_stage: called with "forward", "loss", "backward" and "optimizer" as
     each stage has been queued (scripts/profile_torch_train.py records a
-    CUDA event there); None costs nothing.
+    CUDA event there); None costs nothing. The same four stages are the
+    host spans train.forward, train.loss, train.backward and
+    train.optimizer (telemetry.py), which end where on_stage is called.
 
     group: data parallelism (parallel/mesh.py): the batch is this rank's
     block of the global batch; the forward and backward run under
@@ -319,20 +322,24 @@ def make_train_step(model: torch.nn.Module, opt: Optimizer, loss_fn: Callable,
     def train_step(state: TrainState, batch: Mapping[str, Any]
                    ) -> Dict[str, torch.Tensor]:
         model.train()
-        stats_before = _flat(stats)
         with sharded(group):
-            if template_bank is not None:
-                pred = model.forward_with_template_bank(batch, template_bank)
-            else:
-                pred = model(batch)
+            with span("train.forward"):
+                stats_before = _flat(stats)
+                if template_bank is not None:
+                    pred = model.forward_with_template_bank(batch, template_bank)
+                else:
+                    pred = model(batch)
             mark("forward")
-            losses = dict(loss_fn(pred, batch))
+            with span("train.loss"):
+                losses = dict(loss_fn(pred, batch))
             mark("loss")
-            grads = torch.autograd.grad(losses["loss_all"], params, allow_unused=True)
+            with span("train.backward"):
+                grads = torch.autograd.grad(losses["loss_all"], params, allow_unused=True)
         mark("backward")
-        metrics = global_metrics(losses, group, pred.get("overflow"))
-        metrics["grad_norm"], metrics["skipped_nonfinite"] = apply_gradients(
-            params, grads, opt, state, metrics["loss_all"], stats, stats_before, group)
+        with span("train.optimizer"):
+            metrics = global_metrics(losses, group, pred.get("overflow"))
+            metrics["grad_norm"], metrics["skipped_nonfinite"] = apply_gradients(
+                params, grads, opt, state, metrics["loss_all"], stats, stats_before, group)
         mark("optimizer")
         return metrics
 
@@ -342,6 +349,9 @@ def make_train_step(model: torch.nn.Module, opt: Optimizer, loss_fn: Callable,
 # ---------------------------------------------------------------------------
 # Epoch driver
 # ---------------------------------------------------------------------------
+_EXHAUSTED = object()  # what the loader's iterator gives past its last batch
+
+
 class Solver:
     """Epoch/step loop with per-step timing and periodic logging: T_data
     (waiting for the loader) and T_step (the sustained wall time of a step)
@@ -361,7 +371,9 @@ class Solver:
     read at once. cfg.profile_dir (or $DCLX_PROFILE_DIR) traces steps 2-4
     of the first epoch with torch.profiler, CPU and CUDA activities, into a
     Chrome trace in that directory (`profile_trace_path`), as the JAX
-    Solver traces them with jax.profiler."""
+    Solver traces them with jax.profiler; the trace holds the port's host
+    spans (telemetry.py, train_epoch), so a gap of the device can be read
+    against the host step it falls in."""
 
     def __init__(self, model, loss_fn, cfg: Config, loader, logger=None,
                  checkpoint_dir: Optional[str] = None, writer=None,
@@ -463,7 +475,8 @@ class Solver:
         records the batches of this epoch consumed, so a resumed run replays
         exactly the rest (the shuffle is seeded by seed + epoch)."""
         if self.save_due(i):
-            self._save(meta={"consumed_batches": i + 1})
+            with span("solver.save"):
+                self._save(meta={"consumed_batches": i + 1})
 
     def restore(self, path: str) -> None:
         """Resume from a checkpoint directory: weights, BN statistics,
@@ -526,6 +539,18 @@ class Solver:
             self.logger.info(f"profile of steps 2-4: {path}")
 
     def train_epoch(self) -> Dict[str, float]:
+        """One pass over the loader, a train step a batch; returns the
+        epoch's mean of each logged metric.
+
+        Under a profiler each loader item is a host span solver.step, from
+        asking the loader for the item to the end of the iteration's
+        bookkeeping, which holds solver.data (the loader's next: T_data's
+        interval), solver.h2d (batch_to_torch), the step's train.* spans
+        (make_train_step), solver.fetch (reading an earlier step's metrics
+        and logging them) and, when a checkpoint is due, solver.save. The
+        epoch's last solver.step holds only the solver.data that finds the
+        loader exhausted, and the last step's metrics are read in a
+        solver.fetch after it."""
         per_write = int(self.cfg.get("per_write", 10))
         buffer: Dict[str, list] = {}
         pending = None  # (device metrics, T_data, step, loader index)
@@ -534,61 +559,69 @@ class Solver:
         prof = None
 
         def consume(pend, t_start, t_excl=0.0):
-            pmetrics, pdata, pstep, pi = pend
-            keys = list(pmetrics)
-            values = torch.stack([pmetrics[k].reshape(()) for k in keys]).cpu()
-            info = dict(zip(keys, values.tolist()))  # waits for that step
-            if info.get("overflow_frac", 0.0) > 0 and self.logger and \
-                    not getattr(self, "_warned_overflow", False):
-                self._warned_overflow = True
-                self.logger.warning(
-                    "capacity overflow: %.1f%% of this step's samples exceed a "
-                    "voxel-extraction budget (model.capacities); their "
-                    "highest-index voxels were dropped (warned once; "
-                    "overflow_frac tracks it per step)" % (100.0 * info["overflow_frac"]))
-            info.update({"T_data": pdata, "T_step": time.time() - t_start - t_excl,
-                         "lr": float(self.schedule(pstep - 1))})
-            for k, v in info.items():
-                buffer.setdefault(k, []).append(v)
-            if self.logger and pi % per_write == 0:
-                avg = {k: float(np.mean(v[-per_write:])) for k, v in buffer.items()}
-                self.logger.info(
-                    f"[{self.epoch}][{pi}/{len(self.loader)}] Train - " + "\t".join(
-                        f"{k}: {v:.5f}" for k, v in avg.items()))
-                if self.writer:
-                    self.writer.add_scalars("train", avg, pstep)
+            with span("solver.fetch"):
+                pmetrics, pdata, pstep, pi = pend
+                keys = list(pmetrics)
+                values = torch.stack([pmetrics[k].reshape(()) for k in keys]).cpu()
+                info = dict(zip(keys, values.tolist()))  # waits for that step
+                if info.get("overflow_frac", 0.0) > 0 and self.logger and \
+                        not getattr(self, "_warned_overflow", False):
+                    self._warned_overflow = True
+                    self.logger.warning(
+                        "capacity overflow: %.1f%% of this step's samples exceed a "
+                        "voxel-extraction budget (model.capacities); their "
+                        "highest-index voxels were dropped (warned once; "
+                        "overflow_frac tracks it per step)" % (100.0 * info["overflow_frac"]))
+                info.update({"T_data": pdata, "T_step": time.time() - t_start - t_excl,
+                             "lr": float(self.schedule(pstep - 1))})
+                for k, v in info.items():
+                    buffer.setdefault(k, []).append(v)
+                if self.logger and pi % per_write == 0:
+                    avg = {k: float(np.mean(v[-per_write:])) for k, v in buffer.items()}
+                    self.logger.info(
+                        f"[{self.epoch}][{pi}/{len(self.loader)}] Train - " + "\t".join(
+                            f"{k}: {v:.5f}" for k, v in avg.items()))
+                    if self.writer:
+                        self.writer.add_scalars("train", avg, pstep)
 
         if self.state is None:
             self.initialize()
         end = time.time()
         if hasattr(self.loader, "epoch"):
             self.loader.epoch = self.epoch  # the shuffle follows the solver
-        offset = getattr(self.loader, "skip_next", 0)  # mid-epoch resume
-        for i0, host_batch in enumerate(self.loader):
-            i = i0 + offset
+        i = getattr(self.loader, "skip_next", 0)  # mid-epoch resume
+        items = iter(self.loader)
+        while True:
             if trace and i == 2:
                 prof = self._start_profile()
             if prof is not None and i == 5:
                 self._stop_profile(prof, trace)
                 prof = None
-            t_data = time.time() - end
-            batch = batch_to_torch(host_batch, self.device, non_blocking=True)
-            metrics = self.train_step(self.state, batch)
-            if pipeline and not self.save_due(i):
-                if pending is not None:
-                    consume(pending, end, t_excl=t_data)
-                pending = (metrics, t_data, self.state.step, i)
-            else:
-                # a due checkpoint records the consumed batches: every metric
-                # up to this step is written first
-                if pending is not None:
-                    consume(pending, end, t_excl=t_data)
-                    consume((metrics, t_data, self.state.step, i), time.time())
-                    pending = None
+            with span("solver.step"):
+                with span("solver.data"):
+                    host_batch = next(items, _EXHAUSTED)
+                if host_batch is _EXHAUSTED:
+                    break
+                t_data = time.time() - end
+                with span("solver.h2d"):
+                    batch = batch_to_torch(host_batch, self.device, non_blocking=True)
+                metrics = self.train_step(self.state, batch)
+                if pipeline and not self.save_due(i):
+                    if pending is not None:
+                        consume(pending, end, t_excl=t_data)
+                    pending = (metrics, t_data, self.state.step, i)
                 else:
-                    consume((metrics, t_data, self.state.step, i), end, t_excl=t_data)
-            self.maybe_save_steps(i)
+                    # a due checkpoint records the consumed batches: every
+                    # metric up to this step is written first
+                    if pending is not None:
+                        consume(pending, end, t_excl=t_data)
+                        consume((metrics, t_data, self.state.step, i), time.time())
+                        pending = None
+                    else:
+                        consume((metrics, t_data, self.state.step, i), end, t_excl=t_data)
+                self.maybe_save_steps(i)
             end = time.time()
+            i += 1
         if pending is not None:
             consume(pending, end)
         if prof is not None:  # an epoch of fewer than 6 steps
