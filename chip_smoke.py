@@ -234,10 +234,11 @@ Phases, any failure exits non-zero:
     Evaluator at n_inp 8192 on 2 rows, poses within POSE_ATOL of the CPU
     (launches as large_n_launches); (d) Evaluator pipelined against strict
     order on 4 batches of 32, f32 and bf16: per-row distances and summary
-    equal, batch i + 1 dispatched before batch i is fetched, no host sync
-    in a dispatch (torch.cuda.set_sync_debug_mode("error")), one Memcpy
-    DtoH a batch (torch.profiler), instances/s of both printed with no
-    claim; (e) a 6-step Solver epoch at batch 4 with profile_dir, whose
+    equal, batch i + 1 dispatched before batch i is fetched, one host sync
+    in a dispatch, the eval backbone's read of its rulebook's sizes
+    (torch.cuda.set_sync_debug_mode("warn"), counted), two Memcpy DtoH a
+    batch, that read and the rows (torch.profiler), instances/s of both
+    printed with no claim; (e) a 6-step Solver epoch at batch 4 with profile_dir, whose
     trace of steps 2-4 holds CUDA kernels of K1-K5. `python3 chip_smoke.py
     --phase 17` runs phases 1, 2 and 17 alone;
 18. prints the per-kernel JSON line (the f32 kernels and the bf16
@@ -4050,10 +4051,13 @@ def pipelined_eval_check(card, model, model_b, batches, bank, model_points) -> N
     copy waited for as it is dispatched) on
     PIPELINE_BATCHES batches, f32 and bf16: the per-row distances and the
     summary torch.equal; batch i + 1 dispatched before batch i is fetched,
-    the last batch fetched after the loop; no host sync while a batch is
-    dispatched (torch.cuda.set_sync_debug_mode("error")); one device-to-host
-    copy a batch (torch.profiler's Memcpy DtoH); instances/s of both, with
-    no claim."""
+    the last batch fetched after the loop; one host sync while a batch is
+    dispatched, the eval backbone's read of its rulebook's sizes
+    (models/backbone.py; torch.cuda.set_sync_debug_mode("warn"), counted);
+    two device-to-host copies a batch, that read and the rows
+    (torch.profiler's Memcpy DtoH); instances/s of both, with no claim."""
+    import warnings
+
     import numpy as np
     import torch
 
@@ -4078,7 +4082,7 @@ def pipelined_eval_check(card, model, model_b, batches, bank, model_points) -> N
         for pipe in (False, True):
             ev = Evaluator(m, model_points, template_bank=bank)
             ev.evaluate(run[:1])  # warm-up: the first calls' lazy set-up may sync
-            fetched, order = [], []
+            fetched, order, syncs = [], [], []
             fetch, dispatch = ev._fetch, ev._dispatch
 
             def counted_fetch(pending, fetch=fetch, fetched=fetched):
@@ -4086,13 +4090,17 @@ def pipelined_eval_check(card, model, model_b, batches, bank, model_points) -> N
                 return fetched[-1]
 
             def guarded_dispatch(batch, dispatch=dispatch, fetch=fetch, fetched=fetched,
-                                 order=order, strict=not pipe):
+                                 order=order, syncs=syncs, strict=not pipe):
                 order.append(len(fetched))
-                torch.cuda.set_sync_debug_mode("error")
-                try:
-                    pending = dispatch(batch)
-                finally:
-                    torch.cuda.set_sync_debug_mode("default")
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    torch.cuda.set_sync_debug_mode("warn")
+                    try:
+                        pending = dispatch(batch)
+                    finally:
+                        torch.cuda.set_sync_debug_mode("default")
+                syncs.append(sum("synchronizing CUDA operation" in str(w.message)
+                                 for w in caught))
                 if strict:  # the reference: batch i done before batch i + 1 is queued
                     fetch(pending)
                 return pending
@@ -4106,7 +4114,10 @@ def pipelined_eval_check(card, model, model_b, batches, bank, model_points) -> N
             check(order == want and len(fetched) == PIPELINE_BATCHES,
                   f"{name} pipelined={pipe}: batches fetched before each dispatch {order}, "
                   f"expected {want}; {len(fetched)} fetched")
-            check(copies == PIPELINE_BATCHES,
+            check(syncs == [1] * PIPELINE_BATCHES,
+                  f"{name} pipelined={pipe}: host syncs a dispatch {syncs}, expected the "
+                  f"rulebook's one")
+            check(copies == 2 * PIPELINE_BATCHES,
                   f"{name} pipelined={pipe}: {copies} device-to-host copies for "
                   f"{PIPELINE_BATCHES} batches")
             ev._fetch = fetch
@@ -4123,8 +4134,9 @@ def pipelined_eval_check(card, model, model_b, batches, bank, model_points) -> N
               == json.dumps(r1, sort_keys=True, default=str),
               f"{name}: pipelined summary differs from strict order")
         print(f"pipelined Evaluator ({name}) on {card}: {PIPELINE_BATCHES} batches of {BATCH}, "
-              f"per-row distances torch.equal to strict order, one device-to-host copy a "
-              f"batch, no sync in a dispatch; instances/s strict {rates[False]:.1f}, "
+              f"per-row distances torch.equal to strict order, two device-to-host copies a "
+              f"batch, one sync in a dispatch (the rulebook's read); instances/s strict "
+              f"{rates[False]:.1f}, "
               f"pipelined {rates[True]:.1f} (no claim: one run each); the sync-free "
               f"projection {e_proj:.3g} from the SVD's in f64", flush=True)
 

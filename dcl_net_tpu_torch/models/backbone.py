@@ -4,7 +4,9 @@ Counterpart of dcl_net_tpu/models/backbone.py. Dims
 (7,16,32,32,64,64,128,128,256): 8 conv blocks in 4 modules, the first of
 each module regular (dilating), the second submanifold, each module closed
 by a true-average pool (kernel 3, stride 2). Grids 64^3 -> 32^3 -> 16^3 ->
-8^3 -> 4^3; the pyramid is the 4 pooled levels.
+8^3 -> 4^3; the pyramid is the 4 pooled levels. Training and the serving
+artifacts run it densely over the masked grids; the eager eval-mode
+forwards on the active sites alone, the same levels (SparseBackbone).
 
 At each level the occupied voxels are compacted (kernel K2,
 ops/cuda_compact.py) and interpolated back onto the points by 3-NN:
@@ -28,6 +30,8 @@ masks, occupancies, voxel centers and points stay f32.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -38,12 +42,39 @@ from dcl_net_tpu_torch.models.blocks import SparseConvBlock
 from dcl_net_tpu_torch.ops import cuda_compact, cuda_fused, cuda_interp
 from dcl_net_tpu_torch.ops.grid_interp import local_grid_interpolate
 from dcl_net_tpu_torch.ops.sparse_conv import (
-    sparse_avg_pool, voxel_center_affine, window_sum_rows,
+    ActiveSet, avg_pool_rows, scatter_rows, site_rows, sparse_avg_pool,
+    voxel_center_affine, window_sum_rows, window_table,
 )
+from dcl_net_tpu_torch.telemetry import span
+
+# set while a serving module runs (serving.py): its backbones take the dense
+# path, which torch.export can trace at a static shape
+_DENSE = contextvars.ContextVar("dclx_dense_backbone", default=False)
+
+
+@contextlib.contextmanager
+def _dense_backbone():
+    """The context in which every backbone takes its dense path."""
+    token = _DENSE.set(True)
+    try:
+        yield
+    finally:
+        _DENSE.reset(token)
 
 
 class SparseBackbone(nn.Module):
-    """4-module sparse conv pyramid returning 4 pooled (feats, mask) levels."""
+    """4-module sparse conv pyramid returning 4 pooled (feats, mask) levels.
+
+    Two paths give the same levels. _forward_dense convolves and pools the
+    whole masked grid (F.conv3d, window sums): it runs in training (masked
+    batch statistics, remat, cuDNN's weight and input gradients), while
+    torch.export traces, and inside the serving modules (serving.py), so
+    an exported artifact and its direct module run the same static-shape
+    graph. _forward_active runs every other forward, the eager eval-mode
+    ones (Evaluator, Stage2Evaluator, the template caches, the CLIs): the
+    blocks on the active sites alone, with a neighbour table a conv or pool
+    (ops/sparse_conv.py), then each pooled level scattered into its dense
+    grid, zero where inactive."""
 
     def __init__(self, dims: Sequence[int] = (7, 16, 32, 32, 64, 64, 128, 128, 256),
                  stride_layers: Sequence[int] = (1, 3, 5), kernel_size: int = 3,
@@ -72,6 +103,12 @@ class SparseBackbone(nn.Module):
 
     def forward(self, grid: torch.Tensor, mask: torch.Tensor
                 ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+        if self.training or torch.compiler.is_compiling() or _DENSE.get():
+            return self._forward_dense(grid, mask)
+        return self._forward_active(grid, mask)
+
+    def _forward_dense(self, grid: torch.Tensor, mask: torch.Tensor
+                       ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
         outputs = []
         x, m = grid, mask
         for i in range(self.n_layers):
@@ -80,6 +117,55 @@ class SparseBackbone(nn.Module):
                 x, m = sparse_avg_pool(x, m, self.kernel_size, 2)
                 outputs.append((x, m))
         return outputs
+
+    def _forward_active(self, grid: torch.Tensor, mask: torch.Tensor
+                        ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+        """The eval-mode pyramid on active sites (the class docstring): the
+        rulebook (_rulebook), then the blocks on rows, each conv a gather
+        of its neighbour rows and GEMMs of a few taps each, each pool a
+        window sum over the active count, each pooled level scattered into
+        a zeroed dense grid."""
+        with span("model.backbone.rulebook"):
+            sets, steps = self._rulebook(mask)
+        with span("model.backbone.active"):
+            outputs = []
+            rows = site_rows(grid, sets[0])
+            for i, a, b, table in steps:
+                if i is None:
+                    rows = avg_pool_rows(rows, table, self.kernel_size)
+                    outputs.append((scatter_rows(rows, sets[b]), sets[b].mask(mask.dtype)))
+                else:
+                    rows = getattr(self, f"conv{i}").forward_rows(rows, table)
+        return outputs
+
+    def _rulebook(self, mask: torch.Tensor):
+        """The active sets and tables of the pyramid for the input mask.
+
+        Every block's output set densely first, one channel: a regular conv
+        dilates its input set, a submanifold conv keeps it, a pool keeps the
+        cells whose window holds a site (ActiveSet.window_any). Then the
+        sizes of all the sets, read on the host at once (the path's one
+        host wait), each set's sites in raster order, and one table a
+        distinct (input, output) pair. Returns (sets, steps), a step
+        (block index, or None for a pool; input set; output set; table)."""
+        k = self.kernel_size
+        sets = [ActiveSet.of_mask(mask, k // 2)]
+        pairs = []  # (block index or None, input set, output set)
+        for i in range(self.n_layers):
+            cur = len(sets) - 1
+            if not getattr(self, f"conv{i}").subm:
+                sets.append(sets[cur].window_any(k, 1))
+            pairs.append((i, cur, len(sets) - 1))
+            if i in self.module_end:
+                sets.append(sets[-1].window_any(k, 2))
+                pairs.append((None, len(sets) - 2, len(sets) - 1))
+        for s, n in zip(sets, torch.cat([s.count() for s in sets]).tolist()):
+            s.index(n)
+        tables = {}
+        for i, a, b in pairs:
+            if (a, b) not in tables:
+                tables[a, b] = window_table(sets[b], sets[a], k, 1 if i is not None else 2)
+        return sets, [(i, a, b, tables[a, b]) for i, a, b in pairs]
 
 
 class MultiScalePointFeatures(nn.Module):

@@ -28,7 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from dcl_net_tpu_torch.ops.sparse_conv import dilate_mask, masked_moments
+from dcl_net_tpu_torch.ops.sparse_conv import conv_rows, dilate_mask, masked_moments
 from dcl_net_tpu_torch.parallel.mesh import (
     active, all_reduce_sum, all_reduce_sum_grad, batch_group,
 )
@@ -210,7 +210,12 @@ class SparseConvBlock(nn.Module):
     In eval mode the BN running statistics fold into the conv
     (w' = w * s, b' = beta - mean * s, s = gamma / sqrt(var + eps)): one
     conv, then ReLU, then the re-mask that keeps inactive voxels at zero,
-    done in place on the conv's output.
+    done in place on the conv's output. forward runs it densely over the
+    whole grid: training, and the exported serving artifacts
+    (models/backbone.py says which forwards take which path);
+    forward_rows runs the folded conv on the active sites alone, a gather
+    and GEMMs (ops/sparse_conv.py::conv_rows), for the eager eval-mode
+    forwards.
     In train mode the conv output is normalised by MaskedBatchNorm over the
     voxels active after the conv (dcl_net_tpu/models/blocks.py:130-145).
     Input invariant: x is zero at inactive voxels.
@@ -243,15 +248,33 @@ class SparseConvBlock(nn.Module):
                          padding=k // 2)
             y = self.bn(y.permute(0, 2, 3, 4, 1), new_mask).to(dt)
             return torch.relu(y) * new_mask[..., None].to(y.dtype), new_mask
-        s = self.bn.weight / torch.sqrt(self.bn.running_var + self.bn.eps)
-        w_eff = self.conv.weight * s[:, None, None, None, None]
-        b_eff = self.bn.bias - self.bn.running_mean * s
+        w_eff, b_eff = self.folded()
         y = F.conv3d(x.to(dt).permute(0, 4, 1, 2, 3), w_eff.to(dt),
                      padding=k // 2).permute(0, 2, 3, 4, 1)
         # in place on the conv's fresh output: the values of y + b_eff, relu
         # and the re-mask, in one grid buffer instead of three
         y.add_(b_eff.to(dt)).relu_().mul_(new_mask[..., None].to(y.dtype))
         return y, new_mask
+
+    def folded(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The eval-mode kernel and bias with the BN running statistics
+        folded in (f32): (w * s, beta - mean * s), s = gamma / sqrt(var +
+        eps)."""
+        s = self.bn.weight / torch.sqrt(self.bn.running_var + self.bn.eps)
+        w_eff = self.conv.weight * s[:, None, None, None, None]
+        return w_eff, self.bn.bias - self.bn.running_mean * s
+
+    def forward_rows(self, rows: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+        """The eval-mode block on active sites (ops/sparse_conv.py::
+        conv_rows): rows [n_in + 1, C_in] with a zero last row, table the
+        conv's neighbour table [n_out, k^3]; returns [n_out + 1, C_out].
+        The values of forward at the output set's sites, with the same
+        compute type and rounding steps; no re-mask, since only active
+        sites have rows."""
+        w_eff, b_eff = self.folded()
+        dt = self.dtype or rows.dtype
+        weight = w_eff.permute(2, 3, 4, 1, 0).reshape(-1, w_eff.shape[0])
+        return conv_rows(rows.to(dt), table, weight.to(dt), b_eff.to(dt))
 
 
 class PointMLP(nn.Module):

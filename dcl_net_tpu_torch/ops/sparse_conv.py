@@ -8,11 +8,18 @@ statistics run over occupied voxels only. Besides DCL-Net's path: the
 sparse max pool (with the reference's tie-exact gradient), the sparse
 transposed conv and the sparse inverse conv, which DCL-Net never runs.
 Grids are channel-last [B, D0, D1, D2, C]; masks are [B, D0, D1, D2].
+
+The same conv and pool also run on the active sites alone (ActiveSet,
+window_table, conv_rows, avg_pool_rows): each site set is a list
+of rows in raster order (b, d0, d1, d2), a k^3 neighbour table of row ids
+per conv or pool, and a gather and a few GEMMs per conv (the eval-mode
+backbone, models/backbone.py).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import functools
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -122,6 +129,212 @@ def sparse_avg_pool(feats: torch.Tensor, mask: torch.Tensor, kernel: int = 3,
     new_mask = (cnt > 0).to(mask.dtype)
     out = s / float(kernel ** 3) if use_gs else s / torch.clamp(cnt, min=1.0)[..., None]
     return out * new_mask[..., None].to(feats.dtype), new_mask
+
+
+GATHER_BYTES = 1 << 30  # bytes of one gathered block of conv_rows / avg_pool_rows
+GEMM_K = 64  # the most terms of one GEMM's sums in conv_rows
+
+
+class ActiveSet:
+    """The active sites of one grid, numbered in raster order (b, d0, d1,
+    d2), the order torch.nonzero gives.
+
+    occ is the occupancy padded with `pad` cells of False on each side of
+    each spatial axis, [B, P0, P1, P2] bool, so that a k^3 window (pad =
+    k // 2) of any site reads inside it. The constructor queues the
+    occupancy's running count (no host wait), count() is its total as a
+    one-element tensor, and index(n), with that total read on the host,
+    lists the sites. A site's row id is its running count less one, so
+    ids() reads the rows of any cells from the occupancy and the running
+    count alone, without a grid of ids."""
+
+    def __init__(self, occ: torch.Tensor, pad: int):
+        self.occ = occ
+        self.pad = int(pad)
+        self.padded = tuple(int(d) for d in occ.shape)
+        b, *dims = self.padded
+        self.shape = (b, *(d - 2 * self.pad for d in dims))
+        self._running = torch.cumsum(occ.reshape(-1), 0, dtype=torch.int32)
+        self.n: Optional[int] = None
+
+    @classmethod
+    def of_mask(cls, mask: torch.Tensor, pad: int) -> "ActiveSet":
+        """The sites where mask [B, D0, D1, D2] > 0."""
+        return cls(F.pad(mask > 0, (pad,) * 6), pad)
+
+    def window_any(self, kernel: int, stride: int) -> "ActiveSet":
+        """The cells whose k^3 window (this stride, padding self.pad) holds a
+        site: at stride 1 dilate_mask's set (a regular conv's output), at
+        stride 2 sparse_avg_pool's. Three separable passes of ORs of
+        strided views of the padded occupancy, one an axis (on a bool grid:
+        max_pool3d and avg_pool3d take floats, and max_pool3d writes int64
+        indices besides)."""
+        x = self.occ
+        for axis, d in enumerate(self.shape[1:], start=1):
+            length = (d + 2 * self.pad - kernel) // stride + 1
+            taps = []
+            for a in range(kernel):
+                cut = [slice(None)] * 4
+                cut[axis] = slice(a, a + (length - 1) * stride + 1, stride)
+                taps.append(x[tuple(cut)])
+            x = functools.reduce(torch.bitwise_or, taps)
+        return ActiveSet(F.pad(x, (self.pad,) * 6), self.pad)
+
+    def mask(self, dtype: torch.dtype) -> torch.Tensor:
+        """The unpadded occupancy [B, D0, D1, D2] as 0 / 1 of `dtype`."""
+        p = self.pad
+        _, d0, d1, d2 = self.shape
+        return self.occ[:, p:p + d0, p:p + d1, p:p + d2].to(dtype)
+
+    def count(self) -> torch.Tensor:
+        """The number of sites, [1] int32 on the device."""
+        return self._running[-1:]
+
+    def index(self, n: int) -> None:
+        """List the sites, given their number as count() read it."""
+        self.n = int(n)
+        want = torch.arange(1, self.n + 1, dtype=torch.int32, device=self.occ.device)
+        self.sites = torch.searchsorted(self._running, want)
+
+    def ids(self, cells: torch.Tensor) -> torch.Tensor:
+        """The row ids of cells of the flat padded grid, -1 where inactive
+        (the padding included), int32 of cells' shape."""
+        return torch.where(self.occ.reshape(-1)[cells], self._running[cells] - 1, -1)
+
+    def coords(self) -> List[torch.Tensor]:
+        """(b, d0, d1, d2) of each site, unpadded, as four [n] int64."""
+        _, p0, p1, p2 = self.padded
+        s = self.sites
+        out = [s % p2 - self.pad]
+        s = s // p2
+        out.append(s % p1 - self.pad)
+        s = s // p1
+        out.append(s % p0 - self.pad)
+        out.append(s // p0)
+        return out[::-1]
+
+    def linear(self) -> torch.Tensor:
+        """Each site's index in the unpadded grid flattened, [n] int64."""
+        b, z, y, x = self.coords()
+        _, d0, d1, d2 = self.shape
+        return ((b * d0 + z) * d1 + y) * d2 + x
+
+
+def window_table(out: ActiveSet, inp: ActiveSet, kernel: int, stride: int) -> torch.Tensor:
+    """The neighbour table of a conv or pool of kernel k, `stride` and
+    padding inp.pad (k // 2) from the sites of `inp` to those of `out`: for
+    each output site q and tap (a, b, c) in F.conv3d's order (d0, then d1,
+    then d2), the row of `inp` at q * stride - pad + (a, b, c), or -1 where
+    that cell is inactive or outside the grid. A stride-1 conv's `out` lies
+    on inp's grid; a pool's on the grid it pools to. [n_out, k^3] int32."""
+    b, z, y, x = out.coords()
+    _, p0, p1, p2 = inp.padded
+    corner = ((b * p0 + stride * z) * p1 + stride * y) * p2 + stride * x
+    a = torch.arange(kernel, device=corner.device)
+    taps = ((a[:, None, None] * p1 + a[None, :, None]) * p2 + a[None, None, :]).reshape(-1)
+    return inp.ids(corner[:, None] + taps)
+
+
+def site_rows(grid: torch.Tensor, sites: ActiveSet) -> torch.Tensor:
+    """The rows of a dense grid [B, D0, D1, D2, C] at the sites, with one
+    zero row after them: [n + 1, C]."""
+    c = grid.shape[-1]
+    rows = grid.new_zeros((sites.n + 1, c))
+    torch.index_select(grid.reshape(-1, c), 0, sites.linear(), out=rows[:sites.n])
+    return rows
+
+
+def scatter_rows(rows: torch.Tensor, sites: ActiveSet) -> torch.Tensor:
+    """The dense grid [B, D0, D1, D2, C] that holds rows[:n] at the sites
+    and exact zeros elsewhere."""
+    c = rows.shape[-1]
+    grid = rows.new_zeros((*sites.shape, c))
+    grid.view(-1, c).index_copy_(0, sites.linear(), rows[:sites.n])
+    return grid
+
+
+def _gather_rows(rows: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """rows[table], -1 reading the zero row that ends rows: [*table.shape,
+    C]. Indexed by row and channel together, so that the gather runs a
+    thread an element: rows[table] alone (as index_select and a gather
+    over an expanded index) gives each row a thread block of its own,
+    whose count, not the bytes, sets the time on rows of 16 to 64
+    channels."""
+    channels = torch.arange(rows.shape[1], device=rows.device)
+    return rows[table.unsqueeze(-1), channels]
+
+
+def _chunks(n: int, row_bytes: int):
+    """Row ranges of [0, n) whose gathered block stays within GATHER_BYTES."""
+    step = max(1, GATHER_BYTES // max(row_bytes, 1))
+    return [(s, min(n, s + step)) for s in range(0, n, step)]
+
+
+def conv_rows(rows: torch.Tensor, table: torch.Tensor, weight: torch.Tensor,
+              bias: torch.Tensor) -> torch.Tensor:
+    """relu(conv + bias) on the active sites, output-stationary: each output
+    row gathers its k^3 neighbour rows (-1 reads the zero row that ends
+    `rows`) into [n_out, k^3 * C_in] and multiplies it by `weight`
+    [k^3 * C_in, C_out] (F.conv3d's kernel [C_out, C_in, k, k, k] permuted
+    to (k, k, k, C_in, C_out)); then the bias add and the ReLU on the rows.
+    No scatter: every output row is written once.
+
+    The product sums in at least f32 (a bf16 block and weight are widened,
+    so their products are exact) and is cast to the rows' type once, then
+    the bias add and the ReLU run in that type, as F.conv3d's bf16 path
+    does. It runs as GEMMs of at most GEMM_K terms, a few taps each,
+    added in tap order: a BLAS splits a longer sum in an order that
+    follows the number of rows and of threads (MKL does), and a sample's
+    rows must not depend on the batch around them, as the dense path's
+    per-sample conv does not. The gathered block is split by rows to stay
+    within GATHER_BYTES.
+
+    rows [n_in + 1, C_in] (the last row zero), table [n_out, k^3] int32;
+    returns [n_out + 1, C_out], its last row zero."""
+    n_out, taps = table.shape
+    c_in, c_out = rows.shape[1], weight.shape[1]
+    wide = torch.promote_types(rows.dtype, torch.float32)
+    per = max(1, GEMM_K // c_in)  # taps a GEMM
+    weight = weight.to(wide)
+    out = rows.new_empty((n_out + 1, c_out))
+    out[n_out].zero_()
+    for s, e in _chunks(n_out, taps * c_in * weight.element_size()):
+        block = _gather_rows(rows, table[s:e]).view(e - s, taps * c_in).to(wide)
+        acc = out[s:e] if out.dtype == wide else block.new_empty((e - s, c_out))
+        for t in range(0, taps, per):
+            a, b = t * c_in, min(taps, t + per) * c_in
+            if t == 0:
+                torch.mm(block[:, a:b], weight[a:b], out=acc)
+            else:
+                acc.addmm_(block[:, a:b], weight[a:b])
+        if acc.dtype != out.dtype:
+            out[s:e] = acc
+    out[:n_out].add_(bias).relu_()
+    return out
+
+
+def avg_pool_rows(rows: torch.Tensor, table: torch.Tensor, kernel: int) -> torch.Tensor:
+    """sparse_avg_pool on the active sites: each output row is the sum of
+    its window's rows (-1 reads the zero row) over the count of active rows
+    in the window. The window is summed as window_sum sums it, three
+    k-tap passes (d0, then d1, then d2), each in at least f32 and cast
+    back to the rows' type: in bf16 rounded after each pass, as the JAX
+    package's bf16 pool is.
+
+    rows [n_in + 1, C] (the last row zero), table [n_out, k^3] int32;
+    returns [n_out + 1, C], its last row zero."""
+    n_out, taps = table.shape
+    c = rows.shape[1]
+    out = rows.new_empty((n_out + 1, c))
+    out[n_out].zero_()
+    wide = torch.promote_types(rows.dtype, torch.float32)
+    count = (table >= 0).sum(dim=1).to(rows.dtype)
+    for s, e in _chunks(n_out, taps * c * rows.element_size()):
+        x = _gather_rows(rows, table[s:e]).view(e - s, kernel, kernel, kernel, c)
+        for _ in range(3):
+            x = x.to(wide).sum(dim=1).to(rows.dtype)
+        torch.div(x, count[s:e, None], out=out[s:e])
+    return out
 
 
 def masked_moments(feats: torch.Tensor, mask: torch.Tensor, group=None

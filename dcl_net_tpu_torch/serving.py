@@ -57,6 +57,7 @@ from torch.export.passes import move_to_device_pass
 
 from dcl_net_tpu_torch import strict_f32
 from dcl_net_tpu_torch.data.schema import batch_to_torch
+from dcl_net_tpu_torch.models.backbone import _dense_backbone
 from dcl_net_tpu_torch.models.refiner import refine_pose
 from dcl_net_tpu_torch.ops import library  # noqa: F401  (registers the dclx ops)
 from dcl_net_tpu_torch.parallel.mesh import allgather_rows, shard_batch
@@ -97,7 +98,11 @@ class ServeStage1(nn.Module):
             self.register_buffer(f"tmp_{key}", tmp_cache[key])
 
     def stage1(self, feats, voxel_idx, obj_idx) -> Dict[str, torch.Tensor]:
-        obs = self.model.encode_observed({"inp": {"feats": feats, "voxel_idx": voxel_idx}})
+        # the dense backbone, called directly as exported: an artifact needs
+        # static shapes (models/backbone.py::SparseBackbone)
+        with _dense_backbone():
+            obs = self.model.encode_observed(
+                {"inp": {"feats": feats, "voxel_idx": voxel_idx}})
         cls = obj_idx.long()
         tmp = {key: getattr(self, f"tmp_{key}")[cls] for key in self.cache_keys}
         return self.model.fuse(obs, tmp)

@@ -43,6 +43,11 @@ OPT_CFG = {
 
 ENCODE = [("model.voxelize", []), ("model.backbone", []), ("model.point_feats", []),
           ("model.heads", [])]
+# an eval-mode encode: the backbone on active sites (models/backbone.py)
+ENCODE_EVAL = [("model.voxelize", []),
+               ("model.backbone", [("model.backbone.rulebook", []),
+                                   ("model.backbone.active", [])]),
+               ("model.point_feats", []), ("model.heads", [])]
 FUSE = ("model.fuse", [])
 
 
@@ -120,11 +125,11 @@ def _evaluate(data):
 
 def test_evaluator_spans_and_outputs(data):
     (summary, runs), tree = _profiled(lambda: _evaluate(data))
-    dispatch = ("eval.dispatch", [("eval.h2d", [])] + ENCODE
+    dispatch = ("eval.dispatch", [("eval.h2d", [])] + ENCODE_EVAL
                 + [FUSE, ("eval.score", []), ("eval.rows", [])])
     fetch = [("eval.fetch", []), ("eval.consume", [])]
     # the template cache's encode, then one deep: dispatch 0, 1, fetch 0, 1
-    assert tree == ENCODE + [dispatch, dispatch] + fetch + fetch
+    assert tree == ENCODE_EVAL + [dispatch, dispatch] + fetch + fetch
     plain_summary, plain_runs = _evaluate(data)
     assert summary == plain_summary
     for a, b in zip(runs, plain_runs, strict=True):
